@@ -6,21 +6,42 @@ Phases, in order; any failure exits non-zero:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
    TF32 off for matmuls and cuDNN;
-2. build the span kernels from ``scaling_rgcn_training_tpu_torch/csrc``;
-3. each kernel against its plain PyTorch version on the card, for
+2. build every kernel source in ``scaling_rgcn_training_tpu_torch/csrc``
+   (one ``nvcc`` per source, all at once);
+3. the span kernels against their plain PyTorch versions on the card, for
    ``out``, ``dx`` and ``dW``: at a small edge-case shape (d_in 63, d_out 4
    and 11, empty relations, nodes with no edges) and at the bench shape
    (N 200,000, E 4,000,000, 91 relation slots, d 64 -> hidden 16 -> C 8);
-   plus wide rows over 30 relations (several relation passes);
-   float32 within rtol 1e-4 and atol 1e-4 * max|ref| (summation order
-   differs), bfloat16 inputs within 2e-2 * max|ref|; kernel and plain
-   times at the bench shape; then the conv's autograd on the card against
-   the same conv on the CPU;
-4. ``Trainer.fit`` of the baseline embedding model at the bench shape,
-   10 epochs in float32 and 10 with bfloat16 edge streams: finite losses,
-   the kernels' launch counters advanced on every step, ms/step;
-5. the CLI on the GPU (summary pre-training, transfer, fine-tuning) on a
-   synthetic dataset; the results JSON must exist.
+   plus wide rows over 30 relations (several relation passes); kernel and
+   plain times at the bench shape; then the conv's autograd on the card
+   against the same conv on the CPU;
+4. the segment-sum, grouped-matmul and d_rhs kernels against their plain
+   versions: edge cases (empty groups and rows, groups spanning tiles, row
+   counts off the tiles, widths of every class the kernels dispatch on:
+   h 4 to 130, 63 -> 4 and 11, 16 -> 8, 8 -> 16, 24 -> 32, d_rhs at
+   256 x 64) and every product and sum of an edge-mode step at the bench
+   shape (#4 over 91 groups: 64 -> 16 and 16 -> 8, d_lhs 16 -> 64 and
+   8 -> 16; #5 64 x 16 and 16 x 8; #3 [4M, h] -> 200k rows for h 8, 16,
+   64); two runs give the same bits; kernel, plain and library times of
+   layer 1's (the library yardstick: one ``torch.segment_reduce``, one
+   ``torch.matmul`` per group);
+5. ``Trainer.fit`` of the baseline embedding model at the bench shape, 10
+   epochs in float32 and 10 with bfloat16 edge streams, first with the
+   fused conv (span kernels), then on the same graph built without the span
+   plan with ``backend="pallas"`` (edge mode: kernels #3, #4, #5; its f32
+   losses must match the fused run's), then ``aggr="attention"`` for 5
+   epochs: finite losses, the kernels' launch counters advanced on every
+   step, ms/step and peak memory;
+6. ``rgcn_conv`` in ``mode="auto"`` on a layer too wide for the span
+   kernels (128 -> 64) at the bench N and E: it must take the edge mode
+   and match the plain versions, forward and backward;
+7. the CLI on the GPU (summary pre-training, transfer, fine-tuning) on a
+   synthetic dataset, once with ``-emb 128 -hl 64`` (a first layer the
+   span kernels refuse) and once with ``-backend pallas -aggr attention``;
+   the results JSON must exist.
+
+Tolerances: float32 within rtol 1e-4 and atol 1e-4 * max|ref| (summation
+order differs), bfloat16 inputs within 2e-2 * max|ref|.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -41,11 +62,15 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "scaling_rgcn_training_tpu_torch"
 
-# bench shape (bench.py: N, E, R, d, hl, C)
-N, E, R, D, HL, C = 200_000, 4_000_000, 45, 64, 16, 8
-SLOTS = 2 * R + 1
 EPOCHS = 10
+ATT_EPOCHS = 5
 WARMUP = 3
+# H100 SXM: HBM bytes/s; peak operations/s by input type (CUDA-core f32,
+# dense bf16 tensor cores)
+HBM_RATE = 3.35e12
+PEAK_RATE = {"float32": 67e12, "bfloat16": 989e12}
+JAX_PKG = "scaling_rgcn_training_tpu/"
+DEV = "cuda"
 
 
 def fail(msg: str) -> None:
@@ -62,7 +87,7 @@ def check_close(name: str, got, ref, bf16: bool) -> float:
     bf16 inputs: |got - ref| <= 2e-2 * max|ref|."""
     import torch
 
-    got, ref = got.float(), ref.float()
+    got, ref = got.detach().float(), ref.detach().float()
     if got.shape != ref.shape:
         fail(f"{name}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
     if not torch.isfinite(got).all():
@@ -94,6 +119,32 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_kernel(kernel, plain, library=None, reps=20, plain_reps=3) -> dict:
+    """CUDA-event times, in the order plain, kernel, [library, library,]
+    kernel, plain; each the mean of its two batches."""
+    for f in (kernel, plain, library):
+        if f is not None:
+            f()
+    p1, k1 = cuda_time_ms(plain, plain_reps), cuda_time_ms(kernel, reps)
+    lib = None
+    if library is not None:
+        lib = (cuda_time_ms(library, reps) + cuda_time_ms(library, reps)) / 2
+    k2, p2 = cuda_time_ms(kernel, reps), cuda_time_ms(plain, plain_reps)
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, ops: float, dtype_name: str) -> dict:
+    """Least time on an H100 SXM: the larger of bytes over the HBM rate and
+    operations over the peak rate for the input type."""
+    t_bytes, t_ops = n_bytes / HBM_RATE, ops / PEAK_RATE[dtype_name]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def random_graph(rng, n, e, slots, n_live=None, live_rels=None):
     n_live = n if n_live is None else n_live
     src = rng.integers(0, n_live, e).astype(np.int32)
@@ -103,7 +154,11 @@ def random_graph(rng, n, e, slots, n_live=None, live_rels=None):
     return src, dst, typ
 
 
-def compare_kernels(sk, plan, d_in, d_out, dtype, rng, tag, timing=False):
+def dtype_name(dtype) -> str:
+    return str(dtype)[6:]
+
+
+def compare_span_kernels(sk, plan, d_in, d_out, dtype, rng, tag, timing=False):
     """span_forward / span_backward against their plain versions."""
     import torch
 
@@ -134,24 +189,105 @@ def compare_kernels(sk, plan, d_in, d_out, dtype, rng, tag, timing=False):
     if not (torch.equal(out, out2) and torch.equal(dx, dx2) and torch.equal(dw, dw2)):
         fail(f"{tag}: two kernel runs differ")
     if timing:
-        reps = 20
-        fwd_k = lambda: sk.span_forward(x, w, plan)
-        fwd_p = lambda: sk.span_forward_plain(x, w, plan)
-        bwd_k = lambda: sk.span_backward(g, x, w, plan)
-        bwd_p = lambda: sk.span_backward_plain(g, x, w, plan)
-        for f in (fwd_k, fwd_p, bwd_k, bwd_p):
-            f()
-        # plain, kernel, kernel, plain
-        p1, k1 = cuda_time_ms(fwd_p, reps), cuda_time_ms(fwd_k, reps)
-        k2, p2 = cuda_time_ms(fwd_k, reps), cuda_time_ms(fwd_p, reps)
-        res["fwd_ms"], res["fwd_plain_ms"] = (k1 + k2) / 2, (p1 + p2) / 2
-        p1, k1 = cuda_time_ms(bwd_p, reps), cuda_time_ms(bwd_k, reps)
-        k2, p2 = cuda_time_ms(bwd_k, reps), cuda_time_ms(bwd_p, reps)
-        res["bwd_ms"], res["bwd_plain_ms"] = (k1 + k2) / 2, (p1 + p2) / 2
-        print(f"  {tag} times: span_forward {res['fwd_ms']:.4f} ms "
-              f"(plain {res['fwd_plain_ms']:.4f} ms), span_backward "
-              f"{res['bwd_ms']:.4f} ms (plain {res['bwd_plain_ms']:.4f} ms)",
+        e = plan.fwd_src.numel()
+        ops = 2 * e * d_in * d_out
+        res["fwd"] = time_kernel(lambda: sk.span_forward(x, w, plan),
+                                 lambda: sk.span_forward_plain(x, w, plan),
+                                 reps=20, plain_reps=20)
+        res["fwd"].update(bound(nbytes(
+            x, w, plan.fwd_rowptr, plan.fwd_src, plan.fwd_rel, plan.fwd_norm,
+            out), ops, dtype_name(dtype)))
+        res["bwd"] = time_kernel(lambda: sk.span_backward(g, x, w, plan),
+                                 lambda: sk.span_backward_plain(g, x, w, plan),
+                                 reps=20, plain_reps=20)
+        res["bwd"].update(bound(nbytes(
+            g, x, w, plan.bwd_rowptr, plan.bwd_dst, plan.bwd_rel, plan.bwd_norm,
+            plan.rel_src, plan.rel_dst, plan.rel_norm, plan.chunk_lo,
+            plan.chunk_hi, plan.rel_chunk_ptr, dx, dw), 2 * ops,
+            dtype_name(dtype)))
+        print(f"  {tag} times: span_forward {res['fwd']['ms']:.4f} ms "
+              f"(plain {res['fwd']['plain_ms']:.4f} ms), span_backward "
+              f"{res['bwd']['ms']:.4f} ms (plain {res['bwd']['plain_ms']:.4f} "
+              "ms)", flush=True)
+    return res
+
+
+def check_segment(vals, rowptr, tag, timing=False) -> dict:
+    """Kernel #3 against its plain version; optionally timed beside
+    ``torch.segment_reduce``."""
+    import torch
+    from scaling_rgcn_training_tpu_torch.ops.segment_kernels import (
+        sorted_segment_sum, sorted_segment_sum_plain)
+
+    out = sorted_segment_sum(vals, rowptr)
+    again = sorted_segment_sum(vals, rowptr)
+    torch.cuda.synchronize()
+    ref = sorted_segment_sum_plain(vals, rowptr)
+    res = {"err": check_close(f"{tag} segment_sum", out, ref,
+                              vals.dtype == torch.bfloat16)}
+    if not torch.equal(out, again):
+        fail(f"{tag}: two segment_sum runs differ")
+    if timing:
+        offsets = rowptr.long()
+        res.update(time_kernel(
+            lambda: sorted_segment_sum(vals, rowptr),
+            lambda: sorted_segment_sum_plain(vals, rowptr),
+            lambda: torch.segment_reduce(vals, "sum", offsets=offsets)))
+        res.update(bound(nbytes(vals, rowptr, out), vals.numel(),
+                         dtype_name(vals.dtype)))
+        print(f"  {tag} segment_sum times: {res['ms']:.4f} ms (plain "
+              f"{res['plain_ms']:.4f}, segment_reduce {res['library_ms']:.4f})",
               flush=True)
+    return res
+
+
+def check_grouped(lhs, rhs, gout, sizes, tag, timing=False) -> dict:
+    """Kernels #4 (gmm) and #5 (gmm_drhs, unless ``gout`` is None) against
+    their plain versions; optionally timed beside one ``torch.matmul`` per
+    group."""
+    import torch
+    from scaling_rgcn_training_tpu_torch.ops import grouped_kernels as gk
+
+    bf16 = lhs.dtype == torch.bfloat16
+    out, out2 = gk.gmm(lhs, rhs, sizes), gk.gmm(lhs, rhs, sizes)
+    torch.cuda.synchronize()
+    if out.dtype != lhs.dtype:
+        fail(f"{tag}: gmm gave {out.dtype} for {lhs.dtype}")
+    res = {"gmm": {"err": check_close(f"{tag} grouped_matmul", out,
+                                      gk.gmm_plain(lhs, rhs, sizes), bf16)}}
+    if not torch.equal(out, out2):
+        fail(f"{tag}: two grouped_matmul runs differ")
+    if gout is None:
+        return res
+    drhs, drhs2 = gk.gmm_drhs(lhs, gout, sizes), gk.gmm_drhs(lhs, gout, sizes)
+    torch.cuda.synchronize()
+    if drhs.dtype != torch.float32:
+        fail(f"{tag}: gmm_drhs gave {drhs.dtype}")
+    res["drhs"] = {"err": check_close(f"{tag} grouped_drhs", drhs,
+                                      gk.gmm_drhs_plain(lhs, gout, sizes), bf16)}
+    if not torch.equal(drhs, drhs2):
+        fail(f"{tag}: two grouped_drhs runs differ")
+    if timing:
+        offs = [0] + torch.cumsum(sizes, 0).tolist()
+        spans = [(g, a, b) for g, (a, b) in enumerate(zip(offs[:-1], offs[1:]))]
+        (m, k), n = lhs.shape, rhs.shape[2]
+        name = dtype_name(lhs.dtype)
+        res["gmm"].update(time_kernel(
+            lambda: gk.gmm(lhs, rhs, sizes),
+            lambda: gk.gmm_plain(lhs, rhs, sizes),
+            lambda: torch.cat([lhs[a:b] @ rhs[g] for g, a, b in spans])))
+        res["gmm"].update(bound(nbytes(lhs, rhs, sizes, out), 2 * m * k * n, name))
+        res["drhs"].update(time_kernel(
+            lambda: gk.gmm_drhs(lhs, gout, sizes),
+            lambda: gk.gmm_drhs_plain(lhs, gout, sizes),
+            lambda: torch.stack([lhs[a:b].T @ gout[a:b] for g, a, b in spans])))
+        res["drhs"].update(bound(nbytes(lhs, gout, sizes, drhs), 2 * m * k * n,
+                                 name))
+        for key in ("gmm", "drhs"):
+            r = res[key]
+            print(f"  {tag} {key} times: {r['ms']:.4f} ms (plain "
+                  f"{r['plain_ms']:.4f}, per-group matmul {r['library_ms']:.4f})",
+                  flush=True)
     return res
 
 
@@ -170,18 +306,130 @@ def conv_autograd_check(rng):
     x0 = torch.randn((n, d_in), generator=gen)
     gout = torch.randn((n, d_out), generator=gen)
     results = {}
-    for dev in ("cuda", "cpu"):
-        plan = build_rel_edges(src, dst, typ, n, slots, device=dev)
+    for dev in (DEV, "cpu"):
+        edges = build_rel_edges(src, dst, typ, n, slots, device=dev)
         lay = init_rgcn_layer(gen, slots, d_in, d_out).to(dev)
         lay.load_state_dict(layer.state_dict())
         x = x0.to(dev).requires_grad_(True)
-        out = rgcn_conv(x, plan, lay)
+        out = rgcn_conv(x, edges, lay)
         (out * gout.to(dev)).sum().backward()
         results[dev] = [t.detach().cpu() for t in
                         (out, x.grad, lay.weight.grad, lay.root.grad, lay.bias.grad)]
     for name, got, ref in zip(("out", "dx", "dweight", "droot", "dbias"),
-                              results["cuda"], results["cpu"]):
+                              results[DEV], results["cpu"]):
         check_close(f"conv autograd {name}", got, ref, bf16=False)
+
+
+def run_fit(graph, compute_dtype, epochs, launches, **trainer_kw):
+    """One ``Trainer.fit`` from the seed-0 parameters; returns losses,
+    median ms/step, peak MiB and the launch counts of each step."""
+    import torch
+    from scaling_rgcn_training_tpu_torch.bench_shape import bench_trainer
+    from scaling_rgcn_training_tpu_torch.train.losses import bce_loss
+
+    trainer, model = bench_trainer(epochs, DEV, compute_dtype, **trainer_kw)
+    stamps, per_step = [], []
+
+    def on_epoch(epoch):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        per_step.append(dict(launches))
+
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    per_step.append(dict(launches))
+    torch.cuda.reset_peak_memory_stats()
+    _, accs, losses, _, _ = trainer.fit(model, graph, bce_loss, "sigmoid",
+                                        sum_graph=False, verbose=False,
+                                        on_epoch=on_epoch)
+    name = f"{compute_dtype or 'float32'} {trainer_kw}"
+    if len(losses) != epochs or not all(np.isfinite(losses)):
+        fail(f"trainer {name}: losses {losses}")
+    step = statistics.median((np.diff(stamps) * 1e3)[min(WARMUP, epochs - 1):])
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f"  trainer {name}: {step:.3f} ms/step (median from step "
+          f"{min(WARMUP, epochs - 1)}; each step = validation eval + "
+          f"loss/grad + Adam), loss {losses[0]:.7f} -> {losses[-1]:.7f}, "
+          f"val acc {accs[0]:.4f} -> {accs[-1]:.4f}, peak {peak:.0f} MiB",
+          flush=True)
+    steps = [{k: b[k] - a[k] for k in a} for a, b in zip(per_step, per_step[1:])]
+    return {"losses": losses, "step_ms": step, "peak_mib": peak, "steps": steps}
+
+
+def require_per_step(tag, steps, least):
+    for i, st in enumerate(steps):
+        for k, n in least.items():
+            if st[k] < n:
+                fail(f"{tag}: step {i} launched {k} {st[k]} times, "
+                     f"expected at least {n}")
+
+
+def wide_auto_check(edges, rng, launches, reset):
+    """rgcn_conv(mode="auto") on a 128 -> 64 layer (beyond the span kernels)
+    at the bench N and E: it takes the edge mode, runs kernels #3, #4 and
+    #5, and matches the plain versions forward and backward."""
+    import torch
+    from scaling_rgcn_training_tpu_torch.bench_shape import N, SLOTS
+    from scaling_rgcn_training_tpu_torch.ops import span_kernels as sk
+    from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import (
+        RGCNLayer, auto_mode, rgcn_conv)
+
+    d_in, d_out = 128, 64
+    mode = auto_mode(edges, d_in, d_out)
+    if mode != "edge":
+        fail(f"auto picked {mode!r} for {d_in} -> {d_out} at the bench shape")
+    t = lambda *shape, s=1.0: torch.as_tensor(
+        rng.standard_normal(shape) * s, dtype=torch.float32).to(DEV)
+    layer = RGCNLayer(t(SLOTS, d_in, d_out, s=0.1), t(d_in, d_out, s=0.1),
+                      t(d_out, s=0.1))
+    x = t(N, d_in).requires_grad_(True)
+    g = t(N, d_out)
+    reset()
+    out = rgcn_conv(x, edges, layer, backend="pallas", mode="auto")
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    print(f"  auto -> {mode}, launches {counts}", flush=True)
+    if counts["span_forward"] or counts["span_backward"] or \
+            counts["grouped_matmul"] < 2 or counts["segment_sum"] < 2 or \
+            counts["grouped_drhs"] < 1:
+        fail(f"wide auto conv launched {counts}")
+    with torch.no_grad():
+        xd, w = x.detach(), layer.weight.detach()
+        ref = sk.span_forward_plain(xd, w, edges.span) + xd @ layer.root + layer.bias
+        dx, dw = sk.span_backward_plain(g, xd, w, edges.span)
+        dx = dx + g @ layer.root.T
+    check_close("wide auto out", out, ref, False)
+    check_close("wide auto dx", x.grad, dx, False)
+    check_close("wide auto dW", layer.weight.grad, dw, False)
+
+
+def run_cli(extra, tag):
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                     prefix="smoke_cli_") as tmp:
+        cmd = [sys.executable, "-m", f"{PKG}.main", "-dataset", "SYNTH",
+               "-exp", "summation", "-epochs", "5", "-i", "1",
+               "-synth_entities", "20000", "-synth_degree", "8",
+               "-device", DEV, "-data_root", os.path.join(tmp, "data"),
+               "-results_root", os.path.join(tmp, "results"), *extra]
+        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
+        tail = "\n".join(res.stdout.splitlines()[-8:])
+        print(tail, flush=True)
+        if res.returncode != 0:
+            print(res.stderr[-4000:], file=sys.stderr)
+            fail(f"CLI {tag} exited {res.returncode}")
+        reports = [os.path.join(d, f)
+                   for d, _, fs in os.walk(os.path.join(tmp, "results"))
+                   for f in fs if f.endswith(".json")]
+        if not any(os.path.basename(r).startswith("report_") for r in reports):
+            fail(f"CLI {tag} wrote no results JSON ({reports})")
+        print(f"  CLI {tag} ok in {time.perf_counter() - t0:.1f} s: "
+              f"{sorted(os.path.basename(r) for r in reports)}", flush=True)
 
 
 def main() -> None:
@@ -207,140 +455,195 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
 
     phase("2 build")
+    from scaling_rgcn_training_tpu_torch import bench_shape as bs
+    from scaling_rgcn_training_tpu_torch.ops import cuda_build
     from scaling_rgcn_training_tpu_torch.ops import span_kernels as sk
 
     t0 = time.perf_counter()
-    sk._kernels()
-    print(f"built and loaded {sk.build_kernels().name} in "
+    paths = cuda_build.build()
+    print(f"built {sorted(p.name for p in paths.values())} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    for line in sk.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip(), flush=True)
+    for name, log in sorted(cuda_build.build_logs.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}:", line.strip(), flush=True)
+    launches, reset = cuda_build.LAUNCHES, cuda_build.reset_launch_counts
 
-    phase("3 kernels vs plain versions")
+    phase("3 span kernels vs plain versions")
     from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import build_rel_edges
 
     rng = np.random.default_rng(0)
     # edge cases: nodes 400..499 have no edges, relations 1, 4, 6, 8 none
     src, dst, typ = random_graph(rng, 500, 3000, 9, n_live=400,
                                  live_rels=[0, 2, 3, 5, 7])
-    small = build_rel_edges(src, dst, typ, 500, 9, device="cuda")
+    small = build_rel_edges(src, dst, typ, 500, 9, device=DEV).span
     for d_in, d_out in ((63, 4), (63, 11), (11, 63)):
         for dtype in (torch.float32, torch.bfloat16):
-            compare_kernels(sk, small, d_in, d_out, dtype, rng,
-                            f"small {d_in}->{d_out} {str(dtype)[6:]}")
+            compare_span_kernels(sk, small, d_in, d_out, dtype, rng,
+                                 f"small {d_in}->{d_out} {dtype_name(dtype)}")
     # wide rows and 30 relations: W takes several shared-memory passes
     src, dst, typ = random_graph(rng, 400, 6000, 30)
-    wide = build_rel_edges(src, dst, typ, 400, 30, device="cuda")
+    wide = build_rel_edges(src, dst, typ, 400, 30, device=DEV).span
     for dtype in (torch.float32, torch.bfloat16):
-        compare_kernels(sk, wide, 128, 32, dtype, rng,
-                        f"small 128->32 30 slots {str(dtype)[6:]}")
+        compare_span_kernels(sk, wide, 128, 32, dtype, rng,
+                             f"small 128->32 30 slots {dtype_name(dtype)}")
     t0 = time.perf_counter()
-    src, dst, typ = random_graph(np.random.default_rng(0), N, E, SLOTS)
-    plan = build_rel_edges(src, dst, typ, N, SLOTS, device="cuda")
-    print(f"bench-shape plan built in {time.perf_counter() - t0:.2f} s",
+    src, dst, typ = bs.bench_edges()
+    edges = build_rel_edges(src, dst, typ, bs.N, bs.SLOTS, device=DEV)
+    print(f"bench-shape edges built in {time.perf_counter() - t0:.2f} s",
           flush=True)
     bench = {}
-    for d_in, d_out, layer in ((D, HL, "layer1"), (HL, C, "layer2")):
+    for d_in, d_out, layer in ((bs.D, bs.HL, "layer1"), (bs.HL, bs.C, "layer2")):
         for dtype in (torch.float32, torch.bfloat16):
-            name = str(dtype)[6:]
-            bench[(layer, name)] = compare_kernels(
-                sk, plan, d_in, d_out, dtype, rng,
-                f"bench {layer} {d_in}->{d_out} {name}", timing=True)
+            bench[(layer, dtype_name(dtype))] = compare_span_kernels(
+                sk, edges.span, d_in, d_out, dtype, rng,
+                f"bench {layer} {d_in}->{d_out} {dtype_name(dtype)}", timing=True)
     conv_autograd_check(rng)
 
-    phase("4 trainer at the bench shape")
+    phase("4 segment-sum, grouped-matmul and d_rhs kernels vs plain versions")
+    from scaling_rgcn_training_tpu_torch.ops.segment_kernels import segment_rowptr
+
+    errs = {"segment_sum": 0.0, "grouped_matmul": 0.0, "grouped_drhs": 0.0}
+
+    def note(res):
+        for kname, key in (("grouped_matmul", "gmm"), ("grouped_drhs", "drhs"),
+                           ("segment_sum", "seg")):
+            if key in res:
+                errs[kname] = max(errs[kname], res[key]["err"])
+        return res
+
+    keys = np.sort(np.concatenate([rng.integers(0, 600, 3000) * 2,
+                                   np.full(700, 901)])).astype(np.int32)
+    rowptr = torch.as_tensor(segment_rowptr(keys, 1301)).to(DEV)
+    sizes = torch.tensor([0, 1500, 3, 0, 2049, 1, 0, 777], device=DEV)
+    m = int(sizes.sum())
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    new_bench = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        t = lambda *shape, s=1.0: (torch.randn(
+            shape, generator=gen, device=DEV) * s).to(dtype)
+        # every width class of the kernels' dispatch (csrc/*.cu)
+        for h in (4, 8, 11, 16, 32, 64, 130):
+            note({"seg": check_segment(t(len(keys), h), rowptr,
+                                       f"small h {h} {name}")})
+        for k, n in ((63, 4), (16, 8), (8, 16), (63, 11), (24, 32), (256, 64)):
+            note(check_grouped(t(m, k), t(len(sizes), k, n, s=0.2), t(m, n),
+                               sizes, f"small {k}->{n} {name}"))
+        # every product of an edge-mode step at the bench shape: layer 1
+        # (D -> HL) and layer 2 (HL -> C) with their dW, then their d_lhs
+        # (HL -> D, C -> HL); layer 1's are timed
+        for k, n in ((bs.D, bs.HL), (bs.HL, bs.C)):
+            r = note(check_grouped(
+                t(bs.E, k), t(bs.SLOTS, k, n, s=0.2), t(bs.E, n),
+                edges.group_sizes, f"bench {k}->{n} {name}",
+                timing=k == bs.D))
+            if k == bs.D:
+                new_bench[("grouped_matmul", name)] = r["gmm"]
+                new_bench[("grouped_drhs", name)] = r["drhs"]
+        for k, n in ((bs.HL, bs.D), (bs.C, bs.HL)):
+            note(check_grouped(t(bs.E, k), t(bs.SLOTS, k, n, s=0.2), None,
+                               edges.group_sizes, f"bench d_lhs {k}->{n} {name}"))
+        # every sum of the step: forward onto dst rows (h HL, C) and dx onto
+        # src rows (h D, HL); layer 1's are timed
+        for h, side, timed in ((bs.HL, "dst", True), (bs.C, "dst", False),
+                               (bs.D, "src", True), (bs.HL, "src", False)):
+            rp = edges.dst_rowptr if side == "dst" else edges.src_rowptr
+            r = note({"seg": check_segment(
+                t(bs.E, h), rp, f"bench [E, {h}] -> {side} rows {name}",
+                timing=timed)})["seg"]
+            if timed:
+                new_bench[("segment_sum" if side == "dst" else "segment_sum dx",
+                           name)] = r
+
+    phase("5 trainer at the bench shape")
     from scaling_rgcn_training_tpu_torch.graphs.device import DeviceGraph
-    from scaling_rgcn_training_tpu_torch.models.heads import init_emb_model
-    from scaling_rgcn_training_tpu_torch.train.losses import bce_loss
-    from scaling_rgcn_training_tpu_torch.train.trainer import Trainer
 
-    lab_rng = np.random.default_rng(1)
-    labelled = lab_rng.choice(N, 4096 + 1024, replace=False)
-    onehot = np.eye(C, dtype=np.float32)
-    graph = DeviceGraph(
-        edges=plan,
-        x_train=torch.as_tensor(labelled[:4096], dtype=torch.int64).cuda(),
-        y_train=torch.as_tensor(onehot[np.arange(4096) % C]).cuda(),
-        x_val=torch.as_tensor(labelled[4096:], dtype=torch.int64).cuda(),
-        y_val=torch.as_tensor(onehot[np.arange(1024) % C]).cuda())
-    step_ms = {}
-    sk.reset_launch_counts()
+    splits = bs.bench_splits(DEV)
+    fits = {}
+    reset()
     for cd in (None, "bfloat16"):
-        name = cd or "float32"
-        trainer = Trainer(None, HL, EPOCHS, D, lr=0.01, weight_d=5e-5, seed=0,
-                          device="cuda", compute_dtype=cd)
-        model = init_emb_model(trainer.gen, SLOTS, HL, C, N, D, device="cuda")
-        before = dict(sk.LAUNCHES)
-        stamps = []
+        fits[("fused", cd)] = run_fit(DeviceGraph(edges=edges, **splits), cd,
+                                      EPOCHS, launches)
+        require_per_step(f"fused {cd}", fits[("fused", cd)]["steps"],
+                         {"span_forward": 4, "span_backward": 2})
+    fused_launches = dict(launches)
 
-        def on_epoch(epoch):
-            torch.cuda.synchronize()
-            stamps.append(time.perf_counter())
+    t0 = time.perf_counter()
+    plain_edges = build_rel_edges(src, dst, typ, bs.N, bs.SLOTS, device=DEV,
+                                  span=False)
+    print(f"bench-shape edges without the span plan built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    non_fused = DeviceGraph(edges=plain_edges, **splits)
+    reset()
+    for cd in (None, "bfloat16"):
+        fits[("edge", cd)] = run_fit(non_fused, cd, EPOCHS, launches,
+                                     backend="pallas")
+        require_per_step(f"edge mode {cd}", fits[("edge", cd)]["steps"],
+                         {"grouped_matmul": 4, "segment_sum": 4,
+                          "grouped_drhs": 2})
+    edge_launches = dict(launches)
+    if edge_launches["span_forward"] or edge_launches["span_backward"]:
+        fail(f"edge-mode trainer launched span kernels: {edge_launches}")
+    fused_l, edge_l = (fits[(k, None)]["losses"] for k in ("fused", "edge"))
+    if not np.allclose(edge_l, fused_l, rtol=1e-4, atol=0):
+        fail(f"edge-mode f32 losses {edge_l} differ from fused {fused_l}")
+    print(f"  edge-mode f32 losses match the fused run's (max rel diff "
+          f"{max(abs(a - b) / abs(b) for a, b in zip(edge_l, fused_l)):.2e})",
+          flush=True)
+    reset()
+    fits[("attention", None)] = run_fit(non_fused, None, ATT_EPOCHS, launches,
+                                        backend="pallas", aggr="attention")
+    require_per_step("attention", fits[("attention", None)]["steps"],
+                     {"grouped_matmul": 1, "grouped_drhs": 1})
+    att_launches = dict(launches)
 
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        torch.cuda.reset_peak_memory_stats()
-        _, accs, losses, _, _ = trainer.fit(model, graph, bce_loss, "sigmoid",
-                                            sum_graph=False, verbose=False,
-                                            on_epoch=on_epoch)
-        peak = torch.cuda.max_memory_allocated() / 2**20
-        if len(losses) != EPOCHS or not all(np.isfinite(losses)):
-            fail(f"trainer {name}: losses {losses}")
-        for k in ("span_forward", "span_backward"):
-            if sk.LAUNCHES[k] - before[k] < 2 * EPOCHS:
-                fail(f"trainer {name}: {k} launched "
-                     f"{sk.LAUNCHES[k] - before[k]} times in {EPOCHS} steps")
-        steps = np.diff(stamps) * 1e3
-        step_ms[name] = statistics.median(steps[WARMUP:])
-        print(f"  trainer {name}: {step_ms[name]:.3f} ms/step (median of "
-              f"steps {WARMUP}..{EPOCHS - 1}; each step = validation eval + "
-              f"loss/grad + Adam), loss {losses[0]:.5f} -> {losses[-1]:.5f}, "
-              f"val acc {accs[0]:.4f} -> {accs[-1]:.4f}, peak "
-              f"{peak:.0f} MiB, launches {dict(sk.LAUNCHES)}", flush=True)
-    launches = dict(sk.LAUNCHES)
+    phase("6 auto mode on a layer too wide for the span kernels")
+    wide_auto_check(edges, rng, launches, reset)
 
-    phase("5 CLI on the GPU")
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
-                                     prefix="smoke_cli_") as tmp:
-        cmd = [sys.executable, "-m", f"{PKG}.main", "-dataset", "SYNTH",
-               "-exp", "summation", "-epochs", "5", "-i", "1",
-               "-synth_entities", "20000", "-synth_degree", "8",
-               "-device", "cuda", "-data_root", os.path.join(tmp, "data"),
-               "-results_root", os.path.join(tmp, "results")]
-        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
-                   + os.environ.get("PYTHONPATH", ""))
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                             text=True, timeout=600)
-        tail = "\n".join(res.stdout.splitlines()[-12:])
-        print(tail, flush=True)
-        if res.returncode != 0:
-            print(res.stderr[-4000:], file=sys.stderr)
-            fail(f"CLI exited {res.returncode}")
-        reports = [os.path.join(d, f)
-                   for d, _, fs in os.walk(os.path.join(tmp, "results"))
-                   for f in fs if f.endswith(".json")]
-        if not any(os.path.basename(r).startswith("report_") for r in reports):
-            fail(f"CLI wrote no results JSON ({reports})")
-        print(f"  CLI ok in {time.perf_counter() - t0:.1f} s: "
-              f"{sorted(os.path.basename(r) for r in reports)}", flush=True)
+    phase("7 CLI on the GPU")
+    # layer 1 (128 -> 64) is wider than the span kernels take: auto mode
+    # runs it non-fused
+    run_cli(["-emb", "128", "-hl", "64"], "summation -emb 128 -hl 64")
+    run_cli(["-backend", "pallas", "-aggr", "attention"],
+            "summation -backend pallas -aggr attention")
 
-    src_path = f"{PKG}/csrc/span_kernels.cu"
     kernels = []
-    for kname, key, replaces in (
-            ("span_forward", "fwd", "scaling_rgcn_training_tpu/ops/span_kernels.py:425"),
-            ("span_backward", "bwd", "scaling_rgcn_training_tpu/ops/span_kernels.py:542")):
-        b = bench[("layer1", "float32")]
+    b = bench[("layer1", "float32")]
+    for kname, key, replaces in (("span_forward", "fwd", "span_kernels.py:425"),
+                                 ("span_backward", "bwd", "span_kernels.py:542")):
         kernels.append({
-            "name": kname, "route": "cuda", "source": src_path,
-            "replaces": replaces, "launches": launches[kname],
+            "name": kname, "route": "cuda",
+            "source": f"{PKG}/csrc/span_kernels.cu",
+            "replaces": JAX_PKG + "ops/" + replaces,
+            "launches": fused_launches[kname],
             "max_abs_err": max(v[f"{key}_err"] for v in bench.values()),
-            "ms": b[f"{key}_ms"], "plain_ms": b[f"{key}_plain_ms"]})
-    print(json.dumps({"bench_shape_ms": {
-        f"{layer} {dt}": {k: v for k, v in r.items() if k.endswith("ms")}
-        for (layer, dt), r in bench.items()}, "step_ms": step_ms}), flush=True)
+            "ms": b[key]["ms"], "plain_ms": b[key]["plain_ms"],
+            "bound_ms": b[key]["bound_ms"], "bound_by": b[key]["bound_by"],
+            "library_ms": None})
+    for kname, src_file, replaces in (
+            ("segment_sum", "segment_kernels.cu", "segment_kernels.py:87"),
+            ("grouped_matmul", "grouped_kernels.cu", "pallas_kernels.py:56"),
+            ("grouped_drhs", "grouped_kernels.cu", "pallas_kernels.py:114")):
+        r = new_bench[(kname, "float32")]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": f"{PKG}/csrc/{src_file}",
+            "replaces": JAX_PKG + "ops/" + replaces,
+            "launches": edge_launches[kname], "max_abs_err": errs[kname],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(json.dumps({
+        "card": card,
+        "bench_shape_ms": {
+            **{f"{k} {layer} {dt}": v[k] for (layer, dt), v in bench.items()
+               for k in ("fwd", "bwd")},
+            **{f"{k} {dt}": v for (k, dt), v in new_bench.items()}},
+        "step": {f"{mode} {cd or 'float32'}": {
+            "step_ms": f["step_ms"], "peak_mib": f["peak_mib"],
+            "loss_first": f["losses"][0], "loss_last": f["losses"][-1],
+            "launches_step0": f["steps"][0]} for (mode, cd), f in fits.items()},
+        "launches": {"fused": fused_launches, "edge": edge_launches,
+                     "attention": att_launches}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

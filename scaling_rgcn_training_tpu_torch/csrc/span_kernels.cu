@@ -333,7 +333,7 @@ int span_dw(int dtype, const void* x, const void* g, const int* chunk_lo,
   return static_cast<int>(cudaGetLastError());
 }
 
-const char* span_error_string(int err) {
+const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

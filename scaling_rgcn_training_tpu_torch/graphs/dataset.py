@@ -24,7 +24,7 @@ import numpy as np
 from scaling_rgcn_training_tpu_torch.graphs import nt
 from scaling_rgcn_training_tpu_torch.graphs import processing as proc
 from scaling_rgcn_training_tpu_torch.graphs.graph import Graph
-from scaling_rgcn_training_tpu.utils import timing
+from scaling_rgcn_training_tpu_torch.utils import timing
 
 
 def train_test_split(x, y, test_size: float, seed: int = 1):

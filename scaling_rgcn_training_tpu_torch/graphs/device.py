@@ -1,8 +1,8 @@
 """DeviceGraph: the tensors one graph trains on, on an explicit device.
 
-Counterpart of the JAX package's ``graphs/device.py``: the span kernels'
-edge plan (``ops/rgcn_conv.py`` ``build_rel_edges``) plus the split index
-and label tensors. Built once per graph on the host.
+Counterpart of the JAX package's ``graphs/device.py``: the conv's edge
+layouts (``ops/rgcn_conv.py`` ``build_rel_edges``, span plan included) plus
+the split index and label tensors. Built once per graph on the host.
 """
 
 from __future__ import annotations
@@ -13,15 +13,14 @@ from typing import Optional
 import torch
 
 from scaling_rgcn_training_tpu_torch.graphs.graph import Graph
-from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import build_rel_edges
-from scaling_rgcn_training_tpu_torch.ops.span_kernels import SpanPlan
+from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import RelEdges, build_rel_edges
 
 
 @dataclasses.dataclass(frozen=True)
 class DeviceGraph:
     """Edges + splits for one graph. Summary graphs carry only the train split."""
 
-    edges: SpanPlan
+    edges: RelEdges
     x_train: torch.Tensor                    # int64 [T]  node ids with labels
     y_train: torch.Tensor                    # float32 [T, C]
     x_val: Optional[torch.Tensor] = None

@@ -20,12 +20,12 @@ from typing import Any, Dict
 
 import torch
 
-from scaling_rgcn_training_tpu.utils import timing
-from scaling_rgcn_training_tpu.utils.checks import do_checks
-from scaling_rgcn_training_tpu.utils.results import Results
 from scaling_rgcn_training_tpu_torch.graphs.dataset import Dataset
 from scaling_rgcn_training_tpu_torch.graphs.summarize.attribute import create_sum_map
 from scaling_rgcn_training_tpu_torch.train.trainer import Trainer, count_trainable_parameters
+from scaling_rgcn_training_tpu_torch.utils import timing
+from scaling_rgcn_training_tpu_torch.utils.checks import do_checks
+from scaling_rgcn_training_tpu_torch.utils.results import Results
 
 _ROADMAP = "ROADMAP.md queue 1"
 
@@ -45,16 +45,12 @@ def check_ported(configs: Dict[str, Any]) -> None:
     if configs.get("exp") in ("mlp", "attention") or not configs.get("exp"):
         unported.append("-exp mlp|attention (the MLP and attention heads; "
                         "no -exp runs them too)")
-    if configs.get("aggr") == "attention":
-        unported.append("-aggr attention (the non-fused and attention ops)")
     if (configs.get("devices") or 1) > 1:
         unported.append("-devices > 1 (parallel/)")
     if configs.get("ckpt_dir") or configs.get("ckpt_every"):
         unported.append("-ckpt_dir / -ckpt_every (checkpointing)")
     if configs.get("plan_cache"):
         unported.append("-plan_cache (the plan cache)")
-    if configs.get("backend"):
-        unported.append("-backend (the non-fused and attention ops)")
     if configs.get("e_viz"):
         unported.append("-e_viz (utils/viz.py)")
     if unported:
@@ -122,7 +118,9 @@ def run_experiments(configs: Dict[str, Any], org_path: str, sum_path: str,
             weight_d=0.00005, seed=configs.get("seed", 0) * 1000 + j,
             device=device, num_bases=configs.get("num_bases"),
             num_blocks=configs.get("num_blocks"),
-            compute_dtype=configs.get("compute_dtype"))
+            compute_dtype=configs.get("compute_dtype"),
+            backend=configs.get("backend"),
+            aggr=configs.get("aggr") or "mean")
         if needs_summaries:
             trainer.train_summaries(configs)
         for exp in experiment_names:
@@ -181,8 +179,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-seed", type=int, default=0)
     parser.add_argument("-backend", type=str, default=None,
                         choices=["ragged", "gather", "pallas"],
-                        help="not ported yet: the port's conv always runs "
-                             "the span kernels")
+                        help="grouped matmul of the non-fused conv: ragged "
+                             "(torch.matmul per relation, the default), "
+                             "gather (plain version) or pallas (the CUDA "
+                             "kernels)")
     parser.add_argument("-compute_dtype", type=str, default=None,
                         choices=["bfloat16"],
                         help="mixed precision for the conv's edge streams")
@@ -196,7 +196,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "-devices > 1)")
     parser.add_argument("-aggr", type=str, default="mean",
                         choices=["mean", "attention"],
-                        help="conv aggregation; attention is not ported yet")
+                        help="conv aggregation: mean (reference parity) or "
+                             "attention")
     parser.add_argument("-num_bases", type=int, default=None)
     parser.add_argument("-num_blocks", type=int, default=None)
     parser.add_argument("-synth_entities", type=int, default=2000)

@@ -15,8 +15,7 @@ import torch
 from torch import nn
 
 from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import (
-    RGCNLayer, init_rgcn_layer, rgcn_conv)
-from scaling_rgcn_training_tpu_torch.ops.span_kernels import SpanPlan
+    RelEdges, RGCNLayer, init_rgcn_layer, rgcn_conv)
 
 
 class EmbModel(nn.Module):
@@ -27,11 +26,17 @@ class EmbModel(nn.Module):
         self.rgcn1 = rgcn1
         self.rgcn2 = rgcn2
 
-    def forward(self, edges: SpanPlan,
-                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        x = rgcn_conv(self.embedding, edges, self.rgcn1, compute_dtype)
+    def forward(self, edges: RelEdges,
+                compute_dtype: Optional[torch.dtype] = None,
+                backend: Optional[str] = None,
+                aggr: str = "mean") -> torch.Tensor:
+        """Logits ``[N, C]``; ``backend`` and ``aggr`` go to both convs, as
+        the JAX package's ``_trunk`` passes them."""
+        x = rgcn_conv(self.embedding, edges, self.rgcn1, backend=backend,
+                      compute_dtype=compute_dtype, aggr=aggr)
         x = torch.relu(x)
-        return rgcn_conv(x, edges, self.rgcn2, compute_dtype)
+        return rgcn_conv(x, edges, self.rgcn2, backend=backend,
+                         compute_dtype=compute_dtype, aggr=aggr)
 
 
 def init_emb_model(gen: torch.Generator, num_slots: int, hidden: int,

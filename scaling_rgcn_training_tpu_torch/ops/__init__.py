@@ -1,1 +1,1 @@
-"""The R-GCN conv and its CUDA span kernels."""
+"""The R-GCN conv, its CUDA kernels and their plain PyTorch versions."""

@@ -1,0 +1,124 @@
+"""Build and load the port's CUDA kernels, and count their launches.
+
+Each source ``csrc/<name>.cu`` has a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into its own shared library under
+``build/torch_kernels/`` (the file name carries a hash of the source and the
+flags, so an edited source is rebuilt), then loaded with ``ctypes``.
+:func:`build` starts one ``nvcc`` per missing library, all at once, and
+waits for all of them; a failed build raises. Nothing is built when a
+module is imported: the first kernel launch builds what it needs.
+
+``LAUNCHES`` counts kernel launches by wrapper name: a wrapper adds one
+where it launches its CUDA kernel, and nowhere else (the plain CPU
+versions add nothing), so a run can show that it went through a kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Callable, Dict, Iterable
+
+SOURCES = ("span_kernels", "segment_kernels", "grouped_kernels")
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCHES: Dict[str, int] = {
+    "span_forward": 0, "span_backward": 0, "segment_sum": 0,
+    "grouped_matmul": 0, "grouped_drhs": 0}
+
+# ptxas report (registers, shared memory, spills) of each source built by
+# this process
+build_logs: Dict[str, str] = {}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def library_path(name: str) -> Path:
+    src = _CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+    """Compile the named sources that are not built yet, one ``nvcc`` each,
+    in parallel; return every library's path. Raises when a build fails."""
+    paths = {n: library_path(n) for n in names}
+    todo = {n: p for n, p in paths.items() if not p.exists()}
+    if not todo:
+        return paths
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for n, so in todo.items():
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        procs[n] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{n}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {n}.cu:\n{out}{err}")
+            continue
+        os.replace(tmp, todo[n])
+        build_logs[n] = err
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def load(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use;
+    ``declare`` sets its functions' ``argtypes`` and ``restype``."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            declare(lib)
+            _libs[name] = lib
+        return lib
+
+
+def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise for a non-zero ``cudaError_t`` returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} "
+                           f"({lib.kernel_error_string(err).decode()})")
+
+
+def on_card(*tensors) -> bool:
+    """True when every tensor lies on one CUDA device, False when all lie
+    on the CPU; raises otherwise."""
+    devices = {t.device for t in tensors}
+    kinds = {d.type for d in devices}
+    if kinds == {"cpu"}:
+        return False
+    if kinds != {"cuda"} or len(devices) != 1:
+        raise ValueError("kernels need every tensor on one CUDA device (or "
+                         f"all on the CPU), got {sorted(map(str, devices))}")
+    return True

@@ -6,38 +6,147 @@ The math of PyG ``RGCNConv`` as the reference uses it (model/layers.py:
     out_i = x_i @ root + bias + sum_r ( mean_{j in N_r(i)} x_j ) @ weight[r]
 
 Counterpart of the JAX package's ``ops/rgcn_conv.py``. The message-passing
-sum runs through the span kernels (``ops/span_kernels.py``) in both
-directions: ``relational_aggregate`` is a ``torch.autograd.Function``
-whose backward is the backward kernel. Weights keep the JAX layout
-``weight [R, in, out]``, ``root [in, out]``, ``bias [out]``, so the two
-packages compare like with like.
+sum ``relational_aggregate`` has three dataflows, each a
+``torch.autograd.Function`` with a hand-written backward:
+
+- ``fused``: the span kernels (``ops/span_kernels.py``) gather, transform
+  and sum in one pass each way; they take layers up to their width limit;
+- ``edge``: gather ``x[src]``, one grouped matmul over the
+  relation-contiguous edges (``ops/grouped_matmul.py``), scale by ``norm``,
+  and sum onto ``dst`` with the sorted segment sum
+  (``ops/segment_kernels.py``);
+- ``prematmul``: ``Z = x @ W`` for every relation first, then gather
+  ``Z[src, rel]`` and sum as ``edge`` does.
+
+The backward of ``edge`` and ``prematmul`` is the JAX package's large-N
+backward: ``g_msg = g_out[dst] * norm``, ``dx`` by the grouped matmul on
+``W^T`` and a src-sorted segment sum, ``dW`` by the grouped ``d_rhs``
+kernel. On the card both sums run through the segment-sum kernel and ``dW``
+through the ``d_rhs`` kernel whatever the backend; the backend picks the
+grouped matmul. ``mode="auto"`` picks ``fused`` where the edges carry the
+span plan and the span kernels take the widths, and otherwise the JAX
+package's traffic rule. ``aggr="attention"`` runs ``ops/sddmm.py``.
+
+Weights keep the JAX layout ``weight [R, in, out]``, ``root [in, out]``,
+``bias [out]``, so the two packages compare like with like.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from scaling_rgcn_training_tpu_torch.ops.grouped_kernels import gmm_drhs
+from scaling_rgcn_training_tpu_torch.ops.grouped_matmul import grouped_matmul
+from scaling_rgcn_training_tpu_torch.ops.sddmm import attention_aggregate
+from scaling_rgcn_training_tpu_torch.ops.segment_kernels import (
+    segment_rowptr, sorted_segment_sum)
 from scaling_rgcn_training_tpu_torch.ops.span_kernels import (
-    SpanPlan, plan_span, span_backward, span_forward)
+    SpanPlan, check_edges, fused_ok, plan_span, span_backward, span_forward)
+
+# the [N * slots, d_out] table of prematmul stays below this (the JAX
+# package's default; not measured on the H100 yet)
+_SMALL_TABLE_BYTES = 256 << 20
+
+
+@dataclasses.dataclass(frozen=True)
+class RelEdges:
+    """Edge layouts of one graph, built once on the host.
+
+    - relation-contiguous edges, ordered by ``(rel, src)``: ``src``,
+      ``dst`` (int32) and ``norm`` (float32) ``[E]``; ``group_offsets``
+      (host ints ``[slots + 1]``) and ``group_sizes [slots]`` (int64) cut
+      them into relations;
+    - ``dst_rowptr [N + 1]`` (int32): the row pointer of the dst keys in
+      sorted order; ``src_rowptr`` the same for src;
+    - ``span``: the span kernels' plan, or None (``span=False``), which
+      keeps ``mode="auto"`` off the fused dataflow. With a plan, ``src``,
+      ``dst``, ``norm`` and both row pointers are the plan's own tensors.
+
+    ``rel`` and the permutations ``dst_perm``/``src_perm`` (relation order
+    -> dst- or src-sorted order) only serve the non-fused dataflows: they
+    are built on the edges' device at first use, so the fused dataflow
+    never holds them.
+    """
+
+    num_nodes: int
+    num_slots: int
+    src: torch.Tensor
+    dst: torch.Tensor
+    norm: torch.Tensor
+    group_sizes: torch.Tensor
+    group_offsets: Tuple[int, ...]
+    dst_rowptr: torch.Tensor
+    src_rowptr: torch.Tensor
+    span: Optional[SpanPlan] = None
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.src.shape[0])
+
+    @functools.cached_property
+    def rel(self) -> torch.Tensor:
+        return torch.repeat_interleave(
+            torch.arange(self.num_slots, dtype=torch.int32,
+                         device=self.src.device),
+            self.group_sizes, output_size=self.num_edges)
+
+    @functools.cached_property
+    def dst_perm(self) -> torch.Tensor:
+        return torch.argsort(self.dst, stable=True).to(torch.int32)
+
+    @functools.cached_property
+    def src_perm(self) -> torch.Tensor:
+        return torch.argsort(self.src, stable=True).to(torch.int32)
+
+
+def plan_edges(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
+               norm: np.ndarray, num_nodes: int, num_slots: int,
+               span: bool = True, device="cpu") -> RelEdges:
+    """:class:`RelEdges` from per-edge ``(src, dst, rel, norm)``; with
+    ``span`` the span kernels' plan, whose relation-ordered edges and row
+    pointers it shares."""
+    src, dst, rel, norm = check_edges(src, dst, rel, norm, num_nodes, num_slots)
+    sizes = np.bincount(rel, minlength=num_slots)
+    offsets = tuple(int(v) for v in np.concatenate([[0], np.cumsum(sizes)]))
+    group_sizes = torch.as_tensor(sizes, dtype=torch.int64).to(device)
+    if span:
+        plan = plan_span(src, dst, rel, norm, num_nodes, num_slots,
+                         device=device)
+        return RelEdges(
+            num_nodes=int(num_nodes), num_slots=int(num_slots),
+            src=plan.rel_src, dst=plan.rel_dst, norm=plan.rel_norm,
+            group_sizes=group_sizes, group_offsets=offsets,
+            dst_rowptr=plan.fwd_rowptr, src_rowptr=plan.bwd_rowptr, span=plan)
+    order = np.lexsort((src, rel))   # (rel, src), as the span plan's rel_*
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(device)
+    return RelEdges(
+        num_nodes=int(num_nodes), num_slots=int(num_slots),
+        src=t(src[order]), dst=t(dst[order]), norm=t(norm[order]),
+        group_sizes=group_sizes, group_offsets=offsets,
+        dst_rowptr=t(segment_rowptr(np.sort(dst), num_nodes)),
+        src_rowptr=t(segment_rowptr(np.sort(src), num_nodes)))
 
 
 def build_rel_edges(edge_src: np.ndarray, edge_dst: np.ndarray,
                     edge_type: np.ndarray, num_nodes: int, num_slots: int,
-                    device="cpu") -> SpanPlan:
+                    device="cpu", span: bool = True) -> RelEdges:
     """Host-side edge build, once per graph: the mean coefficient
     ``norm_e = 1 / deg_r(dst_e)`` (in-degree of ``dst_e`` over edges of
-    ``e``'s relation) and the kernels' edge plan."""
+    ``e``'s relation) and the edge layouts (:func:`plan_edges`)."""
     src = np.asarray(edge_src, np.int32)
     dst = np.asarray(edge_dst, np.int32)
     typ = np.asarray(edge_type, np.int32)
     keys = typ.astype(np.int64) * num_nodes + dst.astype(np.int64)
     _, inv, counts = np.unique(keys, return_inverse=True, return_counts=True)
     norm = (1.0 / counts[inv.reshape(-1)]).astype(np.float32)
-    return plan_span(src, dst, typ, norm, num_nodes, num_slots, device=device)
+    return plan_edges(src, dst, typ, norm, num_nodes, num_slots, span=span,
+                      device=device)
 
 
 class RGCNLayer(nn.Module):
@@ -109,9 +218,14 @@ def init_rgcn_layer(gen: torch.Generator, num_slots: int, in_dim: int,
     return layer.to(device)
 
 
-class _RelationalAggregate(torch.autograd.Function):
-    """``sum_e norm_e * (x[src_e] @ w[rel_e])`` onto dst, with the backward
-    kernel as its gradient."""
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The aggregation sums (and returns) float32 for low-precision inputs."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+class _FusedAggregate(torch.autograd.Function):
+    """``sum_e norm_e * (x[src_e] @ w[rel_e])`` onto dst by the span
+    kernels, with the backward kernel as its gradient."""
 
     @staticmethod
     def forward(ctx, x, w, plan):
@@ -127,26 +241,116 @@ class _RelationalAggregate(torch.autograd.Function):
         return dx.to(x.dtype), dw.to(w.dtype), None
 
 
-def relational_aggregate(x: torch.Tensor, w: torch.Tensor,
-                         plan: SpanPlan) -> torch.Tensor:
-    """``[N, d_in] -> [N, d_out]`` mean-normalized relational sum; float32
-    for float32 or bfloat16 inputs."""
-    return _RelationalAggregate.apply(x.contiguous(), w.contiguous(), plan)
+class _EdgeAggregate(torch.autograd.Function):
+    """The ``edge`` and ``prematmul`` dataflows (JAX ``rgcn_conv.py``
+    ``_aggregate_fwd_impl`` and the large-N branch of ``_aggregate_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, edges, mode, backend):
+        ctx.save_for_backward(x, w)
+        ctx.edges, ctx.backend = edges, backend
+        acc = _acc_dtype(x.dtype)
+        if mode == "prematmul":
+            # one flat matmul [N, d] @ [d, slots * h] -> [N * slots, h] in
+            # src-major layout, so the gather key is src * slots + rel
+            slots, d_in, d_out = w.shape
+            z = (x @ w.transpose(0, 1).reshape(d_in, slots * d_out)
+                 ).reshape(-1, d_out)
+            msg = z.index_select(0, edges.src.long() * slots + edges.rel)
+        else:
+            msg = grouped_matmul(x.index_select(0, edges.src), w,
+                                 edges.group_sizes, backend=backend,
+                                 static_offsets=edges.group_offsets)
+        # the norm scale promotes low-precision msg to f32: the narrow
+        # scatter side always sums (and returns) f32
+        msg = msg.to(acc) * edges.norm[:, None].to(acc)
+        return sorted_segment_sum(msg.index_select(0, edges.dst_perm),
+                                  edges.dst_rowptr)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        x, w = ctx.saved_tensors
+        edges = ctx.edges
+        g_msg = g_out.index_select(0, edges.dst) * edges.norm[:, None]
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # the d_in-wide intermediate stays in w's dtype (bf16 streams
+            # halve its traffic); the segment sum adds in f32
+            dmsg = grouped_matmul(g_msg.to(w.dtype), w.transpose(1, 2),
+                                  edges.group_sizes, backend=ctx.backend,
+                                  static_offsets=edges.group_offsets)
+            dx = sorted_segment_sum(dmsg.index_select(0, edges.src_perm),
+                                    edges.src_rowptr).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = gmm_drhs(x.index_select(0, edges.src), g_msg,
+                          edges.group_sizes).to(w.dtype)
+        return dx, dw, None, None, None
 
 
-def rgcn_conv(x: torch.Tensor, edges: SpanPlan, layer: RGCNLayer,
-              compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+def relational_aggregate(x: torch.Tensor, w: torch.Tensor, edges: RelEdges,
+                         mode: str = "edge",
+                         backend: Optional[str] = None) -> torch.Tensor:
+    """``[N, d_in] -> [N, d_out]``: ``sum_e norm_e * (x[src_e] @ w[rel_e])``
+    onto ``dst_e``, by the dataflow ``mode``; float32 for float32 or
+    bfloat16 inputs. ``backend`` picks the grouped matmul of ``edge`` mode
+    and of both backwards."""
+    x, w = x.contiguous(), w.contiguous()
+    if mode == "fused":
+        if edges.span is None:
+            raise ValueError("mode='fused' needs edges built with span=True")
+        return _FusedAggregate.apply(x, w, edges.span)
+    if mode in ("edge", "prematmul"):
+        return _EdgeAggregate.apply(x, w, edges, mode, backend)
+    raise ValueError(f"unknown aggregation mode {mode!r}")
+
+
+def _edge_traffic_mode(num_nodes: int, num_slots: int, num_edges: int,
+                       d_in: int, d_out: int) -> str:
+    """The JAX package's rule: ``prematmul`` moves ``4 * d_out`` bytes per
+    edge at the cost of the ``[N * slots, d_out]`` table, ``edge`` about
+    ``2 * (d_in + d_out)`` with no table."""
+    z_bytes = num_nodes * num_slots * d_out * 4
+    if d_out < d_in and z_bytes < 2 * num_edges * d_in * 4 and \
+            z_bytes < _SMALL_TABLE_BYTES:
+        return "prematmul"
+    return "edge"
+
+
+def auto_mode(edges: RelEdges, d_in: int, d_out: int) -> str:
+    """``fused`` where the edges carry the span plan and the span kernels
+    take the widths, else the traffic rule's ``edge`` or ``prematmul``."""
+    if edges.span is not None and fused_ok(d_in, d_out):
+        return "fused"
+    return _edge_traffic_mode(edges.num_nodes, edges.num_slots,
+                              edges.num_edges, d_in, d_out)
+
+
+def rgcn_conv(x: torch.Tensor, edges: RelEdges, layer: RGCNLayer,
+              backend: Optional[str] = None, mode: str = "auto",
+              compute_dtype: Optional[torch.dtype] = None,
+              aggr: str = "mean") -> torch.Tensor:
     """Apply one R-GCN layer: ``[N, in] -> [N, out]``.
 
+    ``aggr``: ``"mean"`` (PyG ``RGCNConv``) or ``"attention"`` (the SDDMM,
+    segment-softmax and weighted-sum pipeline of ``ops/sddmm.py``).
+    ``mode``: ``"auto"`` (:func:`auto_mode`), ``"fused"``, ``"edge"`` or
+    ``"prematmul"``; ``backend`` picks the grouped matmul of the non-fused
+    dataflows and of attention.
     ``compute_dtype`` (e.g. ``torch.bfloat16``): the aggregation's gathers
     and products read ``x`` and the relation weights in that dtype, while
     every sum and the output stay float32; the root and bias term stays in
     the parameters' float32.
     """
     w = materialize_weight(layer)
-    if compute_dtype is not None:
-        agg = relational_aggregate(x.to(compute_dtype), w.to(compute_dtype),
-                                   edges)
+    cast = (lambda t: t) if compute_dtype is None else (
+        lambda t: t.to(compute_dtype))
+    if aggr == "attention":
+        agg = attention_aggregate(cast(x), cast(w), cast(layer.root), edges,
+                                  backend=backend)
+    elif aggr == "mean":
+        if mode == "auto":
+            mode = auto_mode(edges, w.shape[1], w.shape[2])
+        agg = relational_aggregate(cast(x), cast(w), edges, mode, backend)
     else:
-        agg = relational_aggregate(x, w, edges)
+        raise ValueError(f"unknown aggr {aggr!r}")
     return agg + x @ layer.root + layer.bias

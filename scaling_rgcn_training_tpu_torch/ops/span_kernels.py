@@ -21,7 +21,7 @@ The row gathers ``x[src]`` and ``g_out[dst]`` happen inside the kernels.
 A wrapper runs the plain version when its tensors lie on the CPU, launches
 the kernel when they lie on a CUDA device, and raises otherwise. The
 kernels are built with ``nvcc`` at first use into ``build/torch_kernels/``
-and loaded with ``ctypes``; a failed build raises.
+and loaded with ``ctypes`` (``ops/cuda_build.py``); a failed build raises.
 
 The plan (:class:`SpanPlan`) is the port's own, built in numpy from
 ``(src, dst, rel, norm)``: a dst-sorted CSR for the forward, a src-sorted
@@ -34,35 +34,19 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import subprocess
-import threading
-from pathlib import Path
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
+
+from scaling_rgcn_training_tpu_torch.ops import cuda_build
+from scaling_rgcn_training_tpu_torch.ops.cuda_build import LAUNCHES
 
 # edges of one relation per dW block (partial sums reduced in order)
 DW_CHUNK = 1024
 # widths the CUDA kernels take (csrc/span_kernels.cu)
 MAX_WIDTH = 128
 MAX_DW_ELEMS = 4096
-
-_CSRC = Path(__file__).resolve().parents[1] / "csrc" / "span_kernels.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-# kernel launches made by each wrapper in this process (a launch of the
-# CUDA kernel adds one; the plain CPU version adds nothing)
-LAUNCHES = {"span_forward": 0, "span_backward": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,10 +100,11 @@ def _csr(row: np.ndarray, rel: np.ndarray, num_rows: int, num_slots: int):
     return order, rowptr
 
 
-def plan_span(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
-              norm: np.ndarray, num_nodes: int, num_slots: int,
-              device="cpu") -> SpanPlan:
-    """Build the three edge layouts from per-edge ``(src, dst, rel, norm)``."""
+def check_edges(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
+                norm: np.ndarray, num_nodes: int, num_slots: int):
+    """Per-edge ``(src, dst, rel, norm)`` as int32/float32 arrays; raises
+    for arrays of other lengths, endpoints or relations out of range, or
+    more edges than the kernels' int32 offsets hold."""
     src = np.asarray(src, np.int32)
     dst = np.asarray(dst, np.int32)
     rel = np.asarray(rel, np.int32)
@@ -134,6 +119,14 @@ def plan_span(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
         raise ValueError("edge endpoint outside [0, num_nodes)")
     if e and (rel.min() < 0 or rel.max() >= num_slots):
         raise ValueError("relation outside [0, num_slots)")
+    return src, dst, rel, norm
+
+
+def plan_span(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
+              norm: np.ndarray, num_nodes: int, num_slots: int,
+              device="cpu") -> SpanPlan:
+    """Build the three edge layouts from per-edge ``(src, dst, rel, norm)``."""
+    src, dst, rel, norm = check_edges(src, dst, rel, norm, num_nodes, num_slots)
 
     f_order, f_rowptr = _csr(dst, rel, num_nodes, num_slots)
     b_order, b_rowptr = _csr(src, rel, num_nodes, num_slots)
@@ -207,63 +200,16 @@ def span_backward_plain(g_out: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
 
 # -- the CUDA kernels --------------------------------------------------------
 
-_lib_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-# ptxas report (registers, shared memory, spills) of this process's build
-build_log = ""
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def build_kernels() -> Path:
-    """Compile ``csrc/span_kernels.cu`` into a shared library (once per
-    source and flags; the file name carries their hash) and return its
-    path. Raises when ``nvcc`` fails."""
-    global build_log
-    digest = hashlib.sha256(_CSRC.read_bytes()
-                            + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD_DIR / f"libspan_kernels_{digest}.so"
-    if so.exists():
-        return so
-    nvcc = _nvcc()
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    res = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC)],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_CSRC}:\n{res.stdout}{res.stderr}")
-    os.replace(tmp, so)
-    build_log = res.stderr
-    return so
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.span_rows.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.span_rows.restype = i
+    lib.span_dw.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.span_dw.restype = i
 
 
 def _kernels() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_kernels()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.span_rows.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, p]
-            lib.span_rows.restype = i
-            lib.span_dw.argtypes = [i, p, p, p, p, p, p, p, p, p, p,
-                                    i, i, i, i, p]
-            lib.span_dw.restype = i
-            lib.span_error_string.argtypes = [i]
-            lib.span_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
-
-
-def _check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} "
-                           f"({lib.span_error_string(err).decode()})")
+    return cuda_build.load("span_kernels", _declare)
 
 
 def _cuda_dtype_code(*tensors: torch.Tensor) -> int:
@@ -288,20 +234,13 @@ def _check_shapes(x: torch.Tensor, w: torch.Tensor, plan: SpanPlan) -> None:
                          f"and w {tuple(w.shape)}")
 
 
-def _on_card(*tensors: torch.Tensor, plan: SpanPlan) -> bool:
-    """True for CUDA tensors, False for CPU ones; raises otherwise."""
-    kinds = {t.device.type for t in tensors} | {plan.device.type}
-    if kinds == {"cpu"}:
-        return False
-    if kinds != {"cuda"} or len({t.device for t in tensors}
-                                | {plan.device}) != 1:
-        raise ValueError(f"span kernels need every tensor and the plan on "
-                         f"one CUDA device (or all on the CPU), got {kinds}")
-    return True
+def fused_ok(d_in: int, d_out: int) -> bool:
+    """Whether the span kernels take a layer of these widths."""
+    return d_in <= MAX_WIDTH and d_out <= MAX_WIDTH and d_in * d_out <= MAX_DW_ELEMS
 
 
 def _check_widths(d_in: int, d_out: int) -> None:
-    if d_in > MAX_WIDTH or d_out > MAX_WIDTH or d_in * d_out > MAX_DW_ELEMS:
+    if not fused_ok(d_in, d_out):
         raise ValueError(f"span kernels take d_in, d_out <= {MAX_WIDTH} and "
                          f"d_in * d_out <= {MAX_DW_ELEMS}, got {d_in}, {d_out}")
 
@@ -312,7 +251,7 @@ def _rows(lib, code, feat, wk, rowptr, idx, rel, norm, out, stream, what):
                         rowptr.data_ptr(), idx.data_ptr(), rel.data_ptr(),
                         norm.data_ptr(), out.data_ptr(), n, k, out.shape[1],
                         wk.shape[0], stream)
-    _check_launch(lib, err, what)
+    cuda_build.check_launch(lib, err, what)
 
 
 def span_forward(x: torch.Tensor, w: torch.Tensor,
@@ -320,7 +259,7 @@ def span_forward(x: torch.Tensor, w: torch.Tensor,
     """``out[n] = sum_{e: dst_e = n} norm_e * x[src_e] @ w[rel_e]``:
     ``x [N, d_in]``, ``w [slots, d_in, d_out]`` -> ``[N, d_out]`` float32."""
     _check_shapes(x, w, plan)
-    if not _on_card(x, w, plan=plan):
+    if not cuda_build.on_card(x, w, plan.fwd_src):
         return span_forward_plain(x, w, plan)
     code = _cuda_dtype_code(x, w)
     _check_widths(x.shape[1], w.shape[2])
@@ -343,7 +282,7 @@ def span_backward(g_out: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     if g_out.shape != (plan.num_nodes, w.shape[2]):
         raise ValueError(f"g_out {tuple(g_out.shape)} is not "
                          f"[{plan.num_nodes}, {w.shape[2]}]")
-    if not _on_card(g_out, x, w, plan=plan):
+    if not cuda_build.on_card(g_out, x, w, plan.fwd_src):
         return span_backward_plain(g_out, x, w, plan)
     code = _cuda_dtype_code(g_out, x, w)
     slots, d_in, d_out = w.shape
@@ -367,6 +306,6 @@ def span_backward(g_out: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                           plan.rel_norm.data_ptr(), partial.data_ptr(),
                           dw.data_ptr(), plan.num_chunks, slots, d_in, d_out,
                           stream)
-        _check_launch(lib, err, "span_backward (dW)")
+        cuda_build.check_launch(lib, err, "span_backward (dW)")
     LAUNCHES["span_backward"] += 1
     return dx, dw

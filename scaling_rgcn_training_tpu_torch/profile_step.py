@@ -1,0 +1,95 @@
+"""Where a train step's time goes on the card: ``torch.profiler`` over a
+window of ``Trainer.fit`` steps at the bench shape of ``bench_shape.py``
+(also ``chip_smoke.py``'s: N 200,000, E 4,000,000, 91 relation slots,
+64 -> 16 -> 8, uniform random edges from seed 0).
+
+    python -m scaling_rgcn_training_tpu_torch.profile_step --conv edge
+
+``--conv``: ``fused`` (span kernels), ``edge`` (edges built without the span
+plan, ``backend="pallas"``) or ``attention`` (``aggr="attention"``,
+``backend="pallas"``). Prints the card, wall ms/step over the window, the
+device's busy ms/step (the sum of kernel times; one stream), its idle share,
+and the kernels by device time per step. ``--trace`` also writes a Chrome
+trace. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+
+import torch
+
+
+def _device_time(evt) -> float:
+    t = getattr(evt, "self_device_time_total", None)
+    return float(t if t is not None else evt.self_cuda_time_total)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--conv", choices=["fused", "edge", "attention"],
+                    default="fused")
+    ap.add_argument("--dtype", choices=["float32", "bfloat16"],
+                    default="float32")
+    ap.add_argument("--warmup", type=int, default=5, help="steps before the "
+                    "window (at least 2)")
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--trace", type=str, default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    from scaling_rgcn_training_tpu_torch import bench_shape as bs
+    from scaling_rgcn_training_tpu_torch.graphs.device import DeviceGraph
+    from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import build_rel_edges
+    from scaling_rgcn_training_tpu_torch.train.losses import bce_loss
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    edges = build_rel_edges(*bs.bench_edges(), bs.N, bs.SLOTS, device="cuda",
+                            span=args.conv == "fused")
+    graph = DeviceGraph(edges=edges, **bs.bench_splits("cuda"))
+    kw = {} if args.conv == "fused" else {"backend": "pallas"}
+    if args.conv == "attention":
+        kw["aggr"] = "attention"
+    trainer, model = bs.bench_trainer(
+        args.warmup + args.steps, "cuda",
+        compute_dtype=None if args.dtype == "float32" else args.dtype, **kw)
+    stamps = []
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA],
+        schedule=torch.profiler.schedule(wait=args.warmup - 1, warmup=1,
+                                         active=args.steps, repeat=1))
+
+    def on_epoch(epoch):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        prof.step()
+
+    with prof:
+        trainer.fit(model, graph, bce_loss, "sigmoid", sum_graph=False,
+                    verbose=False, on_epoch=on_epoch)
+    wall = (stamps[-1] - stamps[args.warmup - 1]) * 1e3 / args.steps
+    # device events, without the profiler's own per-step annotation
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")]
+    busy = sum(_device_time(e) for e in kernels) / 1e3 / args.steps
+    print(f"{args.conv} {args.dtype}: wall {wall:.3f} ms/step, device busy "
+          f"{busy:.3f} ms/step, idle share {1 - busy / wall:.3f} "
+          f"({args.steps} steps after {args.warmup})", flush=True)
+    for e in sorted(kernels, key=_device_time, reverse=True)[:args.top]:
+        print(f"  {_device_time(e) / 1e3 / args.steps:8.3f} ms/step "
+              f"{e.count / args.steps:6.1f}/step  {e.key[:150]}", flush=True)
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+
+if __name__ == "__main__":
+    main()

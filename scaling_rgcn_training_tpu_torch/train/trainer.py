@@ -27,6 +27,7 @@ from scaling_rgcn_training_tpu_torch.graphs.dataset import Dataset
 from scaling_rgcn_training_tpu_torch.graphs.device import DeviceGraph, build_device_graph
 from scaling_rgcn_training_tpu_torch.graphs.graph import Graph
 from scaling_rgcn_training_tpu_torch.models import heads as model_heads
+from scaling_rgcn_training_tpu_torch.ops.grouped_matmul import BACKENDS
 from scaling_rgcn_training_tpu_torch.train.losses import get_loss
 from scaling_rgcn_training_tpu_torch.train.metrics import (
     classification_table, evaluate, predictions)
@@ -39,13 +40,17 @@ _DTYPES = {None: None, "bfloat16": torch.bfloat16}
 class Trainer:
     """Same constructor surface as the reference Trainer
     (modelTrainer.py:17-24), plus ``device`` and the JAX package's
-    weight-decomposition and mixed-precision options."""
+    weight-decomposition, mixed-precision, conv-backend and aggregation
+    options (``backend``: the grouped matmul of the non-fused conv,
+    ``"ragged"``, ``"gather"`` or ``"pallas"``; ``aggr``: ``"mean"`` or
+    ``"attention"``)."""
 
     def __init__(self, data: Optional[Dataset], hidden_l: int, epochs: int,
                  emb_dim: int, lr: float, weight_d: float, seed: int = 0,
                  device="cuda", num_bases: Optional[int] = None,
                  num_blocks: Optional[int] = None,
-                 compute_dtype=None) -> None:
+                 compute_dtype=None, backend: Optional[str] = None,
+                 aggr: str = "mean") -> None:
         self.data = data
         self.hidden_l = hidden_l
         self.epochs = epochs
@@ -60,6 +65,12 @@ class Trainer:
                              f"{list(_DTYPES)}")
         # mixed precision for the conv's edge streams
         self.compute_dtype = _DTYPES[compute_dtype]
+        if backend not in (None, *BACKENDS):
+            raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
+        if aggr not in ("mean", "attention"):
+            raise ValueError(f"aggr {aggr!r} is not 'mean' or 'attention'")
+        self.backend = backend
+        self.aggr = aggr
         self.gen = torch.Generator().manual_seed(seed)
         self.sum_model: Optional[model_heads.EmbModel] = None
         self._device_graphs: Dict[int, Tuple[Graph, DeviceGraph]] = {}
@@ -72,6 +83,10 @@ class Trainer:
             hit = (graph, build_device_graph(graph, self.device))
             self._device_graphs[id(graph)] = hit
         return hit[1]
+
+    def _logits(self, model: model_heads.EmbModel,
+                graph: DeviceGraph) -> torch.Tensor:
+        return model(graph.edges, self.compute_dtype, self.backend, self.aggr)
 
     # -- core epoch loop (modelTrainer.py:41-74) ---------------------------
 
@@ -102,10 +117,10 @@ class Trainer:
             if not sum_graph:
                 # validation eval BEFORE the update (modelTrainer.py:53-59)
                 with torch.no_grad():
-                    logits = model(graph.edges, self.compute_dtype)
+                    logits = self._logits(model, graph)
                     metrics.append(torch.stack(evaluate(
                         logits, graph.x_val, graph.y_val, activation)))
-            logits = model(graph.edges, self.compute_dtype)
+            logits = self._logits(model, graph)
             loss = loss_fn(logits[graph.x_train], graph.y_train)
             if opt is not None:
                 opt.zero_grad(set_to_none=True)
@@ -214,7 +229,7 @@ class Trainer:
                       ) -> Tuple[float, float, float]:
         """Test-split metrics, with a per-class table when ``report``
         (modelTrainer.py:112-114)."""
-        logits = model(graph.edges, self.compute_dtype)
+        logits = self._logits(model, graph)
         acc, f1_w, f1_m = evaluate(logits, graph.x_test, graph.y_test, activation)
         if report:
             pred = predictions(logits, activation)[graph.x_test]

@@ -1,5 +1,6 @@
 """Port CLI on the CPU, its refusals, and the port's import hygiene."""
 
+import ast
 import glob
 import json
 import os
@@ -47,10 +48,28 @@ def test_cli_runs_on_cpu_with_jax_result_keys(tmp_path, exp, capsys):
     assert 0.0 <= report[f"Test acc {exp}"]["mean"] <= 100.0
 
 
+@pytest.mark.parametrize("flags", [["-aggr", "attention"],
+                                   ["-backend", "gather"]])
+def test_cli_runs_non_fused_flags_on_cpu(tmp_path, flags, capsys):
+    """``-aggr attention`` and ``-backend`` run end to end; the report
+    carries the flag and the JAX CLI's result keys."""
+    args = _args(tmp_path, "summation") + flags
+    tmain.main(args + ["-device", "cpu"])
+    assert "ACC ON TEST SET" in capsys.readouterr().out
+    (report,) = glob.glob(str(tmp_path / "results" / "*" / "report_*.json"))
+    report = json.load(open(report))
+    jax_configs = vars(jmain.build_parser().parse_args(args))
+    assert set(jax_configs) <= set(report)
+    assert report[flags[0][1:]] == flags[1]
+    assert set(report["summation"]) == {"accuracy", "loss", "f1 weighted",
+                                        "f1 macro"}
+    assert 0.0 <= report["Test acc summation"]["mean"] <= 100.0
+
+
 @pytest.mark.parametrize("flags", [
-    ["-exp", "mlp"], ["-exp", "attention"], [], ["-aggr", "attention"],
+    ["-exp", "mlp"], ["-exp", "attention"], [],
     ["-devices", "2"], ["-ckpt_dir", "ck"], ["-ckpt_every", "2"],
-    ["-plan_cache", "pc"], ["-backend", "gather"], ["-e_viz", "true"],
+    ["-plan_cache", "pc"], ["-e_viz", "true"],
 ])
 def test_unported_flags_raise(tmp_path, flags):
     base = ["-exp", "summation"] if "-exp" not in flags and flags else []
@@ -68,22 +87,29 @@ def test_cuda_device_without_cuda_raises(tmp_path, monkeypatch):
 
 
 def test_port_imports_no_jax_optax_or_sklearn():
+    """Every module of the port imported: neither the JAX package nor jax,
+    optax or sklearn is loaded; chip_smoke.py imports none of them."""
     code = (
-        "import sys\n"
-        "import scaling_rgcn_training_tpu_torch.main\n"
-        "import scaling_rgcn_training_tpu_torch.ops.span_kernels\n"
-        "import scaling_rgcn_training_tpu_torch.train.trainer\n"
-        "import scaling_rgcn_training_tpu_torch.graphs.synthetic\n"
-        "import scaling_rgcn_training_tpu.utils.results\n"
-        "import scaling_rgcn_training_tpu.utils.timing\n"
-        "import scaling_rgcn_training_tpu.utils.checks\n"
-        "bad = [m for m in ('jax', 'jaxlib', 'optax', 'sklearn') if m in sys.modules]\n"
-        "assert not bad, bad\n"
-        "assert 'scaling_rgcn_training_tpu.graphs' not in sys.modules\n")
+        "import importlib, pkgutil, sys\n"
+        "import scaling_rgcn_training_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert 'scaling_rgcn_training_tpu_torch.ops.sddmm' in sys.modules\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('scaling_rgcn_training_tpu', 'jax', 'jaxlib', 'optax', 'sklearn')]\n"
+        "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+    tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
+    names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names}
+    names |= {n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module}
+    assert any(n.startswith("scaling_rgcn_training_tpu_torch") for n in names)
+    assert not {n.split(".")[0] for n in names} & {
+        "scaling_rgcn_training_tpu", "jax", "jaxlib", "optax", "sklearn"}
 
 
 def test_chip_smoke_refuses_without_a_gpu_or_the_package(tmp_path):

@@ -129,8 +129,11 @@ def test_mean_coefficient_matches_jax():
     real = jedges.norm > 0
     ref = sorted(zip(jedges.src[real].tolist(), jedges.dst[real].tolist(),
                      jedges.rel[real].tolist(), jedges.norm[real].tolist()))
-    plan = tconv.build_rel_edges(src, dst, typ, 60, 5)
-    got = sorted(zip(plan.rel_src.tolist(), plan.rel_dst.tolist(),
-                     np.repeat(np.arange(5), np.diff(plan.rel_edge_ptr)).tolist(),
-                     plan.rel_norm.tolist()))
+    edges = tconv.build_rel_edges(src, dst, typ, 60, 5)
+    got = sorted(zip(edges.src.tolist(), edges.dst.tolist(),
+                     edges.rel.tolist(), edges.norm.tolist()))
     assert got == ref
+    span = edges.span
+    assert sorted(zip(span.rel_src.tolist(), span.rel_dst.tolist(),
+                      np.repeat(np.arange(5), np.diff(span.rel_edge_ptr)).tolist(),
+                      span.rel_norm.tolist())) == ref

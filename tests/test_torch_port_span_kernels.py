@@ -15,8 +15,10 @@ import torch
 
 from scaling_rgcn_training_tpu.ops.span_kernels import (
     plan_rel_span, rel_span_backward_scatter, rel_span_matmul_scatter)
+from scaling_rgcn_training_tpu_torch.ops import cuda_build
 from scaling_rgcn_training_tpu_torch.ops import span_kernels as sk
-from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import relational_aggregate
+from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import (
+    plan_edges, relational_aggregate)
 
 
 @pytest.fixture(autouse=True)
@@ -162,11 +164,11 @@ def test_relational_aggregate_gradcheck():
     rng = np.random.default_rng(6)
     n, e, slots, d_in, d_out = 20, 90, 5, 4, 3
     src, dst, rel, norm = _graph(rng, n, e, slots)
-    plan = sk.plan_span(src, dst, rel, norm, n, slots)
+    edges = plan_edges(src, dst, rel, norm, n, slots)
     x = torch.tensor(rng.standard_normal((n, d_in)), requires_grad=True)
     w = torch.tensor(rng.standard_normal((slots, d_in, d_out)), requires_grad=True)
     assert torch.autograd.gradcheck(
-        lambda a, b: relational_aggregate(a, b, plan), (x, w))
+        lambda a, b: relational_aggregate(a, b, edges, "fused"), (x, w))
 
 
 def test_cpu_calls_launch_nothing_and_other_devices_raise():
@@ -186,6 +188,6 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     import torch.utils.cpp_extension as ext
 
     monkeypatch.setattr(ext, "CUDA_HOME", None)
-    monkeypatch.setattr(sk, "_BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "kernels")
     with pytest.raises(RuntimeError, match="nvcc"):
-        sk.build_kernels()
+        cuda_build.build()
