@@ -38,7 +38,21 @@ Phases, in order; any failure exits non-zero:
 7. the CLI on the GPU (summary pre-training, transfer, fine-tuning) on a
    synthetic dataset, once with ``-emb 128 -hl 64`` (a first layer the
    span kernels refuse) and once with ``-backend pallas -aggr attention``;
-   the results JSON must exist.
+   the results JSON must exist;
+8. the halo partition on S = 4 virtual shards of the card: the halo
+   exchange (#6) and fused halo-aggregate (#7) kernels against their plain
+   versions in float32 and bfloat16 at edge cases (S = 1, 2, 3; H not a
+   multiple of the vector width; d 4, 11, 63; a peer that ships no rows; a
+   shard with no halo edges) and at the bench shape (H ~ 50k rows per
+   pair, layers 64 -> 16 and 16 -> 8), the same bits on two runs; their
+   times beside the plain versions, the library exchange and one
+   ``transpose().contiguous()`` of the stacked sends; then ``Trainer.fit``
+   at the bench shape over the 4 shards: halo partition with the library
+   exchange, #6 and #7 in float32 and #6 with bfloat16 streams, and the
+   edge partition (``backend="pallas"``); losses within 1e-4 relative of
+   phase 5's single-device run of the same dtype (bfloat16: 1e-3), the
+   kernels' launch counters advanced on every step, ms/step and peak
+   memory.
 
 Tolerances: float32 within rtol 1e-4 and atol 1e-4 * max|ref| (summation
 order differs), bfloat16 inputs within 2e-2 * max|ref|.
@@ -64,6 +78,8 @@ PKG = "scaling_rgcn_training_tpu_torch"
 
 EPOCHS = 10
 ATT_EPOCHS = 5
+HALO_EPOCHS = 5
+HALO_SHARDS = 4
 WARMUP = 3
 # H100 SXM: HBM bytes/s; peak operations/s by input type (CUDA-core f32,
 # dense bf16 tensor cores)
@@ -404,6 +420,221 @@ def wide_auto_check(edges, rng, launches, reset):
     check_close("wide auto dW", layer.weight.grad, dw, False)
 
 
+def halo_edge_case_graph(rng, s_n, n_nodes, e, slots):
+    """Host halo partition of random edges over ``s_n`` shards in which
+    shard 1 (when there is one) has no halo edges and the last shard (from
+    3 shards on) ships no rows; ``halo_multiple=1``, so H is whatever the
+    graph needs."""
+    from scaling_rgcn_training_tpu_torch.parallel.halo import (
+        halo_partition_edges)
+
+    n_per = -(-n_nodes // s_n)
+    dst = rng.integers(0, n_nodes, e)
+    src = rng.integers(0, n_nodes, e)
+    owner = dst // n_per
+    if s_n >= 2:
+        m = owner == 1
+        src[m] = np.minimum(n_per + rng.integers(0, n_per, int(m.sum())),
+                            n_nodes - 1)
+    if s_n >= 3:
+        m = (src // n_per == s_n - 1) & (owner != s_n - 1)
+        src[m] = rng.integers(0, n_per, int(m.sum()))
+    typ = rng.integers(0, slots, e)
+    return halo_partition_edges(src, dst, typ, n_nodes, slots, s_n,
+                                pad_to_multiple=8, halo_multiple=1)
+
+
+def check_halo_kernels(he, d_in, d_out, dtype, tag, timing=False) -> dict:
+    """Kernels #6 and #7 against their plain versions on the placed halo
+    partition ``he``: #6 exact, #7 within the stated tolerance, its halo
+    buffer exact, both the same bits on two runs. With ``timing``: one
+    exchange of the S sends and one layer forward of #7 over every shard,
+    beside their plain versions (and for #6 the library exchange and one
+    ``transpose().contiguous()`` of the stacked sends)."""
+    import torch
+    from scaling_rgcn_training_tpu_torch.parallel import fused_halo as fh
+    from scaling_rgcn_training_tpu_torch.parallel import ring_halo as rh
+
+    s_n, n_per, h = he.num_shards, he.n_per, he.halo
+    bf16 = dtype == torch.bfloat16
+    gen = torch.Generator(device=DEV).manual_seed(s_n * 1000 + d_in + d_out)
+    x = torch.randn(s_n * n_per, d_in, generator=gen, device=DEV).to(dtype)
+    xs = list(x.split(n_per))
+    w = (torch.randn(he.num_slots, d_in, d_out, generator=gen, device=DEV)
+         * 0.2).to(dtype)
+    sends = [xs[s].index_select(0, sh.send_idx).view(s_n, h, d_in)
+             for s, sh in enumerate(he.shards)]
+    got, again = rh.halo_exchange(sends), rh.halo_exchange(sends)
+    torch.cuda.synchronize()
+    for a, b, c, d in zip(got, again, rh.halo_exchange_plain(sends),
+                          rh.halo_exchange_library(sends)):
+        if not (torch.equal(a, c) and torch.equal(d, c)):
+            fail(f"{tag}: halo_exchange differs from its plain version")
+        if not torch.equal(a, b):
+            fail(f"{tag}: two halo_exchange runs differ")
+    res = {"exchange_err": 0.0, "fused_err": 0.0}
+    for sh in he.shards:
+        agg, buf = fh.fused_halo_aggregate(xs, w, sh.fused)
+        agg2, buf2 = fh.fused_halo_aggregate(xs, w, sh.fused)
+        torch.cuda.synchronize()
+        ref, ref_buf = fh.fused_halo_aggregate_plain(xs, w, sh.fused)
+        if not torch.equal(buf, ref_buf):
+            fail(f"{tag} shard {sh.fused.shard}: fused halo buffer differs")
+        if not (torch.equal(agg, agg2) and torch.equal(buf, buf2)):
+            fail(f"{tag}: two fused_halo_aggregate runs differ")
+        res["fused_err"] = max(res["fused_err"], check_close(
+            f"{tag} shard {sh.fused.shard} fused_halo_aggregate", agg, ref,
+            bf16))
+    print(f"  {tag} halo_exchange: same bits as the plain version and the "
+          f"library exchange (S {s_n}, H {h}, d {d_in})", flush=True)
+    if timing:
+        stacked = torch.stack(sends)
+        res["exchange"] = time_kernel(
+            lambda: rh.halo_exchange(sends),
+            lambda: rh.halo_exchange_plain(sends),
+            lambda: stacked.transpose(0, 1).contiguous())
+        res["exchange"]["library_exchange_ms"] = cuda_time_ms(
+            lambda: rh.halo_exchange_library(sends), 20)
+        # bytes only: every block read once and written once
+        res["exchange"].update(bound(2 * nbytes(*sends), 0,
+                                     dtype_name(dtype)))
+
+        def fused_all():
+            for sh in he.shards:
+                fh.fused_halo_aggregate(xs, w, sh.fused)
+
+        def plain_all():
+            for sh in he.shards:
+                fh.fused_halo_aggregate_plain(xs, w, sh.fused)
+
+        res["fused"] = time_kernel(fused_all, plain_all, reps=10,
+                                   plain_reps=2)
+        # the validation forward's call: no halo buffer
+        res["fused"]["no_buffer_ms"] = cuda_time_ms(lambda: [
+            fh.fused_halo_aggregate(xs, w, sh.fused, want_buf=False)
+            for sh in he.shards], 10)
+        plans = [t for sh in he.shards for t in (
+            sh.fused.rowptr, sh.fused.src, sh.fused.rel, sh.fused.norm,
+            sh.fused.recv_idx)]
+        e = sum(int(sh.fused.src.numel()) for sh in he.shards)
+        out_bytes = s_n * (n_per * d_out * 4 + s_n * h * d_in
+                           * x.element_size())
+        res["fused"].update(bound(nbytes(x, w, *plans) + out_bytes,
+                                  2 * e * d_in * d_out, dtype_name(dtype)))
+        for key, name in (("exchange", "halo_exchange"),
+                          ("fused", "fused_halo_aggregate")):
+            r = res[key]
+            print(f"  {tag} {name} times: {r['ms']:.4f} ms (plain "
+                  f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                  f"{r['bound_by']})", flush=True)
+        print(f"  {tag} fused_halo_aggregate without the halo buffer "
+              f"{res['fused']['no_buffer_ms']:.4f} ms", flush=True)
+        print(f"  {tag} library exchange {res['exchange']['library_exchange_ms']:.4f}"
+              f" ms, transpose().contiguous() {res['exchange']['library_ms']:.4f}"
+              " ms", flush=True)
+    return res
+
+
+def halo_phase(bench_src, bench_dst, bench_typ, splits, fits, launches,
+               reset) -> dict:
+    """Phase 8: kernels #6 and #7, then the trainer over 4 virtual shards."""
+    import torch
+    from scaling_rgcn_training_tpu_torch import bench_shape as bs
+    from scaling_rgcn_training_tpu_torch.graphs.device import DeviceGraph
+    from scaling_rgcn_training_tpu_torch.parallel.halo import (
+        EXCHANGE_ENV, device_put_halo_edges, halo_partition_edges)
+    from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh
+    from scaling_rgcn_training_tpu_torch.parallel.spmd import (
+        device_put_sharded_edges, shard_rel_edges)
+
+    rng = np.random.default_rng(8)
+    errs = {"exchange": 0.0, "fused": 0.0}
+    for s_n in (1, 2, 3):
+        he = device_put_halo_edges(
+            halo_edge_case_graph(rng, s_n, 301 * s_n - 3, 2500 * s_n, 7),
+            make_mesh(devices=(DEV,) * s_n))
+        for d_in, d_out in ((63, 4), (4, 11), (11, 63)):
+            for dtype in (torch.float32, torch.bfloat16):
+                r = check_halo_kernels(he, d_in, d_out, dtype,
+                                       f"S {s_n} {d_in}->{d_out} "
+                                       f"{dtype_name(dtype)}")
+                errs["fused"] = max(errs["fused"], r["fused_err"])
+
+    mesh = make_mesh(devices=(DEV,) * HALO_SHARDS)
+    t0 = time.perf_counter()
+    he = device_put_halo_edges(halo_partition_edges(
+        bench_src, bench_dst, bench_typ, bs.N, bs.SLOTS, HALO_SHARDS), mesh)
+    print(f"bench-shape halo partition ({HALO_SHARDS} shards, n_per "
+          f"{he.n_per}, H {he.halo}, local edges "
+          f"{[sh.local.num_edges for sh in he.shards]}, halo edges "
+          f"{[sh.halo.num_edges for sh in he.shards]}) built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    bench = {}
+    for d_in, d_out, layer in ((bs.D, bs.HL, "layer1"), (bs.HL, bs.C, "layer2")):
+        for dtype in (torch.float32, torch.bfloat16):
+            r = check_halo_kernels(
+                he, d_in, d_out, dtype,
+                f"bench {layer} {d_in}->{d_out} {dtype_name(dtype)}",
+                timing=layer == "layer1")
+            errs["fused"] = max(errs["fused"], r["fused_err"])
+            bench[(layer, dtype_name(dtype))] = r
+
+    halo_graph = DeviceGraph(edges=he, **splits)
+    runs = (("halo library", None, None,
+             {"span_forward": 32, "span_backward": 16}),
+            ("halo #6", "1", None,
+             {"halo_exchange": 6, "span_forward": 32, "span_backward": 16}),
+            ("halo #7", "fused", None,
+             {"fused_halo_aggregate": 16, "span_backward": 16}),
+            ("halo #6 bf16", "1", "bfloat16",
+             {"halo_exchange": 6, "span_forward": 32, "span_backward": 16}))
+    counts = {}
+    try:
+        for name, env, cd, least in runs:
+            if env is None:
+                os.environ.pop(EXCHANGE_ENV, None)
+            else:
+                os.environ[EXCHANGE_ENV] = env
+            reset()
+            fits[(name, cd)] = run_fit(halo_graph, cd, HALO_EPOCHS, launches,
+                                       mesh=mesh, partition="halo")
+            counts[name] = dict(launches)
+            require_per_step(name, fits[(name, cd)]["steps"], least)
+    finally:
+        os.environ.pop(EXCHANGE_ENV, None)
+    if counts["halo library"]["halo_exchange"] or \
+            counts["halo library"]["fused_halo_aggregate"]:
+        fail(f"library-exchange run launched {counts['halo library']}")
+
+    t0 = time.perf_counter()
+    se = device_put_sharded_edges(shard_rel_edges(
+        bench_src, bench_dst, bench_typ, bs.N, bs.SLOTS, HALO_SHARDS), mesh)
+    print(f"bench-shape edge partition built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    reset()
+    fits[("edge partition", None)] = run_fit(
+        DeviceGraph(edges=se, **splits), None, HALO_EPOCHS, launches,
+        mesh=mesh, partition="edge", backend="pallas")
+    counts["edge partition"] = dict(launches)
+    require_per_step("edge partition", fits[("edge partition", None)]["steps"],
+                     {"grouped_matmul": 24, "segment_sum": 24,
+                      "grouped_drhs": 8})
+
+    for (name, cd), f in list(fits.items()):
+        if not (name.startswith("halo") or name == "edge partition"):
+            continue
+        ref = fits[("fused", cd)]["losses"][:HALO_EPOCHS]
+        rtol = 1e-4 if cd is None else 5e-3
+        rel = max(abs(a - b) / abs(b) for a, b in zip(f["losses"], ref))
+        if not np.allclose(f["losses"], ref, rtol=rtol, atol=0):
+            fail(f"{name} {cd or 'float32'} losses {f['losses']} differ from "
+                 f"the single-device fused run's {ref}")
+        print(f"  {name} {cd or 'float32'} losses match the single-device "
+              f"fused run's (max rel diff {rel:.2e}, limit {rtol:.0e})",
+              flush=True)
+    return {"bench": bench, "errs": errs, "counts": counts}
+
+
 def run_cli(extra, tag):
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
@@ -608,6 +839,9 @@ def main() -> None:
     run_cli(["-backend", "pallas", "-aggr", "attention"],
             "summation -backend pallas -aggr attention")
 
+    phase(f"8 halo partition on {HALO_SHARDS} virtual shards of the card")
+    halo = halo_phase(src, dst, typ, splits, fits, launches, reset)
+
     kernels = []
     b = bench[("layer1", "float32")]
     for kname, key, replaces in (("span_forward", "fwd", "span_kernels.py:425"),
@@ -632,18 +866,35 @@ def main() -> None:
             "launches": edge_launches[kname], "max_abs_err": errs[kname],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for kname, key, replaces, run in (
+            ("halo_exchange", "exchange", "ring_halo.py:42", "halo #6"),
+            ("fused_halo_aggregate", "fused", "fused_halo.py:307",
+             "halo #7")):
+        r = halo["bench"][("layer1", "float32")][key]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"{PKG}/csrc/halo_kernels.cu",
+            "replaces": JAX_PKG + "parallel/" + replaces,
+            "launches": halo["counts"][run][kname],
+            "max_abs_err": halo["errs"][key], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
     print(json.dumps({
         "card": card,
         "bench_shape_ms": {
             **{f"{k} {layer} {dt}": v[k] for (layer, dt), v in bench.items()
                for k in ("fwd", "bwd")},
-            **{f"{k} {dt}": v for (k, dt), v in new_bench.items()}},
+            **{f"{k} {dt}": v for (k, dt), v in new_bench.items()},
+            **{f"{k} {layer} {dt}": v[k] for (layer, dt), v in
+               halo["bench"].items() for k in ("exchange", "fused")
+               if k in v}},
         "step": {f"{mode} {cd or 'float32'}": {
             "step_ms": f["step_ms"], "peak_mib": f["peak_mib"],
             "loss_first": f["losses"][0], "loss_last": f["losses"][-1],
             "launches_step0": f["steps"][0]} for (mode, cd), f in fits.items()},
         "launches": {"fused": fused_launches, "edge": edge_launches,
-                     "attention": att_launches}}), flush=True)
+                     "attention": att_launches, **halo["counts"]}}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

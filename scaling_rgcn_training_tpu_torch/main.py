@@ -9,7 +9,9 @@ original graph, reporting per-epoch metrics and test-set results over
 Every flag of the JAX CLI is accepted. A flag that selects a path not yet
 ported raises ``NotImplementedError`` naming its ``ROADMAP.md`` item. The
 CLI never falls back to the CPU: ``-device cuda`` without a CUDA device is
-an error.
+an error. ``-devices S`` trains over a mesh of S shards (``-partition``,
+``-reorder``): with ``-device cuda``, S cards (fewer is an error); with
+``-device cpu``, S virtual shards on the CPU.
 """
 
 from __future__ import annotations
@@ -45,8 +47,6 @@ def check_ported(configs: Dict[str, Any]) -> None:
     if configs.get("exp") in ("mlp", "attention") or not configs.get("exp"):
         unported.append("-exp mlp|attention (the MLP and attention heads; "
                         "no -exp runs them too)")
-    if (configs.get("devices") or 1) > 1:
-        unported.append("-devices > 1 (parallel/)")
     if configs.get("ckpt_dir") or configs.get("ckpt_every"):
         unported.append("-ckpt_dir / -ckpt_every (checkpointing)")
     if configs.get("plan_cache"):
@@ -120,7 +120,10 @@ def run_experiments(configs: Dict[str, Any], org_path: str, sum_path: str,
             num_blocks=configs.get("num_blocks"),
             compute_dtype=configs.get("compute_dtype"),
             backend=configs.get("backend"),
-            aggr=configs.get("aggr") or "mean")
+            aggr=configs.get("aggr") or "mean",
+            devices=configs.get("devices"),
+            partition=configs.get("partition") or "halo",
+            reorder=bool(configs.get("reorder")))
         if needs_summaries:
             trainer.train_summaries(configs)
         for exp in experiment_names:
@@ -187,7 +190,8 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["bfloat16"],
                         help="mixed precision for the conv's edge streams")
     parser.add_argument("-devices", type=int, default=None,
-                        help="more than 1 is not ported yet")
+                        help="shards of the mesh: CUDA devices with -device "
+                             "cuda, virtual shards with -device cpu")
     parser.add_argument("-partition", type=str, default="halo",
                         choices=["edge", "halo"],
                         help="multi-device partition (with -devices > 1)")

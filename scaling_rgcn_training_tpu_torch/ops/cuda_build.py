@@ -2,8 +2,9 @@
 
 Each source ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
-``build/torch_kernels/`` (the file name carries a hash of the source and the
-flags, so an edited source is rebuilt), then loaded with ``ctypes``.
+``build/torch_kernels/`` (the file name carries a hash of the source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source or header
+is rebuilt), then loaded with ``ctypes``.
 :func:`build` starts one ``nvcc`` per missing library, all at once, and
 waits for all of them; a failed build raises. Nothing is built when a
 module is imported: the first kernel launch builds what it needs.
@@ -23,7 +24,8 @@ import threading
 from pathlib import Path
 from typing import Callable, Dict, Iterable
 
-SOURCES = ("span_kernels", "segment_kernels", "grouped_kernels")
+SOURCES = ("span_kernels", "segment_kernels", "grouped_kernels",
+           "halo_kernels")
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -32,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: Dict[str, int] = {
     "span_forward": 0, "span_backward": 0, "segment_sum": 0,
-    "grouped_matmul": 0, "grouped_drhs": 0}
+    "grouped_matmul": 0, "grouped_drhs": 0, "halo_exchange": 0,
+    "fused_halo_aggregate": 0}
 
 # ptxas report (registers, shared memory, spills) of each source built by
 # this process
@@ -56,9 +59,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = b"".join(p.read_bytes() for p in
+                    [_CSRC / f"{name}.cu", *sorted(_CSRC.glob("*.cuh"))])
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

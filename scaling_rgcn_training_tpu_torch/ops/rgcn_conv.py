@@ -63,7 +63,9 @@ class RelEdges:
       (host ints ``[slots + 1]``) and ``group_sizes [slots]`` (int64) cut
       them into relations;
     - ``dst_rowptr [N + 1]`` (int32): the row pointer of the dst keys in
-      sorted order; ``src_rowptr`` the same for src;
+      sorted order; ``src_rowptr [num_src + 1]`` the same for src
+      (``num_src``, the count of input rows, is N except for the halo
+      partition's halo segment, which reads a received row buffer);
     - ``span``: the span kernels' plan, or None (``span=False``), which
       keeps ``mode="auto"`` off the fused dataflow. With a plan, ``src``,
       ``dst``, ``norm`` and both row pointers are the plan's own tensors.
@@ -76,6 +78,7 @@ class RelEdges:
 
     num_nodes: int
     num_slots: int
+    num_src: int
     src: torch.Tensor
     dst: torch.Tensor
     norm: torch.Tensor
@@ -107,30 +110,34 @@ class RelEdges:
 
 def plan_edges(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
                norm: np.ndarray, num_nodes: int, num_slots: int,
-               span: bool = True, device="cpu") -> RelEdges:
-    """:class:`RelEdges` from per-edge ``(src, dst, rel, norm)``; with
-    ``span`` the span kernels' plan, whose relation-ordered edges and row
-    pointers it shares."""
-    src, dst, rel, norm = check_edges(src, dst, rel, norm, num_nodes, num_slots)
+               span: bool = True, device="cpu",
+               num_src: Optional[int] = None) -> RelEdges:
+    """:class:`RelEdges` from per-edge ``(src, dst, rel, norm)``
+    (``dst < num_nodes``, ``src < num_src``, by default ``num_nodes``);
+    with ``span`` the span kernels' plan, whose relation-ordered edges and
+    row pointers it shares."""
+    num_src = num_nodes if num_src is None else num_src
+    src, dst, rel, norm = check_edges(src, dst, rel, norm, num_nodes,
+                                      num_slots, num_src)
     sizes = np.bincount(rel, minlength=num_slots)
     offsets = tuple(int(v) for v in np.concatenate([[0], np.cumsum(sizes)]))
     group_sizes = torch.as_tensor(sizes, dtype=torch.int64).to(device)
     if span:
         plan = plan_span(src, dst, rel, norm, num_nodes, num_slots,
-                         device=device)
+                         device=device, num_src=num_src)
         return RelEdges(
             num_nodes=int(num_nodes), num_slots=int(num_slots),
-            src=plan.rel_src, dst=plan.rel_dst, norm=plan.rel_norm,
-            group_sizes=group_sizes, group_offsets=offsets,
+            num_src=int(num_src), src=plan.rel_src, dst=plan.rel_dst,
+            norm=plan.rel_norm, group_sizes=group_sizes, group_offsets=offsets,
             dst_rowptr=plan.fwd_rowptr, src_rowptr=plan.bwd_rowptr, span=plan)
     order = np.lexsort((src, rel))   # (rel, src), as the span plan's rel_*
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(device)
     return RelEdges(
         num_nodes=int(num_nodes), num_slots=int(num_slots),
-        src=t(src[order]), dst=t(dst[order]), norm=t(norm[order]),
-        group_sizes=group_sizes, group_offsets=offsets,
+        num_src=int(num_src), src=t(src[order]), dst=t(dst[order]),
+        norm=t(norm[order]), group_sizes=group_sizes, group_offsets=offsets,
         dst_rowptr=t(segment_rowptr(np.sort(dst), num_nodes)),
-        src_rowptr=t(segment_rowptr(np.sort(src), num_nodes)))
+        src_rowptr=t(segment_rowptr(np.sort(src), num_src)))
 
 
 def build_rel_edges(edge_src: np.ndarray, edge_dst: np.ndarray,
@@ -340,7 +347,33 @@ def rgcn_conv(x: torch.Tensor, edges: RelEdges, layer: RGCNLayer,
     and products read ``x`` and the relation weights in that dtype, while
     every sum and the output stay float32; the root and bias term stays in
     the parameters' float32.
+
+    Dispatch on the edges' type, as the JAX package does: edges
+    partitioned over a mesh (``parallel/spmd.py`` ``ShardedRelEdges``,
+    ``parallel/halo.py`` ``HaloShardedEdges``) run the partitioned conv
+    over the ambient mesh (``parallel/mesh.py`` ``use_mesh``), so models
+    never need to know whether they are distributed.
     """
+    kind = type(edges).__name__
+    if kind in ("ShardedRelEdges", "HaloShardedEdges"):
+        from scaling_rgcn_training_tpu_torch.parallel.mesh import current_mesh
+
+        if aggr != "mean":
+            raise ValueError("aggr='attention' is a single-device mode: the "
+                             "partitioned convs bake the mean coefficients "
+                             "into their plans")
+        mesh = current_mesh()
+        if mesh is None:
+            raise RuntimeError(f"rgcn_conv got {kind} outside a "
+                               "parallel.mesh.use_mesh(...) scope")
+        if kind == "HaloShardedEdges":
+            from scaling_rgcn_training_tpu_torch.parallel.halo import (
+                halo_rgcn_conv as conv)
+        else:
+            from scaling_rgcn_training_tpu_torch.parallel.spmd import (
+                sharded_rgcn_conv as conv)
+        return conv(x, edges, layer, mesh, backend=backend,
+                    compute_dtype=compute_dtype)
     w = materialize_weight(layer)
     cast = (lambda t: t) if compute_dtype is None else (
         lambda t: t.to(compute_dtype))

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,9 +53,13 @@ MAX_DW_ELEMS = 4096
 class SpanPlan:
     """Host-built edge layouts of one graph, as int32/float32 tensors.
 
+    ``num_nodes`` (N) is the count of output rows (``dst`` range) and
+    ``num_src`` that of input rows (``src`` range); they differ in the
+    halo partition, whose halo segment reads a received row buffer.
+
     - forward, dst-sorted CSR by ``(dst, rel)``: ``fwd_rowptr [N+1]``,
       ``fwd_src``, ``fwd_rel``, ``fwd_norm`` ``[E]``;
-    - dx, src-sorted CSR by ``(src, rel)``: ``bwd_rowptr [N+1]``,
+    - dx, src-sorted CSR by ``(src, rel)``: ``bwd_rowptr [num_src+1]``,
       ``bwd_dst``, ``bwd_rel``, ``bwd_norm`` ``[E]``;
     - dW, relation-sorted by ``(rel, src)``: ``rel_src``, ``rel_dst``,
       ``rel_norm`` ``[E]``; chunks of at most ``DW_CHUNK`` edges of one
@@ -67,6 +71,7 @@ class SpanPlan:
 
     num_nodes: int
     num_slots: int
+    num_src: int
     fwd_rowptr: torch.Tensor
     fwd_src: torch.Tensor
     fwd_rel: torch.Tensor
@@ -101,10 +106,14 @@ def _csr(row: np.ndarray, rel: np.ndarray, num_rows: int, num_slots: int):
 
 
 def check_edges(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
-                norm: np.ndarray, num_nodes: int, num_slots: int):
+                norm: np.ndarray, num_nodes: int, num_slots: int,
+                num_src: Optional[int] = None):
     """Per-edge ``(src, dst, rel, norm)`` as int32/float32 arrays; raises
-    for arrays of other lengths, endpoints or relations out of range, or
-    more edges than the kernels' int32 offsets hold."""
+    for arrays of other lengths, endpoints or relations out of range
+    (``dst`` in ``[0, num_nodes)``, ``src`` in ``[0, num_src)``, which
+    defaults to ``num_nodes``), or more edges than the kernels' int32
+    offsets hold."""
+    num_src = num_nodes if num_src is None else num_src
     src = np.asarray(src, np.int32)
     dst = np.asarray(dst, np.int32)
     rel = np.asarray(rel, np.int32)
@@ -114,9 +123,10 @@ def check_edges(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
         raise ValueError("src, dst, rel and norm must be 1-D of one length")
     if e >= 2**31 - 1:
         raise ValueError(f"{e} edges do not fit the kernels' int32 offsets")
-    if e and (min(src.min(), dst.min()) < 0
-              or max(src.max(), dst.max()) >= num_nodes):
-        raise ValueError("edge endpoint outside [0, num_nodes)")
+    if e and (min(src.min(), dst.min()) < 0 or dst.max() >= num_nodes
+              or src.max() >= num_src):
+        raise ValueError("edge endpoint outside [0, num_nodes) (dst) or "
+                         "[0, num_src) (src)")
     if e and (rel.min() < 0 or rel.max() >= num_slots):
         raise ValueError("relation outside [0, num_slots)")
     return src, dst, rel, norm
@@ -124,13 +134,16 @@ def check_edges(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
 
 def plan_span(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
               norm: np.ndarray, num_nodes: int, num_slots: int,
-              device="cpu") -> SpanPlan:
-    """Build the three edge layouts from per-edge ``(src, dst, rel, norm)``."""
-    src, dst, rel, norm = check_edges(src, dst, rel, norm, num_nodes, num_slots)
+              device="cpu", num_src: Optional[int] = None) -> SpanPlan:
+    """Build the three edge layouts from per-edge ``(src, dst, rel, norm)``
+    (``dst < num_nodes``, ``src < num_src``, by default ``num_nodes``)."""
+    num_src = num_nodes if num_src is None else num_src
+    src, dst, rel, norm = check_edges(src, dst, rel, norm, num_nodes,
+                                      num_slots, num_src)
 
     f_order, f_rowptr = _csr(dst, rel, num_nodes, num_slots)
-    b_order, b_rowptr = _csr(src, rel, num_nodes, num_slots)
-    r_order = np.argsort(rel.astype(np.int64) * max(num_nodes, 1) + src,
+    b_order, b_rowptr = _csr(src, rel, num_src, num_slots)
+    r_order = np.argsort(rel.astype(np.int64) * max(num_src, 1) + src,
                          kind="stable")
     rel_counts = np.bincount(rel, minlength=num_slots)
     rel_edge_ptr = np.concatenate([[0], np.cumsum(rel_counts)]).astype(np.int64)
@@ -146,7 +159,7 @@ def plan_span(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
         np.ascontiguousarray(a)).to(dtype).to(device)
     return SpanPlan(
         num_nodes=int(num_nodes), num_slots=int(num_slots),
-        fwd_rowptr=t(f_rowptr), fwd_src=t(src[f_order]),
+        num_src=int(num_src), fwd_rowptr=t(f_rowptr), fwd_src=t(src[f_order]),
         fwd_rel=t(rel[f_order]), fwd_norm=t(norm[f_order], torch.float32),
         bwd_rowptr=t(b_rowptr), bwd_dst=t(dst[b_order]),
         bwd_rel=t(rel[b_order]), bwd_norm=t(norm[b_order], torch.float32),
@@ -188,7 +201,7 @@ def span_backward_plain(g_out: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     """``span_backward`` with index_select, per-relation matmuls and
     index_add_, summed in ``_acc_dtype``."""
     acc = _acc_dtype(x.dtype)
-    dx = torch.zeros(plan.num_nodes, w.shape[1], dtype=acc, device=x.device)
+    dx = torch.zeros(plan.num_src, w.shape[1], dtype=acc, device=x.device)
     dw = torch.zeros(w.shape, dtype=acc, device=x.device)
     for r, sl in _relation_slices(plan):
         t = (g_out.index_select(0, plan.rel_dst[sl]).to(acc)
@@ -228,8 +241,8 @@ def _check_shapes(x: torch.Tensor, w: torch.Tensor, plan: SpanPlan) -> None:
     if x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1]:
         raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} do not "
                          "match [N, d_in] and [slots, d_in, d_out]")
-    if x.shape[0] != plan.num_nodes or w.shape[0] != plan.num_slots:
-        raise ValueError(f"plan has {plan.num_nodes} nodes and "
+    if x.shape[0] != plan.num_src or w.shape[0] != plan.num_slots:
+        raise ValueError(f"plan has {plan.num_src} source rows and "
                          f"{plan.num_slots} slots, got x {tuple(x.shape)} "
                          f"and w {tuple(w.shape)}")
 
@@ -246,18 +259,18 @@ def _check_widths(d_in: int, d_out: int) -> None:
 
 
 def _rows(lib, code, feat, wk, rowptr, idx, rel, norm, out, stream, what):
-    n, k = feat.shape
     err = lib.span_rows(code, feat.data_ptr(), wk.data_ptr(),
                         rowptr.data_ptr(), idx.data_ptr(), rel.data_ptr(),
-                        norm.data_ptr(), out.data_ptr(), n, k, out.shape[1],
-                        wk.shape[0], stream)
+                        norm.data_ptr(), out.data_ptr(), out.shape[0],
+                        feat.shape[1], out.shape[1], wk.shape[0], stream)
     cuda_build.check_launch(lib, err, what)
 
 
 def span_forward(x: torch.Tensor, w: torch.Tensor,
                  plan: SpanPlan) -> torch.Tensor:
     """``out[n] = sum_{e: dst_e = n} norm_e * x[src_e] @ w[rel_e]``:
-    ``x [N, d_in]``, ``w [slots, d_in, d_out]`` -> ``[N, d_out]`` float32."""
+    ``x [num_src, d_in]``, ``w [slots, d_in, d_out]`` -> ``[N, d_out]``
+    float32."""
     _check_shapes(x, w, plan)
     if not cuda_build.on_card(x, w, plan.fwd_src):
         return span_forward_plain(x, w, plan)
@@ -277,7 +290,7 @@ def span_forward(x: torch.Tensor, w: torch.Tensor,
 def span_backward(g_out: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                   plan: SpanPlan) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both aggregation gradients: ``g_out [N, d_out]`` (in ``w``'s dtype)
-    -> ``dx [N, d_in]`` and ``dw [slots, d_in, d_out]``, float32."""
+    -> ``dx [num_src, d_in]`` and ``dw [slots, d_in, d_out]``, float32."""
     _check_shapes(x, w, plan)
     if g_out.shape != (plan.num_nodes, w.shape[2]):
         raise ValueError(f"g_out {tuple(g_out.shape)} is not "
@@ -289,7 +302,7 @@ def span_backward(g_out: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     _check_widths(d_in, d_out)
     lib = _kernels()
     dev = x.device
-    dx = torch.empty(plan.num_nodes, d_in, dtype=torch.float32, device=dev)
+    dx = torch.empty(plan.num_src, d_in, dtype=torch.float32, device=dev)
     dw = torch.empty(slots, d_in, d_out, dtype=torch.float32, device=dev)
     partial = torch.empty(max(plan.num_chunks, 1), d_in, d_out,
                           dtype=torch.float32, device=dev)

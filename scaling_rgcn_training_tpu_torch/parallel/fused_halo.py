@@ -1,0 +1,222 @@
+"""Kernel #7: the halo exchange fused with the shard's relational
+aggregation, and its autograd.
+
+For receiving shard ``me`` of an S-shard halo partition:
+
+    agg[n] = sum_{e: dst_e = n} norm_e * row(src_e) @ W[rel_e]
+
+over all of the shard's edges, local and halo, where ``src_e`` is the
+edge's global (partition-padded) node id and ``row(i)`` is row
+``i % n_per`` of shard ``i // n_per``: the shard's own ``x_own``, or the
+peer's row ``send_idx[p, me, pos]`` read straight from the peer's memory.
+So the halo gather and the exchange both happen inside the kernel. The
+kernel also writes the received halo buffer ``buf [S * H, d]``,
+``buf[p * H + j] = x_own_p[recv_idx[p, j]]`` (what the library exchange
+would deliver), which the backward reads.
+
+:func:`fused_halo_aggregate` launches ``fused_halo_rows``
+(``csrc/halo_kernels.cu``, the span row kernel over a table of the S
+shards' rows), which replaces the TPU kernel
+``scaling_rgcn_training_tpu/parallel/fused_halo.py:307`` ``_fused_kernel``;
+on the CPU it runs :func:`fused_halo_aggregate_plain`. The plan
+(:class:`FusedHaloPlan`) is one dst-sorted CSR built in numpy, with no
+padding: none of the TPU plan's tile packing, chunk padding, per-edge
+Python planner or blow-up gate is needed.
+
+:class:`FusedHaloApply` follows the JAX package's ``_fused_apply_bwd``:
+the span backward (#2) over each shard's local and halo plans, then the
+reverse exchange of the halo cotangents and the transpose of the send
+gather.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from scaling_rgcn_training_tpu_torch.ops import cuda_build
+from scaling_rgcn_training_tpu_torch.ops.cuda_build import LAUNCHES
+from scaling_rgcn_training_tpu_torch.ops.span_kernels import (
+    _acc_dtype, _csr, _cuda_dtype_code, _check_widths, span_backward)
+from scaling_rgcn_training_tpu_torch.parallel.ring_halo import (
+    connect, halo_exchange_library, halo_kernels, on_cards, pointer_table,
+    release_sources, wait_for_sources)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedHaloPlan:
+    """Shard ``shard``'s plan for kernel #7, int32/float32 tensors on its
+    device: the CSR by ``(dst, rel)`` of all its edges, ``rowptr
+    [n_per + 1]``, ``src`` (global node ids), ``rel``, ``norm``; and
+    ``recv_idx [S * H]``, the rows each peer ships to it (peer-major: the
+    JAX plan's ``send_idx[p, shard]``)."""
+
+    shard: int
+    num_shards: int
+    n_per: int
+    halo: int
+    num_slots: int
+    rowptr: torch.Tensor
+    src: torch.Tensor
+    rel: torch.Tensor
+    norm: torch.Tensor
+    recv_idx: torch.Tensor
+
+
+def plan_fused_halo(shard: int, src: np.ndarray, dst: np.ndarray,
+                    rel: np.ndarray, norm: np.ndarray, recv_idx: np.ndarray,
+                    n_per: int, halo: int, num_shards: int, num_slots: int,
+                    device="cpu") -> FusedHaloPlan:
+    """From the shard's edges: global ``src``, owner-local ``dst``."""
+    order, rowptr = _csr(np.asarray(dst, np.int32), rel, n_per, num_slots)
+    t = lambda a, dtype=torch.int32: torch.as_tensor(
+        np.ascontiguousarray(a)).to(dtype).to(device)
+    return FusedHaloPlan(
+        shard=int(shard), num_shards=int(num_shards), n_per=int(n_per),
+        halo=int(halo), num_slots=int(num_slots), rowptr=t(rowptr),
+        src=t(src[order]), rel=t(rel[order]),
+        norm=t(norm[order], torch.float32),
+        recv_idx=t(np.asarray(recv_idx).reshape(-1)))
+
+
+def _check(x_owns: Sequence[torch.Tensor], w: torch.Tensor,
+           plan: FusedHaloPlan) -> None:
+    if len(x_owns) != plan.num_shards:
+        raise ValueError(f"plan has {plan.num_shards} shards, got "
+                         f"{len(x_owns)} x_own")
+    for x in x_owns:
+        if x.shape != (plan.n_per, w.shape[1]) or x.dtype != w.dtype:
+            raise ValueError(f"x_own must be [{plan.n_per}, {w.shape[1]}] "
+                             f"{w.dtype}, got {tuple(x.shape)} {x.dtype}")
+    if w.dim() != 3 or w.shape[0] != plan.num_slots:
+        raise ValueError(f"w {tuple(w.shape)} is not [{plan.num_slots}, "
+                         "d_in, d_out]")
+
+
+def _halo_buffer_plain(x_owns: Sequence[torch.Tensor], plan: FusedHaloPlan,
+                       device) -> torch.Tensor:
+    """``buf[p * H + j] = x_owns[p][recv_idx[p * H + j]]``: this
+    receiver's blocks of the plain exchange."""
+    h = plan.halo
+    return torch.cat([x.index_select(0, plan.recv_idx[p * h:(p + 1) * h]
+                                     .to(x.device)).to(device)
+                      for p, x in enumerate(x_owns)])
+
+
+def fused_halo_aggregate_plain(x_owns: Sequence[torch.Tensor],
+                               w: torch.Tensor, plan: FusedHaloPlan,
+                               want_buf: bool = True
+                               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Kernel #7's plain version: the combined rows of all shards
+    (``torch.cat``, then ``index_select`` of each edge's row), one matmul
+    per relation and ``index_add_``, summed in ``_acc_dtype``; the halo
+    buffer from the plain exchange's blocks."""
+    dev = w.device
+    acc = _acc_dtype(w.dtype)
+    rows = torch.cat([x.to(dev) for x in x_owns])
+    dst = torch.repeat_interleave(
+        torch.arange(plan.n_per, device=dev), plan.rowptr.diff())
+    out = torch.zeros(plan.n_per, w.shape[2], dtype=acc, device=dev)
+    for r in range(plan.num_slots):
+        m = plan.rel == r
+        if bool(m.any()):
+            msg = rows.index_select(0, plan.src[m]).to(acc) @ w[r].to(acc)
+            out.index_add_(0, dst[m], msg * plan.norm[m, None].to(acc))
+    buf = _halo_buffer_plain(x_owns, plan, dev) if want_buf else None
+    return out, buf
+
+
+def fused_halo_aggregate(x_owns: Sequence[torch.Tensor], w: torch.Tensor,
+                         plan: FusedHaloPlan, want_buf: bool = True
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Kernel #7 for shard ``plan.shard``: ``x_owns[p] [n_per, d_in]`` on
+    shard ``p``'s device, ``w [slots, d_in, d_out]`` on this shard's ->
+    ``agg [n_per, d_out]`` float32 and, with ``want_buf``, the halo buffer
+    ``[S * H, d_in]`` in ``w``'s dtype (else None)."""
+    _check(x_owns, w, plan)
+    if not on_cards([*x_owns, w, plan.src]):
+        return fused_halo_aggregate_plain(x_owns, w, plan, want_buf)
+    code = _cuda_dtype_code(*x_owns, w)
+    slots, d_in, d_out = w.shape
+    _check_widths(d_in, d_out)
+    dev = w.device
+    if plan.src.device != dev or x_owns[plan.shard].device != dev:
+        raise ValueError(f"shard {plan.shard}'s x_own, w and plan must lie on "
+                         "one device")
+    lib = halo_kernels()
+    connect(lib, dev, x_owns)
+    out = torch.empty(plan.n_per, d_out, dtype=torch.float32, device=dev)
+    buf = torch.empty(plan.num_shards * plan.halo, d_in, dtype=w.dtype,
+                      device=dev) if want_buf else None
+    stream = torch.cuda.current_stream(dev)
+    with torch.cuda.device(dev):
+        wait_for_sources(stream, x_owns)
+        err = lib.fused_halo_rows(
+            code, pointer_table(x_owns), plan.num_shards, plan.n_per,
+            w.data_ptr(), plan.rowptr.data_ptr(), plan.src.data_ptr(),
+            plan.rel.data_ptr(), plan.norm.data_ptr(), out.data_ptr(),
+            plan.n_per, d_in, d_out, slots, plan.recv_idx.data_ptr(),
+            None if buf is None else buf.data_ptr(), plan.halo,
+            stream.cuda_stream)
+        cuda_build.check_launch(lib, err, "fused_halo_aggregate")
+        release_sources(stream, x_owns)
+    LAUNCHES["fused_halo_aggregate"] += 1
+    return out, buf
+
+
+class FusedHaloApply(torch.autograd.Function):
+    """Every shard's aggregation by kernel #7: ``(shards, want_buf,
+    *x_owns, *ws)`` -> the S aggregations ``[n_per, d_out]`` float32;
+    ``shards`` are the partition's per-shard plans (``parallel/halo.py``
+    ``HaloShard``); ``want_buf``: a backward will run, so keep the halo
+    buffers."""
+
+    @staticmethod
+    def forward(ctx, shards, want_buf, *tensors):
+        s_n = len(shards)
+        x_owns, ws = tensors[:s_n], tensors[s_n:]
+        aggs, bufs = [], []
+        for q, sh in enumerate(shards):
+            agg, buf = fused_halo_aggregate(x_owns, ws[q], sh.fused, want_buf)
+            aggs.append(agg)
+            bufs.append(buf)
+        if want_buf:
+            ctx.save_for_backward(*x_owns, *ws, *bufs)
+        ctx.shards = shards
+        return tuple(aggs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        shards = ctx.shards
+        s_n = len(shards)
+        saved = ctx.saved_tensors
+        x_owns, ws, bufs = saved[:s_n], saved[s_n:2 * s_n], saved[2 * s_n:]
+        halo = shards[0].fused.halo
+        dxs, dws, dbufs = [], [], []
+        for q, sh in enumerate(shards):
+            g = grads[q].to(ws[q].dtype).contiguous()
+            dx, dw = span_backward(g, x_owns[q], ws[q], sh.local.span)
+            dbuf, dw_halo = span_backward(g, bufs[q], ws[q], sh.halo.span)
+            dxs.append(dx)
+            dws.append((dw + dw_halo).to(ws[q].dtype))
+            dbufs.append(dbuf.to(x_owns[q].dtype).view(s_n, halo, -1))
+        # reverse exchange of the halo cotangents, then the send gather's
+        # transpose: the rows each shard shipped get their cotangents back
+        dsends = halo_exchange_library(dbufs)
+        for p, sh in enumerate(shards):
+            dxs[p] = dxs[p].index_add(0, sh.send_idx,
+                                      dsends[p].reshape(s_n * halo, -1)
+                                      .to(dxs[p].dtype))
+        return (None, None, *[d.to(x.dtype) for d, x in zip(dxs, x_owns)],
+                *dws)
+
+
+def fused_halo_apply(x_owns: Sequence[torch.Tensor],
+                     ws: Sequence[torch.Tensor], shards) -> List[torch.Tensor]:
+    """Differentiable kernel #7 over every shard of the partition."""
+    want_buf = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (*x_owns, *ws))
+    return list(FusedHaloApply.apply(tuple(shards), want_buf, *x_owns, *ws))

@@ -1,0 +1,303 @@
+"""Node-partitioned R-GCN aggregation with a halo exchange.
+
+Counterpart of the JAX package's ``parallel/halo.py``. Nodes are padded to
+``S * n_per`` and shard ``s`` owns rows ``[s * n_per, (s + 1) * n_per)``;
+each edge lives on the owner of its ``dst``. A shard's edges split into an
+owner-local segment (``src`` owned by the same shard), which reads
+``x_own`` directly, and a halo segment, which reads the ``[S * H, d]``
+buffer of boundary rows the other shards ship it: ``send_idx[p, s]`` are
+the rows owner ``p`` ships to reader ``s``, and ``H`` the most any pair
+ships. The per-(relation, dst) mean coefficients are computed globally
+before partitioning (dst ownership keeps each group on one shard).
+
+The host build (:func:`halo_partition_edges`) gives the JAX build's arrays,
+``lsrc .. hgs`` and ``send_idx`` (padded as there), field by field.
+:func:`device_put_halo_edges` adds each shard's device plans on its mesh
+device: the port's span plans (``ops/span_kernels.py``, each with its
+forward and backward layouts) of the local segment and of the halo
+segment, which reads the received buffer, and kernel #7's plan. None of
+the TPU's chunked plans is built.
+
+:func:`halo_aggregate` takes node-major ``x [S * n_per, d]`` on the mesh's
+first device, slices it into the shards' ``x_own`` (views on one card) and
+moves each to its shard's device. Per shard, the span kernels (#1, #2)
+aggregate where they take the widths and no ``backend`` is given (the
+JAX package's ``use_fused``); otherwise the edge mode (kernels #4 and #3
+with ``backend="pallas"``). On the CPU the plain versions run. The
+exchange is chosen as the JAX package chooses it (``RGCN_HALO_PALLAS_A2A``,
+read by :func:`exchange_mode` only):
+
+- unset: the library exchange (``parallel/ring_halo.py``
+  ``halo_exchange_library``, the counterpart of ``lax.all_to_all``);
+- ``fused``: kernel #7, which exchanges and aggregates in one kernel; for
+  a layer it does not cover (a ``backend``, or widths beyond the span
+  kernels') a warning, then the library exchange;
+- any other value: kernel #6 (``halo_exchange``).
+
+A kernel that fails to build or launch raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import warnings
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import (
+    RelEdges, RGCNLayer, materialize_weight, plan_edges, relational_aggregate)
+from scaling_rgcn_training_tpu_torch.ops.span_kernels import fused_ok
+from scaling_rgcn_training_tpu_torch.parallel.fused_halo import (
+    FusedHaloPlan, fused_halo_apply, plan_fused_halo)
+from scaling_rgcn_training_tpu_torch.parallel.mesh import Mesh
+from scaling_rgcn_training_tpu_torch.parallel.ring_halo import HaloExchange
+
+EXCHANGE_ENV = "RGCN_HALO_PALLAS_A2A"
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloShard:
+    """One shard's plans, on its device: ``local`` (src, dst in
+    ``[0, n_per)``), ``halo`` (dst in ``[0, n_per)``, src in the received
+    ``[S * H]`` buffer), ``send_idx [S * H]`` (int64, the rows it ships,
+    reader-major: the JAX plan's ``send_idx[s]``) and ``fused`` (kernel
+    #7's plan)."""
+
+    local: RelEdges
+    halo: RelEdges
+    send_idx: torch.Tensor
+    fused: FusedHaloPlan
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloShardedEdges:
+    """The partition plan. Host arrays (numpy, the JAX build's layout,
+    leading axis the shard): the owner-local segment ``lsrc``/``ldst``/
+    ``lnorm`` ``[S, E_loc]`` and ``lgs [S, slots]``, the halo segment
+    ``hsrc``/``hdst``/``hnorm`` ``[S, E_halo]`` and ``hgs``, each
+    (relation, dst)-sorted and padded with ``norm = 0`` rows in the last
+    relation slot; ``send_idx [S, S, H]``. ``shards``: the device plans
+    (:func:`device_put_halo_edges`), empty until placed on a mesh."""
+
+    lsrc: np.ndarray
+    ldst: np.ndarray
+    lnorm: np.ndarray
+    lgs: np.ndarray
+    hsrc: np.ndarray
+    hdst: np.ndarray
+    hnorm: np.ndarray
+    hgs: np.ndarray
+    send_idx: np.ndarray
+    num_nodes: int
+    n_per: int
+    halo: int
+    num_shards: int
+    num_slots: int
+    shards: Tuple[HaloShard, ...] = ()
+
+
+def _sorted_padded_segment(src, dst, typ, norm, num_slots, pad_len):
+    """(relation, dst)-sort one edge segment and pad to ``pad_len`` rows."""
+    order = np.lexsort((dst, typ))
+    ne = len(src)
+    o_src = np.zeros(pad_len, np.int32)
+    o_dst = np.zeros(pad_len, np.int32)
+    o_norm = np.zeros(pad_len, np.float32)
+    o_src[:ne] = src[order]
+    o_dst[:ne] = dst[order]
+    o_norm[:ne] = norm[order]
+    gs = np.bincount(typ, minlength=num_slots).astype(np.int32)
+    gs[num_slots - 1] += pad_len - ne          # padding rows -> empty slot
+    return o_src, o_dst, o_norm, gs
+
+
+def halo_partition_edges(edge_src: np.ndarray, edge_dst: np.ndarray,
+                         edge_type: np.ndarray, num_nodes: int,
+                         num_slots: int, num_shards: int,
+                         pad_to_multiple: int = 512,
+                         halo_multiple: int = 8) -> HaloShardedEdges:
+    """Host-side, once per graph: the dst-owner partition and the halo
+    exchange plan, as the JAX package's ``_halo_partition_edges_host``."""
+    edge_src = np.asarray(edge_src, np.int32)
+    edge_dst = np.asarray(edge_dst, np.int32)
+    edge_type = np.asarray(edge_type, np.int32)
+    s_n = num_shards
+    n_per = -(-num_nodes // s_n)
+
+    keys = edge_type.astype(np.int64) * num_nodes + edge_dst.astype(np.int64)
+    _, inv, counts = np.unique(keys, return_inverse=True, return_counts=True)
+    norm_all = (1.0 / counts[inv.reshape(-1)]).astype(np.float32)
+
+    owner = edge_dst // n_per
+    need = [[None] * s_n for _ in range(s_n)]
+    shards = []
+    for s in range(s_n):
+        m = owner == s
+        src_s, dst_s, typ_s, norm_s = (edge_src[m], edge_dst[m],
+                                       edge_type[m], norm_all[m])
+        src_owner = src_s // n_per
+        own = src_owner == s
+        shards.append((src_s, dst_s, typ_s, norm_s, src_owner, own))
+        for p in range(s_n):
+            need[s][p] = np.unique(src_s[src_owner == p]) if p != s else \
+                np.empty(0, np.int64)
+
+    h = max((len(need[s][p]) for s in range(s_n) for p in range(s_n)),
+            default=0)
+    h = max(halo_multiple, -(-h // halo_multiple) * halo_multiple)
+
+    pad = lambda ne: max(pad_to_multiple,
+                         -(-ne // pad_to_multiple) * pad_to_multiple)
+    e_loc = pad(max(int(sh[5].sum()) for sh in shards))
+    e_halo = pad(max(len(sh[0]) - int(sh[5].sum()) for sh in shards))
+
+    lsrc = np.zeros((s_n, e_loc), np.int32)
+    ldst = np.zeros((s_n, e_loc), np.int32)
+    lnorm = np.zeros((s_n, e_loc), np.float32)
+    lgs = np.zeros((s_n, num_slots), np.int32)
+    hsrc = np.zeros((s_n, e_halo), np.int32)
+    hdst = np.zeros((s_n, e_halo), np.int32)
+    hnorm = np.zeros((s_n, e_halo), np.float32)
+    hgs = np.zeros((s_n, num_slots), np.int32)
+    send_idx = np.zeros((s_n, s_n, h), np.int32)
+    for s in range(s_n):
+        src_s, dst_s, typ_s, norm_s, src_owner, own = shards[s]
+        # owner-local segment: src indexes x_own directly
+        l_src = (src_s[own] - s * n_per).astype(np.int32)
+        l_dst = (dst_s[own] - s * n_per).astype(np.int32)
+        lsrc[s], ldst[s], lnorm[s], lgs[s] = _sorted_padded_segment(
+            l_src, l_dst, typ_s[own], norm_s[own], num_slots, e_loc)
+        # halo segment: src indexes the received [S*H] buffer at p*H + pos
+        rem = ~own
+        loc = np.zeros(int(rem.sum()), np.int32)
+        r_src, r_owner = src_s[rem], src_owner[rem]
+        for p in range(s_n):
+            if p == s:
+                continue
+            ids = need[s][p]                     # sorted unique remote srcs
+            send_idx[p, s, :len(ids)] = ids - p * n_per
+            sel = r_owner == p
+            if sel.any():
+                loc[sel] = p * h + np.searchsorted(ids, r_src[sel])
+        h_dst = (dst_s[rem] - s * n_per).astype(np.int32)
+        hsrc[s], hdst[s], hnorm[s], hgs[s] = _sorted_padded_segment(
+            loc, h_dst, typ_s[rem], norm_s[rem], num_slots, e_halo)
+    return HaloShardedEdges(
+        lsrc=lsrc, ldst=ldst, lnorm=lnorm, lgs=lgs, hsrc=hsrc, hdst=hdst,
+        hnorm=hnorm, hgs=hgs, send_idx=send_idx, num_nodes=int(num_nodes),
+        n_per=int(n_per), halo=int(h), num_shards=int(s_n),
+        num_slots=int(num_slots))
+
+
+def _segment_typ(gs: np.ndarray, length: int) -> np.ndarray:
+    """Per-row relation of a padded segment from its group sizes."""
+    return np.repeat(np.arange(len(gs), dtype=np.int32), gs)[:length]
+
+
+def device_put_halo_edges(edges: HaloShardedEdges,
+                          mesh: Mesh) -> HaloShardedEdges:
+    """Build each shard's device plans on its mesh device (padding rows,
+    ``norm = 0``, left out)."""
+    s_n, n_per, h = edges.num_shards, edges.n_per, edges.halo
+    if mesh.size != s_n:
+        raise ValueError(f"plan has {s_n} shards, mesh {mesh.size} devices")
+    slots = edges.num_slots
+    shards = []
+    for s, dev in enumerate(mesh.devices):
+        l_real = edges.lnorm[s] > 0
+        h_real = edges.hnorm[s] > 0
+        l_typ = _segment_typ(edges.lgs[s], edges.lsrc.shape[1])[l_real]
+        h_typ = _segment_typ(edges.hgs[s], edges.hsrc.shape[1])[h_real]
+        l_src, l_dst, l_norm = (a[s][l_real] for a in
+                                (edges.lsrc, edges.ldst, edges.lnorm))
+        h_loc, h_dst, h_norm = (a[s][h_real] for a in
+                                (edges.hsrc, edges.hdst, edges.hnorm))
+        # kernel #7 reads a halo edge's row where its owner keeps it
+        peer = h_loc // h
+        h_glob = peer * n_per + edges.send_idx[peer, s, h_loc % h]
+        shards.append(HaloShard(
+            local=plan_edges(l_src, l_dst, l_typ, l_norm, n_per, slots,
+                             device=dev),
+            halo=plan_edges(h_loc, h_dst, h_typ, h_norm, n_per, slots,
+                            device=dev, num_src=s_n * h),
+            send_idx=torch.as_tensor(edges.send_idx[s].reshape(-1),
+                                     dtype=torch.int64).to(dev),
+            fused=plan_fused_halo(
+                s, np.concatenate([l_src + s * n_per, h_glob]),
+                np.concatenate([l_dst, h_dst]), np.concatenate([l_typ, h_typ]),
+                np.concatenate([l_norm, h_norm]), edges.send_idx[:, s],
+                n_per, h, s_n, slots, device=dev)))
+    return dataclasses.replace(edges, shards=tuple(shards))
+
+
+def padded_num_nodes(edges: HaloShardedEdges) -> int:
+    return edges.n_per * edges.num_shards
+
+
+def exchange_mode() -> Optional[str]:
+    """``RGCN_HALO_PALLAS_A2A``: None (unset: the library exchange),
+    ``"fused"`` (kernel #7) or ``"kernel"`` (any other value: #6)."""
+    value = os.environ.get(EXCHANGE_ENV)
+    if not value:
+        return None
+    return "fused" if value == "fused" else "kernel"
+
+
+def halo_aggregate(x: torch.Tensor, w: torch.Tensor, edges: HaloShardedEdges,
+                   mesh: Mesh, backend: Optional[str] = None) -> torch.Tensor:
+    """``sum_e norm_e * (x[src_e] @ w[rel_e])`` onto ``dst_e``, shard by
+    shard: ``x [S * n_per, d_in]`` -> ``[S * n_per, d_out]`` float32 on
+    the mesh's first device."""
+    s_n, n_per, h = edges.num_shards, edges.n_per, edges.halo
+    if not edges.shards or mesh.size != s_n:
+        raise ValueError("halo edges must be placed on this mesh "
+                         "(device_put_halo_edges)")
+    if x.shape[0] != s_n * n_per:
+        raise ValueError(f"x has {x.shape[0]} rows, the partition "
+                         f"{s_n} x {n_per}")
+    slots, d_in, d_out = w.shape
+    use_span = fused_ok(d_in, d_out) and backend is None
+    mode = exchange_mode()
+    if mode == "fused" and not use_span:
+        warnings.warn(
+            f"{EXCHANGE_ENV}=fused requested, but kernel #7 does not take "
+            f"this layer (d_in {d_in}, d_out {d_out}, backend {backend!r}); "
+            "taking the library exchange", stacklevel=2)
+        mode = None
+    x, w = x.contiguous(), w.contiguous()
+    xs = [x[s * n_per:(s + 1) * n_per].to(dev)
+          for s, dev in enumerate(mesh.devices)]
+    ws = [w.to(dev) for dev in mesh.devices]
+    if mode == "fused":
+        aggs = fused_halo_apply(xs, ws, edges.shards)
+    else:
+        sends = [xs[s].index_select(0, sh.send_idx).view(s_n, h, d_in)
+                 for s, sh in enumerate(edges.shards)]
+        recvs = HaloExchange.apply(mode or "library", *sends)
+        agg_mode = "fused" if use_span else "edge"
+        aggs: List[torch.Tensor] = []
+        for s, sh in enumerate(edges.shards):
+            hbuf = recvs[s].reshape(s_n * h, d_in)
+            aggs.append(
+                relational_aggregate(xs[s], ws[s], sh.local, agg_mode, backend)
+                + relational_aggregate(hbuf, ws[s], sh.halo, agg_mode, backend))
+    return torch.cat([a.to(mesh.first) for a in aggs])
+
+
+def halo_rgcn_conv(x: torch.Tensor, edges: HaloShardedEdges, layer: RGCNLayer,
+                   mesh: Mesh, backend: Optional[str] = None,
+                   compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Node-partitioned R-GCN layer: ``[S * n_per, in] -> [S * n_per, out]``.
+
+    Same math as ``ops/rgcn_conv.py`` ``rgcn_conv``. ``compute_dtype``
+    (e.g. ``torch.bfloat16``): the per-edge streams, the exchanged rows
+    included, run in that dtype while every sum and the output stay
+    float32; the root and bias term stays in the parameters' float32."""
+    w = materialize_weight(layer)
+    cast = (lambda t: t) if compute_dtype is None else (
+        lambda t: t.to(compute_dtype))
+    agg = halo_aggregate(cast(x), cast(w), edges, mesh, backend=backend)
+    return agg + x @ layer.root + layer.bias

@@ -1,0 +1,195 @@
+"""The halo exchange: an all-to-all of ``[S, H, d]`` boundary blocks.
+
+``out[q][p] = send[p][q]``: shard ``q`` receives from every shard ``p`` the
+block ``p`` prepared for it (its own block included), as
+``lax.all_to_all(send, axis, 0, 0)`` does inside the JAX package's
+``shard_map``. Three implementations, one contract:
+
+- :func:`halo_exchange` (kernel #6): the hand-written pull kernel
+  (``csrc/halo_kernels.cu`` ``halo_pull``), which replaces the TPU
+  remote-DMA kernel ``scaling_rgcn_training_tpu/parallel/ring_halo.py:42``
+  ``_a2a_kernel``. One launch per receiver, on the receiver's stream,
+  reads the S senders' blocks through a table of their pointers; the
+  order of the streams replaces the TPU kernel's barrier semaphore. On the
+  CPU it runs its plain version;
+- :func:`halo_exchange_plain`: the plain version, one ``copy_`` per block;
+- :func:`halo_exchange_library`: the default exchange of the halo conv,
+  PyTorch's own copies (``Tensor.to``, a peer copy between cards, and one
+  ``torch.stack`` per receiver): the counterpart of ``lax.all_to_all``.
+
+:class:`HaloExchange` makes either exchange differentiable: the exchange
+is its own transpose (exchanging twice restores the layout), so its
+gradient is the exchange of the cotangents, as in the JAX package.
+
+The shards' devices may be S cards, or S virtual shards on one card (a
+mesh that repeats one device). Between cards the kernels read peer memory:
+the wrappers check ``torch.cuda.can_device_access_peer`` and raise without
+it, then enable peer access once per pair.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, Sequence
+
+import torch
+
+from scaling_rgcn_training_tpu_torch.ops import cuda_build
+from scaling_rgcn_training_tpu_torch.ops.cuda_build import LAUNCHES
+
+# shards the kernels' pointer tables hold (csrc/span_rows.cuh kMaxShards)
+MAX_SHARDS = 64
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.enable_peer.argtypes = [i]
+    lib.enable_peer.restype = i
+    lib.halo_pull.argtypes = [p, i, p, i, ctypes.c_longlong, p]
+    lib.halo_pull.restype = i
+    lib.fused_halo_rows.argtypes = [i, p, i, i, p, p, p, p, p, p, i, i, i, i,
+                                    p, p, i, p]
+    lib.fused_halo_rows.restype = i
+
+
+def halo_kernels() -> ctypes.CDLL:
+    return cuda_build.load("halo_kernels", _declare)
+
+
+def on_cards(tensors: Sequence[torch.Tensor]) -> bool:
+    """True when every tensor lies on a CUDA device (one or several),
+    False when all lie on the CPU; raises otherwise."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds != {"cuda"}:
+        raise ValueError("halo kernels need every tensor on CUDA devices (or "
+                         f"all on the CPU), got {sorted(kinds)}")
+    return True
+
+
+def pointer_table(tensors: Sequence[torch.Tensor]):
+    """The tensors' device pointers as a C array of ``void*``."""
+    if len(tensors) > MAX_SHARDS:
+        raise ValueError(f"at most {MAX_SHARDS} shards, got {len(tensors)}")
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+_peer_enabled = set()
+
+
+def connect(lib: ctypes.CDLL, reader: torch.device,
+            sources: Sequence[torch.Tensor]) -> None:
+    """Let ``reader`` read every source's card; raises when the hardware
+    gives no peer access (no fallback to copies)."""
+    for t in sources:
+        peer = t.device
+        if peer == reader or (reader.index, peer.index) in _peer_enabled:
+            continue
+        if not torch.cuda.can_device_access_peer(reader, peer):
+            raise RuntimeError(f"{reader} cannot read {peer}'s memory (no "
+                               "peer access): the halo kernels need it")
+        with torch.cuda.device(reader):
+            cuda_build.check_launch(lib, lib.enable_peer(peer.index),
+                                    f"peer access {reader} -> {peer}")
+        _peer_enabled.add((reader.index, peer.index))
+
+
+def wait_for_sources(stream: torch.cuda.Stream,
+                     sources: Sequence[torch.Tensor]) -> None:
+    """``stream`` waits for the work queued on every other card that
+    produces a source."""
+    for dev in {t.device for t in sources} - {stream.device}:
+        stream.wait_stream(torch.cuda.current_stream(dev))
+
+
+def release_sources(stream: torch.cuda.Stream,
+                    sources: Sequence[torch.Tensor]) -> None:
+    """After a launch on ``stream`` that reads the sources: the other
+    cards' streams wait for it, and the caching allocator keeps each
+    source's memory until it is done."""
+    for dev in {t.device for t in sources} - {stream.device}:
+        torch.cuda.current_stream(dev).wait_stream(stream)
+    for t in sources:
+        if t.device != stream.device:
+            t.record_stream(stream)
+
+
+def _check(sends: Sequence[torch.Tensor]) -> None:
+    s_n = len(sends)
+    if s_n < 1:
+        raise ValueError("an exchange needs at least one shard")
+    shape, dtype = sends[0].shape, sends[0].dtype
+    for t in sends:
+        if t.dim() != 3 or t.shape != shape or t.shape[0] != s_n:
+            raise ValueError(f"each send must be [S={s_n}, H, d] of one "
+                             f"shape, got {[tuple(t.shape) for t in sends]}")
+        if t.dtype != dtype:
+            raise TypeError(f"mixed dtypes {dtype} and {t.dtype}")
+
+
+def halo_exchange_plain(sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Kernel #6's plain version: ``out[q][p].copy_(send[p][q])``."""
+    _check(sends)
+    outs = [torch.empty_like(t) for t in sends]
+    for q, out in enumerate(outs):
+        for p, send in enumerate(sends):
+            out[p].copy_(send[q])
+    return outs
+
+
+def halo_exchange_library(sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The default exchange: per receiver, the S blocks moved to its
+    device (``Tensor.to``: a peer copy between cards, nothing on one card)
+    and stacked."""
+    _check(sends)
+    return [torch.stack([send[q].to(sends[q].device) for send in sends])
+            for q in range(len(sends))]
+
+
+def halo_exchange(sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Kernel #6: ``sends[p] [S, H, d]`` on shard ``p``'s device ->
+    ``outs[q] [S, H, d]`` on shard ``q``'s, ``outs[q][p] = sends[p][q]``;
+    float32 or bfloat16, any H and d."""
+    _check(sends)
+    if not on_cards(sends):
+        return halo_exchange_plain(sends)
+    if sends[0].dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"halo_exchange takes float32 or bfloat16, got "
+                        f"{sends[0].dtype}")
+    sends = [t.contiguous() for t in sends]
+    outs = [torch.empty_like(t) for t in sends]
+    block_bytes = sends[0][0].numel() * sends[0].element_size()
+    if block_bytes == 0:
+        return outs
+    lib = halo_kernels()
+    table = pointer_table(sends)
+    for q, out in enumerate(outs):
+        dev = out.device
+        connect(lib, dev, sends)
+        stream = torch.cuda.current_stream(dev)
+        with torch.cuda.device(dev):
+            wait_for_sources(stream, sends)
+            err = lib.halo_pull(table, len(sends), out.data_ptr(), q,
+                                block_bytes, stream.cuda_stream)
+            cuda_build.check_launch(lib, err, "halo_exchange")
+            release_sources(stream, sends)
+    LAUNCHES["halo_exchange"] += 1
+    return outs
+
+
+EXCHANGES = {"library": halo_exchange_library, "kernel": halo_exchange}
+
+
+class HaloExchange(torch.autograd.Function):
+    """``EXCHANGES[mode]`` over S sends; its gradient is the same exchange
+    of the cotangents."""
+
+    @staticmethod
+    def forward(ctx, mode: str, *sends):
+        ctx.mode = mode
+        return tuple(EXCHANGES[mode](sends))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *EXCHANGES[ctx.mode]([g.contiguous() for g in grads]))

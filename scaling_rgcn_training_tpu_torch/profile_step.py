@@ -6,8 +6,12 @@ window of ``Trainer.fit`` steps at the bench shape of ``bench_shape.py``
     python -m scaling_rgcn_training_tpu_torch.profile_step --conv edge
 
 ``--conv``: ``fused`` (span kernels), ``edge`` (edges built without the span
-plan, ``backend="pallas"``) or ``attention`` (``aggr="attention"``,
-``backend="pallas"``). Prints the card, wall ms/step over the window, the
+plan, ``backend="pallas"``), ``attention`` (``aggr="attention"``,
+``backend="pallas"``), ``halo`` (the halo partition over ``--shards``
+virtual shards of the card, with the ``--exchange`` ``library``, ``kernel``
+(#6) or ``fused`` (#7)) or ``edge-partition`` (the edge partition over
+``--shards`` virtual shards, ``backend="pallas"``). Prints the card, wall
+ms/step over the window, the
 device's busy ms/step (the sum of kernel times; one stream), its idle share,
 and the kernels by device time per step. ``--trace`` also writes a Chrome
 trace. Needs a CUDA device.
@@ -16,6 +20,7 @@ trace. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import os
 import subprocess
 import time
 
@@ -29,8 +34,12 @@ def _device_time(evt) -> float:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--conv", choices=["fused", "edge", "attention"],
-                    default="fused")
+    ap.add_argument("--conv", choices=["fused", "edge", "attention", "halo",
+                                       "edge-partition"], default="fused")
+    ap.add_argument("--exchange", choices=["library", "kernel", "fused"],
+                    default="library", help="the halo exchange (--conv halo)")
+    ap.add_argument("--shards", type=int, default=4,
+                    help="virtual shards of the card (halo, edge-partition)")
     ap.add_argument("--dtype", choices=["float32", "bfloat16"],
                     default="float32")
     ap.add_argument("--warmup", type=int, default=5, help="steps before the "
@@ -51,10 +60,27 @@ def main(argv=None) -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    edges = build_rel_edges(*bs.bench_edges(), bs.N, bs.SLOTS, device="cuda",
-                            span=args.conv == "fused")
+    kw = {} if args.conv in ("fused", "halo") else {"backend": "pallas"}
+    if args.conv in ("halo", "edge-partition"):
+        from scaling_rgcn_training_tpu_torch.parallel import halo, spmd
+        from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(devices=("cuda",) * args.shards)
+        kw.update(mesh=mesh, partition=args.conv.split("-")[0])
+        if args.conv == "halo":
+            edges = halo.device_put_halo_edges(halo.halo_partition_edges(
+                *bs.bench_edges(), bs.N, bs.SLOTS, args.shards), mesh)
+            os.environ.pop(halo.EXCHANGE_ENV, None)
+            if args.exchange != "library":
+                os.environ[halo.EXCHANGE_ENV] = \
+                    "fused" if args.exchange == "fused" else "1"
+        else:
+            edges = spmd.device_put_sharded_edges(spmd.shard_rel_edges(
+                *bs.bench_edges(), bs.N, bs.SLOTS, args.shards), mesh)
+    else:
+        edges = build_rel_edges(*bs.bench_edges(), bs.N, bs.SLOTS,
+                                device="cuda", span=args.conv == "fused")
     graph = DeviceGraph(edges=edges, **bs.bench_splits("cuda"))
-    kw = {} if args.conv == "fused" else {"backend": "pallas"}
     if args.conv == "attention":
         kw["aggr"] = "attention"
     trainer, model = bs.bench_trainer(
@@ -81,7 +107,8 @@ def main(argv=None) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.key.startswith("ProfilerStep")]
     busy = sum(_device_time(e) for e in kernels) / 1e3 / args.steps
-    print(f"{args.conv} {args.dtype}: wall {wall:.3f} ms/step, device busy "
+    name = f"{args.conv} {args.exchange}" if args.conv == "halo" else args.conv
+    print(f"{name} {args.dtype}: wall {wall:.3f} ms/step, device busy "
           f"{busy:.3f} ms/step, idle share {1 - busy / wall:.3f} "
           f"({args.steps} steps after {args.warmup})", flush=True)
     for e in sorted(kernels, key=_device_time, reverse=True)[:args.top]:

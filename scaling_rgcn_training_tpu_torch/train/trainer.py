@@ -15,19 +15,33 @@ Every tensor lives on the trainer's explicit ``device``; random draws come
 from one ``torch.Generator`` seeded from ``seed`` (on the CPU, so a seed
 gives the same initial values on every device). Freezing leaves a
 parameter out of the optimizer and out of autograd.
+
+With ``devices`` > 1 (or an explicit ``mesh``) the graph's edges are
+partitioned over a mesh (``partition``: ``"halo"`` or ``"edge"``,
+``parallel/``), with an optional locality ``reorder`` of the nodes for the
+halo partition; parameters and node-major activations stay on the mesh's
+first device and ``rgcn_conv`` dispatches on the edges' type. The halo
+partition pads the node table to ``S * n_per`` rows; embeddings enter the
+model through :meth:`Trainer._pad_embedding` and leave it through
+:meth:`Trainer._export_embedding`, so a seed gives every node the same
+initial vector at any device count.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from scaling_rgcn_training_tpu_torch.graphs.dataset import Dataset
-from scaling_rgcn_training_tpu_torch.graphs.device import DeviceGraph, build_device_graph
+from scaling_rgcn_training_tpu_torch.graphs.device import (
+    DeviceGraph, build_device_graph, model_num_nodes)
 from scaling_rgcn_training_tpu_torch.graphs.graph import Graph
 from scaling_rgcn_training_tpu_torch.models import heads as model_heads
 from scaling_rgcn_training_tpu_torch.ops.grouped_matmul import BACKENDS
+from scaling_rgcn_training_tpu_torch.parallel.mesh import Mesh, make_mesh, use_mesh
 from scaling_rgcn_training_tpu_torch.train.losses import get_loss
 from scaling_rgcn_training_tpu_torch.train.metrics import (
     classification_table, evaluate, predictions)
@@ -40,17 +54,21 @@ _DTYPES = {None: None, "bfloat16": torch.bfloat16}
 class Trainer:
     """Same constructor surface as the reference Trainer
     (modelTrainer.py:17-24), plus ``device`` and the JAX package's
-    weight-decomposition, mixed-precision, conv-backend and aggregation
-    options (``backend``: the grouped matmul of the non-fused conv,
-    ``"ragged"``, ``"gather"`` or ``"pallas"``; ``aggr``: ``"mean"`` or
-    ``"attention"``)."""
+    weight-decomposition, mixed-precision, conv-backend, aggregation and
+    distribution options (``backend``: the grouped matmul of the non-fused
+    conv, ``"ragged"``, ``"gather"`` or ``"pallas"``; ``aggr``: ``"mean"``
+    or ``"attention"``; ``devices``: a mesh of that many CUDA devices, or
+    of as many virtual shards of ``device`` when it is the CPU; ``mesh``:
+    an explicit mesh, e.g. S virtual shards on one card)."""
 
     def __init__(self, data: Optional[Dataset], hidden_l: int, epochs: int,
                  emb_dim: int, lr: float, weight_d: float, seed: int = 0,
                  device="cuda", num_bases: Optional[int] = None,
                  num_blocks: Optional[int] = None,
                  compute_dtype=None, backend: Optional[str] = None,
-                 aggr: str = "mean") -> None:
+                 aggr: str = "mean", devices: Optional[int] = None,
+                 partition: str = "halo", reorder: bool = False,
+                 mesh: Optional[Mesh] = None) -> None:
         self.data = data
         self.hidden_l = hidden_l
         self.epochs = epochs
@@ -71,6 +89,19 @@ class Trainer:
             raise ValueError(f"aggr {aggr!r} is not 'mean' or 'attention'")
         self.backend = backend
         self.aggr = aggr
+        if mesh is None and devices and devices > 1:
+            mesh = make_mesh(devices) if self.device.type == "cuda" else \
+                make_mesh(devices=(self.device,) * devices)
+        if mesh is not None and mesh.size > 1 and aggr != "mean":
+            raise ValueError("aggr='attention' is a single-device mode")
+        if partition not in ("halo", "edge"):
+            raise ValueError(f"partition {partition!r} is not 'halo' or 'edge'")
+        # the mesh of a multi-device run; parameters live on its first device
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None:
+            self.device = self.mesh.first
+        self.partition = partition if self.mesh is not None else None
+        self.reorder = bool(reorder)
         self.gen = torch.Generator().manual_seed(seed)
         self.sum_model: Optional[model_heads.EmbModel] = None
         self._device_graphs: Dict[int, Tuple[Graph, DeviceGraph]] = {}
@@ -80,13 +111,47 @@ class Trainer:
         # stays valid as long as the entry lives
         hit = self._device_graphs.get(id(graph))
         if hit is None or hit[0] is not graph:
-            hit = (graph, build_device_graph(graph, self.device))
+            hit = (graph, build_device_graph(
+                graph, self.device, mesh=self.mesh, partition=self.partition,
+                reorder=self.reorder))
             self._device_graphs[id(graph)] = hit
         return hit[1]
 
+    def _mesh_scope(self):
+        return contextlib.nullcontext() if self.mesh is None else \
+            use_mesh(self.mesh)
+
     def _logits(self, model: model_heads.EmbModel,
                 graph: DeviceGraph) -> torch.Tensor:
-        return model(graph.edges, self.compute_dtype, self.backend, self.aggr)
+        # the ambient mesh for rgcn_conv's dispatch
+        with self._mesh_scope():
+            return model(graph.edges, self.compute_dtype, self.backend,
+                         self.aggr)
+
+    def _pad_embedding(self, emb: torch.Tensor,
+                       dev_graph: DeviceGraph) -> torch.Tensor:
+        """``[N, d]`` rows in true node order -> the model's node table on
+        the trainer's device: under a locality reorder row ``perm[i]`` of
+        the result is row ``i`` of ``emb``; the halo partition's phantom
+        rows are zeros."""
+        n_model = model_num_nodes(dev_graph)
+        if dev_graph.node_perm is None and n_model == emb.shape[0]:
+            return emb.to(self.device)
+        out = emb.new_zeros((n_model, emb.shape[1]))
+        rows = torch.arange(emb.shape[0]) if dev_graph.node_perm is None \
+            else torch.as_tensor(np.asarray(dev_graph.node_perm), dtype=torch.int64)
+        out[rows.to(emb.device)] = emb
+        return out.to(self.device)
+
+    @staticmethod
+    def _export_embedding(emb: torch.Tensor, dev_graph: DeviceGraph,
+                          true_n: int) -> np.ndarray:
+        """The model's node table -> ``[true_n, d]`` in true node order
+        (the inverse of :meth:`_pad_embedding`)."""
+        arr = emb.detach().cpu().numpy()
+        if dev_graph.node_perm is not None:
+            return arr[np.asarray(dev_graph.node_perm)]
+        return arr[:true_n]
 
     # -- core epoch loop (modelTrainer.py:41-74) ---------------------------
 
@@ -154,11 +219,13 @@ class Trainer:
         for sg in self.data.sumGraphs:
             dg = self._device_graph(sg)
             # re-init the embedding for this summary's node count, keep trunk
-            model.embedding = torch.nn.Parameter(torch.randn(
-                (sg.num_nodes, self.emb_dim), generator=self.gen).to(self.device))
+            model.embedding = torch.nn.Parameter(self._pad_embedding(
+                torch.randn((sg.num_nodes, self.emb_dim), generator=self.gen),
+                dg))
             self.fit(model, dg, loss_fn, activation, sum_graph=True,
                      verbose=verbose)
-            sg.embedding = model.embedding.detach().cpu().numpy()
+            sg.embedding = self._export_embedding(model.embedding, dg,
+                                                  sg.num_nodes)
         self.sum_model = model
 
     # -- weight transfer (modelTrainer.py:26-39) ---------------------------
@@ -187,12 +254,15 @@ class Trainer:
             self.data.num_classes, og.num_nodes, self.emb_dim,
             num_bases=self.num_bases, num_blocks=self.num_blocks,
             device=self.device)
+        model.embedding = torch.nn.Parameter(self._pad_embedding(
+            model.embedding.detach(), dev_graph))
         frozen = set()
 
         if exp != "baseline" and configs.get("e_trans", False):
             embedding = EMBEDDING_TRICKS[head](og, self.data.sumGraphs,
                                                self.emb_dim, self.gen)
-            model.embedding = torch.nn.Parameter(embedding.to(self.device))
+            model.embedding = torch.nn.Parameter(self._pad_embedding(
+                embedding, dev_graph))
             if configs.get("e_freeze", True):
                 frozen.add("embedding")
             if verbose:

@@ -68,7 +68,7 @@ def test_cli_runs_non_fused_flags_on_cpu(tmp_path, flags, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["-exp", "mlp"], ["-exp", "attention"], [],
-    ["-devices", "2"], ["-ckpt_dir", "ck"], ["-ckpt_every", "2"],
+    ["-exp", "mlp", "-devices", "2"], ["-ckpt_dir", "ck"], ["-ckpt_every", "2"],
     ["-plan_cache", "pc"], ["-e_viz", "true"],
 ])
 def test_unported_flags_raise(tmp_path, flags):
@@ -94,7 +94,10 @@ def test_port_imports_no_jax_optax_or_sklearn():
         "import scaling_rgcn_training_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "assert 'scaling_rgcn_training_tpu_torch.ops.sddmm' in sys.modules\n"
+        "for m in ('ops.sddmm', 'parallel.mesh', 'parallel.reorder',\n"
+        "          'parallel.ring_halo', 'parallel.fused_halo',\n"
+        "          'parallel.halo', 'parallel.spmd'):\n"
+        "    assert 'scaling_rgcn_training_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('scaling_rgcn_training_tpu', 'jax', 'jaxlib', 'optax', 'sklearn')]\n"
         "assert not bad, bad\n")

@@ -1,5 +1,6 @@
-"""The CUDA kernels (span, segment sum, grouped matmul and d_rhs) against
-their plain PyTorch versions, on the card.
+"""The CUDA kernels (span, segment sum, grouped matmul, d_rhs, halo
+exchange and fused halo aggregate) against their plain PyTorch versions,
+on the card.
 
 Needs a CUDA device and nvcc; skips without a card. Imports no jax (the
 card's machine has none), so on the card run it without the JAX test
@@ -139,3 +140,138 @@ def test_cuda_empty_shapes_launch_nothing():
         torch.ones(0, 4, device="cuda"),
         torch.zeros(1, dtype=torch.int32, device="cuda")).numel()
     assert cuda_build.LAUNCHES == before
+
+
+# -- kernels #6 (halo_exchange) and #7 (fused_halo_aggregate) ---------------
+
+def _halo_graph(rng, s_n, n_nodes, e, slots):
+    """Random edges of an ``s_n``-shard halo partition in which shard 1
+    (when there is one) has no halo edges and the last shard (from 3
+    shards on) ships no rows: nobody else reads it."""
+    from scaling_rgcn_training_tpu_torch.parallel.halo import (
+        halo_partition_edges)
+
+    n_per = -(-n_nodes // s_n)
+    dst = rng.integers(0, n_nodes, e)
+    src = rng.integers(0, n_nodes, e)
+    owner = dst // n_per
+    if s_n >= 2:
+        m = owner == 1
+        src[m] = np.minimum(n_per + rng.integers(0, n_per, int(m.sum())),
+                            n_nodes - 1)
+    if s_n >= 3:
+        m = (src // n_per == s_n - 1) & (owner != s_n - 1)
+        src[m] = rng.integers(0, n_per, int(m.sum()))
+    typ = rng.integers(0, slots, e)
+    return halo_partition_edges(src, dst, typ, n_nodes, slots, s_n,
+                                pad_to_multiple=8, halo_multiple=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s_n,h,d", [(1, 37, 11), (2, 37, 4), (3, 37, 63),
+                                     (4, 64, 16), (3, 5, 1)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_halo_exchange_matches_plain(s_n, h, d, dtype, offset):
+    """Kernel #6 against its plain version: the same bits, at H and d that
+    are not multiples of the vector width and (``offset``) with sends
+    that do not start on a 16-byte boundary."""
+    from scaling_rgcn_training_tpu_torch.parallel import ring_halo as rh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dt = getattr(torch, dtype)
+    flat = torch.randn(offset + s_n * s_n * h * d, device="cuda").to(dt)
+    sends = list(flat[offset:].view(s_n, s_n, h, d).unbind(0))
+    before = cuda_build.LAUNCHES["halo_exchange"]
+    got = rh.halo_exchange(sends)
+    again = rh.halo_exchange(sends)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["halo_exchange"] == before + 2
+    for a, b, c in zip(got, again, rh.halo_exchange_plain(sends)):
+        assert torch.equal(a, c) and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s_n,d_in,d_out", [(1, 63, 4), (2, 4, 11),
+                                            (3, 11, 63), (4, 64, 16)])
+def test_cuda_fused_halo_matches_plain(s_n, d_in, d_out, dtype, monkeypatch):
+    """Kernel #7 against its plain version for every shard (the halo
+    buffer bit for bit), then the halo conv's values and gradients with
+    kernel #7 against the library exchange, on S virtual shards."""
+    from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import RGCNLayer
+    from scaling_rgcn_training_tpu_torch.parallel import fused_halo as fh
+    from scaling_rgcn_training_tpu_torch.parallel import halo as hp
+    from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(s_n * d_in + d_out)
+    slots = 7
+    mesh = make_mesh(devices=("cuda",) * s_n)
+    he = hp.device_put_halo_edges(_halo_graph(rng, s_n, 301, 2500, slots),
+                                  mesh)
+    dt = getattr(torch, dtype)
+    x = torch.randn(s_n * he.n_per, d_in, device="cuda")
+    xs = list(x.to(dt).split(he.n_per))
+    w = (torch.randn(slots, d_in, d_out, device="cuda") * 0.2).to(dt)
+    before = cuda_build.LAUNCHES["fused_halo_aggregate"]
+    for sh in he.shards:
+        agg, buf = fh.fused_halo_aggregate(xs, w, sh.fused)
+        agg2, buf2 = fh.fused_halo_aggregate(xs, w, sh.fused)
+        torch.cuda.synchronize()
+        assert torch.equal(agg, agg2) and torch.equal(buf, buf2)
+        ref, ref_buf = fh.fused_halo_aggregate_plain(xs, w, sh.fused)
+        assert torch.equal(buf, ref_buf)
+        torch.testing.assert_close(agg, ref, **_tol(dtype, ref))
+    assert cuda_build.LAUNCHES["fused_halo_aggregate"] == before + 2 * s_n
+
+    layer = RGCNLayer((torch.randn(slots, d_in, d_out, device="cuda") * 0.2),
+                      torch.randn(d_in, d_out, device="cuda") * 0.2,
+                      torch.randn(d_out, device="cuda"))
+    g = torch.randn(s_n * he.n_per, d_out, device="cuda")
+    results = []
+    for mode in (None, "1", "fused"):
+        if mode is None:
+            monkeypatch.delenv(hp.EXCHANGE_ENV, raising=False)
+        else:
+            monkeypatch.setenv(hp.EXCHANGE_ENV, mode)
+        layer.zero_grad()
+        xg = x.clone().requires_grad_(True)
+        out = hp.halo_rgcn_conv(xg, he, layer, mesh,
+                                compute_dtype=None if dtype == "float32" else dt)
+        (out * g).sum().backward()
+        torch.cuda.synchronize()
+        results.append([out.detach(), xg.grad, layer.weight.grad.clone()])
+    for got in results[1:]:
+        for a, b in zip(got, results[0]):
+            torch.testing.assert_close(a, b, **_tol(dtype, b))
+
+
+@pytest.mark.cuda
+def test_cuda_halo_kernels_on_two_cards():
+    """A mesh of two real cards: kernels #6 and #7 read the peer card's
+    memory and match their plain versions."""
+    from scaling_rgcn_training_tpu_torch.parallel import fused_halo as fh
+    from scaling_rgcn_training_tpu_torch.parallel import halo as hp
+    from scaling_rgcn_training_tpu_torch.parallel import ring_halo as rh
+    from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    mesh = make_mesh(2)
+    sends = [torch.randn(2, 37, 11, device=dev) for dev in mesh.devices]
+    for a, b in zip(rh.halo_exchange(sends), rh.halo_exchange_plain(sends)):
+        torch.cuda.synchronize()
+        assert a.device == b.device and torch.equal(a, b)
+    rng = np.random.default_rng(0)
+    he = hp.device_put_halo_edges(_halo_graph(rng, 2, 301, 2500, 7), mesh)
+    xs = [torch.randn(he.n_per, 16, device=dev) for dev in mesh.devices]
+    for sh, dev in zip(he.shards, mesh.devices):
+        w = torch.randn(7, 16, 8, device=dev) * 0.2
+        agg, buf = fh.fused_halo_aggregate(xs, w, sh.fused)
+        torch.cuda.synchronize()
+        ref, ref_buf = fh.fused_halo_aggregate_plain(xs, w, sh.fused)
+        assert torch.equal(buf, ref_buf)
+        torch.testing.assert_close(agg, ref, **_tol("float32", ref))
