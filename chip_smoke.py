@@ -37,8 +37,9 @@ Phases, in order; any failure exits non-zero:
    and match the plain versions, forward and backward;
 7. the CLI on the GPU (summary pre-training, transfer, fine-tuning) on a
    synthetic dataset, once with ``-emb 128 -hl 64`` (a first layer the
-   span kernels refuse) and once with ``-backend pallas -aggr attention``;
-   the results JSON must exist;
+   span kernels refuse), once with ``-backend pallas -aggr attention`` and
+   once with no ``-exp`` (summation, MLP and attention heads); the results
+   JSON must exist and hold every experiment run;
 8. the halo partition on S = 4 virtual shards of the card: the halo
    exchange (#6) and fused halo-aggregate (#7) kernels against their plain
    versions in float32 and bfloat16 at edge cases (S = 1, 2, 3; H not a
@@ -52,6 +53,23 @@ Phases, in order; any failure exits non-zero:
    edge partition (``backend="pallas"``); losses within 1e-4 relative of
    phase 5's single-device run of the same dtype (bfloat16: 1e-3), the
    kernels' launch counters advanced on every step, ms/step and peak
+   memory;
+9. kernel #8 (the one-pass backward of the attribution microbench) against
+   its plain versions, every variant (``base``, ``nodw``, ``nodx``,
+   ``statrmw``): at phase 3's edge cases (63 -> 4 and 11, 11 -> 63; 128 ->
+   32 over 30 relations, several relation passes) and at the bench shape
+   (layers 1 and 2, and ``base`` over the plan with ``dst`` folded into
+   4,096 rows), float32 and bfloat16; two runs must give the same dx bits
+   (dW sums with shared-memory atomics, so it is held to the tolerance
+   only); ``base``'s time beside its plain version; then the microbench's
+   entry point in this process for layers 1 and 2 in float32 and bfloat16
+   (each row's time beside its bound; its launches are #8's count), and
+   once as ``python -m scaling_rgcn_training_tpu_torch.bwd_variants
+   --inner 3``, which must exit 0;
+10. ``Trainer.fit`` of the MLP and attention heads at the bench shape with
+   4 transferred embeddings (d 64; the attention head has 4 heads of 16),
+   the embedding frozen, 10 epochs in float32: finite losses, 4
+   span_forward and 2 span_backward launches a step, ms/step and peak
    memory.
 
 Tolerances: float32 within rtol 1e-4 and atol 1e-4 * max|ref| (summation
@@ -336,14 +354,18 @@ def conv_autograd_check(rng):
         check_close(f"conv autograd {name}", got, ref, bf16=False)
 
 
-def run_fit(graph, compute_dtype, epochs, launches, **trainer_kw):
-    """One ``Trainer.fit`` from the seed-0 parameters; returns losses,
-    median ms/step, peak MiB and the launch counts of each step."""
+def run_fit(graph, compute_dtype, epochs, launches, head="summation",
+            **trainer_kw):
+    """One ``Trainer.fit`` from the seed-0 parameters of ``head`` (the
+    MLP and attention heads with their transferred embedding frozen, as
+    the CLI's default); returns losses, median ms/step, peak MiB and the
+    launch counts of each step."""
     import torch
     from scaling_rgcn_training_tpu_torch.bench_shape import bench_trainer
     from scaling_rgcn_training_tpu_torch.train.losses import bce_loss
 
-    trainer, model = bench_trainer(epochs, DEV, compute_dtype, **trainer_kw)
+    trainer, model = bench_trainer(epochs, DEV, compute_dtype, head,
+                                   **trainer_kw)
     stamps, per_step = [], []
 
     def on_epoch(epoch):
@@ -355,10 +377,11 @@ def run_fit(graph, compute_dtype, epochs, launches, **trainer_kw):
     stamps.append(time.perf_counter())
     per_step.append(dict(launches))
     torch.cuda.reset_peak_memory_stats()
+    frozen = () if head == "summation" else ("embedding",)
     _, accs, losses, _, _ = trainer.fit(model, graph, bce_loss, "sigmoid",
-                                        sum_graph=False, verbose=False,
-                                        on_epoch=on_epoch)
-    name = f"{compute_dtype or 'float32'} {trainer_kw}"
+                                        sum_graph=False, frozen=frozen,
+                                        verbose=False, on_epoch=on_epoch)
+    name = f"{head} {compute_dtype or 'float32'} {trainer_kw}"
     if len(losses) != epochs or not all(np.isfinite(losses)):
         fail(f"trainer {name}: losses {losses}")
     step = statistics.median((np.diff(stamps) * 1e3)[min(WARMUP, epochs - 1):])
@@ -635,12 +658,118 @@ def halo_phase(bench_src, bench_dst, bench_typ, splits, fits, launches,
     return {"bench": bench, "errs": errs, "counts": counts}
 
 
-def run_cli(extra, tag):
+def check_bwd_variants(plan, d_in, d_out, dtype, rng, tag, variants=None,
+                       timing=False) -> dict:
+    """Kernel #8's variants against their plain versions on ``plan``;
+    with ``timing``, ``base`` timed beside its plain version, with its
+    bound (the same function as span_backward's)."""
+    import torch
+    from scaling_rgcn_training_tpu_torch.ops import bwd_kernels as bk
+
+    dev = plan.device
+    bf16 = dtype == torch.bfloat16
+    t = lambda *shape, s=1.0: torch.as_tensor(
+        rng.standard_normal(shape) * s, dtype=torch.float32).to(dev, dtype)
+    x, g = t(plan.num_src, d_in), t(plan.num_nodes, d_out)
+    w = t(plan.num_slots, d_in, d_out, s=0.2)
+    res = {"err": 0.0}
+    for v in variants or bk.VARIANTS:
+        got = bk.span_backward_variant(g, x, w, plan, v)
+        again = bk.span_backward_variant(g, x, w, plan, v)
+        torch.cuda.synchronize()
+        ref = bk.span_backward_variant_plain(g, x, w, plan, v)
+        for name, a, b, c in zip(("dx", "dW"), got, again, ref):
+            if a is None:
+                continue
+            res["err"] = max(res["err"], check_close(f"{tag} {v} {name}", a,
+                                                     c, bf16))
+            res[f"{v} {name} same bits"] = bool(torch.equal(a, b))
+    same = {k: v for k, v in res.items() if k.endswith("same bits")}
+    print(f"  {tag}: two runs give the same bits: {same}", flush=True)
+    # dx is written once per row by one warp; dW's shared atomics add in
+    # no fixed order
+    if not all(v for k, v in same.items() if " dx " in k):
+        fail(f"{tag}: two runs of #8 give other dx bits")
+    if timing:
+        res.update(time_kernel(
+            lambda: bk.span_backward_variant(g, x, w, plan),
+            lambda: bk.span_backward_variant_plain(g, x, w, plan),
+            reps=20, plain_reps=20))
+        out_bytes = 4 * (plan.num_src * d_in + plan.num_slots * d_in * d_out)
+        res.update(bound(
+            nbytes(g, x, w, plan.bwd_rowptr, plan.bwd_dst, plan.bwd_rel,
+                   plan.bwd_norm) + out_bytes,
+            4 * plan.bwd_dst.numel() * d_in * d_out, dtype_name(dtype)))
+        print(f"  {tag} span_backward_variant (base) {res['ms']:.4f} ms "
+              f"(plain {res['plain_ms']:.4f}, bound {res['bound_ms']:.4f} "
+              f"{res['bound_by']})", flush=True)
+    return res
+
+
+def bwd_variant_phase(small, wide, bench_plan, rng, launches, reset) -> dict:
+    """Phase 9: kernel #8 at edge cases and the bench shape, then the
+    attribution microbench through its entry point."""
+    import torch
+    from scaling_rgcn_training_tpu_torch import bwd_variants as bwv
+    from scaling_rgcn_training_tpu_torch.bench_shape import C, D, HL
+    from scaling_rgcn_training_tpu_torch.ops import bwd_kernels as bk
+
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        for d_in, d_out in ((63, 4), (63, 11), (11, 63)):
+            err = max(err, check_bwd_variants(
+                small, d_in, d_out, dtype, rng,
+                f"small {d_in}->{d_out} {name}")["err"])
+        err = max(err, check_bwd_variants(
+            wide, 128, 32, dtype, rng, f"small 128->32 30 slots {name}")["err"])
+    folded = bk.fold_dst(bench_plan, bwv.WINDOW)
+    base = None
+    for d_in, d_out, layer in ((D, HL, "layer1"), (HL, C, "layer2")):
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"bench {layer} {d_in}->{d_out} {dtype_name(dtype)}"
+            r = check_bwd_variants(bench_plan, d_in, d_out, dtype, rng, tag,
+                                   timing=(layer, dtype) == ("layer1",
+                                                             torch.float32))
+            base = r if "ms" in r else base
+            err = max(err, r["err"], check_bwd_variants(
+                folded, d_in, d_out, dtype, rng, f"{tag} dst folded",
+                variants=("base",))["err"])
+    del folded
+
+    rows = {}
+    reset()
+    for d_in, d_out in ((D, HL), (HL, C)):
+        for dtype in ("float32", "bfloat16"):
+            out = bwv.main(["--d-in", str(d_in), "--d-out", str(d_out),
+                            "--dtype", dtype])
+            rows[f"{d_in}->{d_out} {dtype}"] = out["rows"]
+    counts = dict(launches)
+    print(f"  microbench launches {counts}", flush=True)
+    if not counts["span_backward_variant"]:
+        fail("the microbench launched kernel #8 no time")
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    res = subprocess.run([sys.executable, "-m", f"{PKG}.bwd_variants",
+                          "--inner", "3"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    print("\n".join(res.stdout.splitlines()[-11:-1]), flush=True)
+    if res.returncode != 0:
+        print(res.stderr[-4000:], file=sys.stderr)
+        fail(f"python -m {PKG}.bwd_variants --inner 3 exited {res.returncode}")
+    return {"err": err, "base": base, "rows": rows,
+            "launches": counts["span_backward_variant"]}
+
+
+def run_cli(extra, tag, exps=("summation",)):
+    """The CLI on the card; ``exps`` is its ``-exp`` (none: every head)
+    and the experiments its report must hold."""
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
                                      prefix="smoke_cli_") as tmp:
+        exp = ["-exp", exps[0]] if len(exps) == 1 else []
         cmd = [sys.executable, "-m", f"{PKG}.main", "-dataset", "SYNTH",
-               "-exp", "summation", "-epochs", "5", "-i", "1",
+               *exp, "-epochs", "5", "-i", "1",
                "-synth_entities", "20000", "-synth_degree", "8",
                "-device", DEV, "-data_root", os.path.join(tmp, "data"),
                "-results_root", os.path.join(tmp, "results"), *extra]
@@ -657,8 +786,13 @@ def run_cli(extra, tag):
         reports = [os.path.join(d, f)
                    for d, _, fs in os.walk(os.path.join(tmp, "results"))
                    for f in fs if f.endswith(".json")]
-        if not any(os.path.basename(r).startswith("report_") for r in reports):
+        report = [r for r in reports if os.path.basename(r).startswith("report_")]
+        if not report:
             fail(f"CLI {tag} wrote no results JSON ({reports})")
+        with open(report[0]) as fh:
+            missing = set(exps) - set(json.load(fh))
+        if missing:
+            fail(f"CLI {tag}: the report holds no {sorted(missing)}")
         print(f"  CLI {tag} ok in {time.perf_counter() - t0:.1f} s: "
               f"{sorted(os.path.basename(r) for r in reports)}", flush=True)
 
@@ -838,9 +972,24 @@ def main() -> None:
     run_cli(["-emb", "128", "-hl", "64"], "summation -emb 128 -hl 64")
     run_cli(["-backend", "pallas", "-aggr", "attention"],
             "summation -backend pallas -aggr attention")
+    run_cli([], "no -exp", exps=("summation", "mlp", "attention"))
 
     phase(f"8 halo partition on {HALO_SHARDS} virtual shards of the card")
     halo = halo_phase(src, dst, typ, splits, fits, launches, reset)
+
+    phase("9 kernel #8, the one-pass backward, and its microbench")
+    bwd = bwd_variant_phase(small, wide, edges.span, rng, launches, reset)
+
+    phase("10 MLP and attention heads at the bench shape")
+    head_launches = {}
+    for head in ("mlp", "attention"):
+        reset()
+        f = fits[(f"{head} head", None)] = run_fit(
+            DeviceGraph(edges=edges, **splits), None, EPOCHS, launches,
+            head=head)
+        require_per_step(f"{head} head", f["steps"],
+                         {"span_forward": 4, "span_backward": 2})
+        head_launches[f"{head} head"] = dict(launches)
 
     kernels = []
     b = bench[("layer1", "float32")]
@@ -879,6 +1028,14 @@ def main() -> None:
             "max_abs_err": halo["errs"][key], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
+    kernels.append({
+        "name": "span_backward_variant", "route": "cuda",
+        "source": f"{PKG}/csrc/bwd_variants.cu",
+        "replaces": "scripts/bwd_variants.py:76",
+        "launches": bwd["launches"], "max_abs_err": bwd["err"],
+        **{k: bwd["base"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by")},
+        "library_ms": None})
     print(json.dumps({
         "card": card,
         "bench_shape_ms": {
@@ -893,7 +1050,9 @@ def main() -> None:
             "loss_first": f["losses"][0], "loss_last": f["losses"][-1],
             "launches_step0": f["steps"][0]} for (mode, cd), f in fits.items()},
         "launches": {"fused": fused_launches, "edge": edge_launches,
-                     "attention": att_launches, **halo["counts"]}}),
+                     "attention": att_launches, **halo["counts"],
+                     **head_launches},
+        "bwd_variants": bwd["rows"]}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,14 @@
-"""The bench shape of the port's card runs (``chip_smoke.py`` and
-``profile_step.py``): the JAX package's ``bench.py`` graph size, uniform
-random edges from seed 0, a labelled split and the baseline embedding model's
-trainer. Nothing here measures; both tools build their runs from it, so their
-numbers are taken on the same graph.
+"""The bench shape of the port's card runs (``chip_smoke.py``,
+``profile_step.py`` and ``bwd_variants.py``): the JAX package's
+``bench.py`` graph size, uniform random edges from seed 0, a labelled split
+and the baseline embedding model's trainer. Nothing here measures; the
+tools build their runs from it, so their numbers are taken on the same
+graph.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -17,14 +18,20 @@ import torch
 N, E, R, D, HL, C = 200_000, 4_000_000, 45, 64, 16, 8
 SLOTS = 2 * R + 1
 N_TRAIN, N_VAL = 4096, 1024
+# summary graphs whose embeddings the MLP and attention heads take
+NUM_SUMS = 4
 
 
-def bench_edges(seed: int = 0) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """``(src, dst, type)`` int32 ``[E]``, uniform over nodes and slots."""
+def bench_edges(seed: int = 0, n: Optional[int] = None,
+                e: Optional[int] = None, slots: Optional[int] = None
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``(src, dst, type)`` int32 ``[e]``, uniform over ``n`` nodes and
+    ``slots`` relation slots (the bench shape's by default)."""
+    n, e, slots = n or N, e or E, slots or SLOTS
     rng = np.random.default_rng(seed)
-    src = rng.integers(0, N, E).astype(np.int32)
-    dst = rng.integers(0, N, E).astype(np.int32)
-    typ = rng.integers(0, SLOTS, E).astype(np.int32)
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    typ = rng.integers(0, slots, e).astype(np.int32)
     return src, dst, typ
 
 
@@ -42,13 +49,25 @@ def bench_splits(device) -> Dict[str, torch.Tensor]:
                 y_val=t(onehot[np.arange(N_VAL) % C]))
 
 
-def bench_trainer(epochs: int, device, compute_dtype=None, **trainer_kw):
-    """``(Trainer, EmbModel)`` of the bench shape from the seed-0
-    parameters; ``trainer_kw`` (``backend``, ``aggr``) go to the Trainer."""
-    from scaling_rgcn_training_tpu_torch.models.heads import init_emb_model
+def bench_trainer(epochs: int, device, compute_dtype=None,
+                  head: str = "summation", **trainer_kw):
+    """``(Trainer, model)`` of the bench shape from the seed-0 parameters;
+    ``trainer_kw`` (``backend``, ``aggr``, ``mesh``, ``partition``) go to
+    the Trainer. ``head`` ``"mlp"`` or ``"attention"`` takes ``NUM_SUMS``
+    transferred embeddings (U[0, 1) draws in the transfer's shapes:
+    ``[N, NUM_SUMS * D]`` concatenated, ``[NUM_SUMS, N, D]`` stacked, so
+    the attention head has ``NUM_SUMS`` heads of ``D / NUM_SUMS``)."""
+    from torch import nn
+
+    from scaling_rgcn_training_tpu_torch.models.heads import HEADS
     from scaling_rgcn_training_tpu_torch.train.trainer import Trainer
 
     trainer = Trainer(None, HL, epochs, D, lr=0.01, weight_d=5e-5, seed=0,
                       device=device, compute_dtype=compute_dtype, **trainer_kw)
-    model = init_emb_model(trainer.gen, SLOTS, HL, C, N, D, device=device)
+    model = HEADS[head](trainer.gen, SLOTS, HL, C, N, D, num_sums=NUM_SUMS,
+                        device=device)
+    if head in ("mlp", "attention"):
+        shape = (N, NUM_SUMS * D) if head == "mlp" else (NUM_SUMS, N, D)
+        model.embedding = nn.Parameter(
+            torch.rand(shape, generator=trainer.gen).to(device))
     return trainer, model

@@ -2,9 +2,10 @@
 (reference main.py:74-103), plus ``-device`` (default ``cuda``).
 
 Runs the summary-graph experiments: pre-train on summary graphs, transfer
-embeddings + R-GCN weights into a new model, and fine-tune on the full
-original graph, reporting per-epoch metrics and test-set results over
-``-i`` iterations.
+embeddings + R-GCN weights into a new model (summation, MLP or attention
+head), and fine-tune on the full original graph, reporting per-epoch
+metrics and test-set results over ``-i`` iterations. With no ``-exp`` it
+runs summation, MLP and attention.
 
 Every flag of the JAX CLI is accepted. A flag that selects a path not yet
 ported raises ``NotImplementedError`` naming its ``ROADMAP.md`` item. The
@@ -44,9 +45,6 @@ def strtobool(x: str) -> bool:
 def check_ported(configs: Dict[str, Any]) -> None:
     """Raise for every flag whose path the port does not have yet."""
     unported = []
-    if configs.get("exp") in ("mlp", "attention") or not configs.get("exp"):
-        unported.append("-exp mlp|attention (the MLP and attention heads; "
-                        "no -exp runs them too)")
     if configs.get("ckpt_dir") or configs.get("ckpt_every"):
         unported.append("-ckpt_dir / -ckpt_every (checkpointing)")
     if configs.get("plan_cache"):
@@ -96,7 +94,8 @@ def run_experiments(configs: Dict[str, Any], org_path: str, sum_path: str,
     device = resolve_device(configs["device"])
     configs, sum_files = do_checks(configs, sum_path, map_path)
     results = Results()
-    experiment_names = [configs["exp"]]
+    experiment_names = [configs["exp"]] if configs.get("exp") else [
+        "summation", "mlp", "attention"]
 
     if configs.get("create_attr_sum"):
         timing.log("Creating graph summaries...")

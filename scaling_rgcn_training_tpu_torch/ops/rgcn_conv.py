@@ -186,7 +186,8 @@ def materialize_weight(layer: RGCNLayer) -> torch.Tensor:
     return w
 
 
-def _uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
+def uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
+    """U(-bound, bound) float32 from ``gen``."""
     return (torch.rand(shape, generator=gen, dtype=torch.float32) * 2 - 1) * bound
 
 
@@ -214,13 +215,13 @@ def init_rgcn_layer(gen: torch.Generator, num_slots: int, in_dim: int,
     elif num_bases is not None:
         w_shape = (num_bases, in_dim, out_dim)
         fan = in_dim * out_dim
-        comp = _uniform(gen, (num_slots, num_bases),
+        comp = uniform(gen, (num_slots, num_bases),
                         float(np.sqrt(6.0 / (num_slots + num_bases))))
     else:
         w_shape = (num_slots, in_dim, out_dim)
         fan = in_dim * out_dim
-    weight = _uniform(gen, w_shape, float(np.sqrt(6.0 / fan)))
-    root = _uniform(gen, (in_dim, out_dim), float(np.sqrt(6.0 / (in_dim + out_dim))))
+    weight = uniform(gen, w_shape, float(np.sqrt(6.0 / fan)))
+    root = uniform(gen, (in_dim, out_dim), float(np.sqrt(6.0 / (in_dim + out_dim))))
     layer = RGCNLayer(weight, root, torch.zeros(out_dim), comp)
     return layer.to(device)
 

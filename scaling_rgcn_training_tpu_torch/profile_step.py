@@ -10,11 +10,13 @@ plan, ``backend="pallas"``), ``attention`` (``aggr="attention"``,
 ``backend="pallas"``), ``halo`` (the halo partition over ``--shards``
 virtual shards of the card, with the ``--exchange`` ``library``, ``kernel``
 (#6) or ``fused`` (#7)) or ``edge-partition`` (the edge partition over
-``--shards`` virtual shards, ``backend="pallas"``). Prints the card, wall
-ms/step over the window, the
-device's busy ms/step (the sum of kernel times; one stream), its idle share,
-and the kernels by device time per step. ``--trace`` also writes a Chrome
-trace. Needs a CUDA device.
+``--shards`` virtual shards, ``backend="pallas"``). ``--head``: the model,
+``summation`` (the embedding model) or the ``mlp`` or ``attention`` head
+over 4 transferred embeddings, frozen (``bench_shape.bench_trainer``).
+Prints the card, wall ms/step over the window, the device's busy ms/step
+(the sum of kernel times; one stream), its idle share, and the kernels by
+device time per step. ``--trace`` also writes a Chrome trace. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ def main(argv=None) -> None:
                     default="library", help="the halo exchange (--conv halo)")
     ap.add_argument("--shards", type=int, default=4,
                     help="virtual shards of the card (halo, edge-partition)")
+    ap.add_argument("--head", choices=["summation", "mlp", "attention"],
+                    default="summation")
     ap.add_argument("--dtype", choices=["float32", "bfloat16"],
                     default="float32")
     ap.add_argument("--warmup", type=int, default=5, help="steps before the "
@@ -85,7 +89,8 @@ def main(argv=None) -> None:
         kw["aggr"] = "attention"
     trainer, model = bs.bench_trainer(
         args.warmup + args.steps, "cuda",
-        compute_dtype=None if args.dtype == "float32" else args.dtype, **kw)
+        compute_dtype=None if args.dtype == "float32" else args.dtype,
+        head=args.head, **kw)
     stamps = []
     prof = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU,
@@ -100,6 +105,7 @@ def main(argv=None) -> None:
 
     with prof:
         trainer.fit(model, graph, bce_loss, "sigmoid", sum_graph=False,
+                    frozen=() if args.head == "summation" else ("embedding",),
                     verbose=False, on_epoch=on_epoch)
     wall = (stamps[-1] - stamps[args.warmup - 1]) * 1e3 / args.steps
     # device events, without the profiler's own per-step annotation
@@ -108,6 +114,7 @@ def main(argv=None) -> None:
                and not e.key.startswith("ProfilerStep")]
     busy = sum(_device_time(e) for e in kernels) / 1e3 / args.steps
     name = f"{args.conv} {args.exchange}" if args.conv == "halo" else args.conv
+    name += "" if args.head == "summation" else f" {args.head} head"
     print(f"{name} {args.dtype}: wall {wall:.3f} ms/step, device busy "
           f"{busy:.3f} ms/step, idle share {1 - busy / wall:.3f} "
           f"({args.steps} steps after {args.warmup})", flush=True)

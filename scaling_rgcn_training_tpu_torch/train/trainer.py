@@ -1,7 +1,8 @@
 """Trainer: summary pre-training, transfer, full-graph fine-tuning.
 
 Counterpart of the JAX package's ``train/trainer.py`` (reference
-model/modelTrainer.py:15-116), for the summation and baseline experiments:
+model/modelTrainer.py:15-116), for the summation, MLP, attention and
+baseline experiments:
 
 - ``train_summaries``: ONE shared conv trunk trained sequentially over all
   summary graphs, re-initializing the embedding per graph and recording
@@ -13,16 +14,20 @@ model/modelTrainer.py:15-116), for the summation and baseline experiments:
 
 Every tensor lives on the trainer's explicit ``device``; random draws come
 from one ``torch.Generator`` seeded from ``seed`` (on the CPU, so a seed
-gives the same initial values on every device). Freezing leaves a
-parameter out of the optimizer and out of autograd.
+gives the same initial values on every device). A ``fit`` of a model with
+dropout (the attention head) draws one seed from it for a generator on
+the device, which draws the dropout masks of its steps (as the JAX ``fit``
+splits one key per run). Freezing leaves a parameter out of the optimizer
+and out of autograd.
 
 With ``devices`` > 1 (or an explicit ``mesh``) the graph's edges are
 partitioned over a mesh (``partition``: ``"halo"`` or ``"edge"``,
 ``parallel/``), with an optional locality ``reorder`` of the nodes for the
 halo partition; parameters and node-major activations stay on the mesh's
 first device and ``rgcn_conv`` dispatches on the edges' type. The halo
-partition pads the node table to ``S * n_per`` rows; embeddings enter the
-model through :meth:`Trainer._pad_embedding` and leave it through
+partition pads the node table to ``S * n_per`` rows; embeddings (``[N, d]``,
+or ``[K, N, d]`` for the attention head) enter the model through
+:meth:`Trainer._pad_embedding` and leave it through
 :meth:`Trainer._export_embedding`, so a seed gives every node the same
 initial vector at any device count.
 """
@@ -121,27 +126,31 @@ class Trainer:
         return contextlib.nullcontext() if self.mesh is None else \
             use_mesh(self.mesh)
 
-    def _logits(self, model: model_heads.EmbModel,
-                graph: DeviceGraph) -> torch.Tensor:
+    def _logits(self, model: torch.nn.Module, graph: DeviceGraph,
+                train: bool = False,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         # the ambient mesh for rgcn_conv's dispatch
         with self._mesh_scope():
             return model(graph.edges, self.compute_dtype, self.backend,
-                         self.aggr)
+                         self.aggr, train=train, gen=gen)
 
     def _pad_embedding(self, emb: torch.Tensor,
                        dev_graph: DeviceGraph) -> torch.Tensor:
-        """``[N, d]`` rows in true node order -> the model's node table on
-        the trainer's device: under a locality reorder row ``perm[i]`` of
+        """Rows in true node order -> the model's node table on the
+        trainer's device; the node axis is 0 of ``[N, d]`` and 1 of a
+        stacked ``[K, N, d]``. Under a locality reorder row ``perm[i]`` of
         the result is row ``i`` of ``emb``; the halo partition's phantom
         rows are zeros."""
+        axis = 1 if emb.dim() == 3 else 0
         n_model = model_num_nodes(dev_graph)
-        if dev_graph.node_perm is None and n_model == emb.shape[0]:
+        if dev_graph.node_perm is None and n_model == emb.shape[axis]:
             return emb.to(self.device)
-        out = emb.new_zeros((n_model, emb.shape[1]))
-        rows = torch.arange(emb.shape[0]) if dev_graph.node_perm is None \
+        moved = emb.movedim(axis, 0)
+        out = moved.new_zeros((n_model, *moved.shape[1:]))
+        rows = torch.arange(moved.shape[0]) if dev_graph.node_perm is None \
             else torch.as_tensor(np.asarray(dev_graph.node_perm), dtype=torch.int64)
-        out[rows.to(emb.device)] = emb
-        return out.to(self.device)
+        out[rows.to(emb.device)] = moved
+        return out.movedim(0, axis).contiguous().to(self.device)
 
     @staticmethod
     def _export_embedding(emb: torch.Tensor, dev_graph: DeviceGraph,
@@ -155,13 +164,25 @@ class Trainer:
 
     # -- core epoch loop (modelTrainer.py:41-74) ---------------------------
 
-    def fit(self, model: model_heads.EmbModel, graph: DeviceGraph,
+    def _dropout_generator(self, model: torch.nn.Module
+                           ) -> Optional[torch.Generator]:
+        """A generator on the device for the dropout masks of one ``fit``,
+        seeded from ``self.gen``; None for a model without dropout (which
+        then draws nothing from ``self.gen``)."""
+        if not getattr(model, "dropout", 0.0):
+            return None
+        seed = int(torch.randint(0, 2**62, (1,), generator=self.gen))
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def fit(self, model: torch.nn.Module, graph: DeviceGraph,
             loss_fn: Callable, activation: str, sum_graph: bool = True,
             frozen: Iterable[str] = (), verbose: bool = True,
             on_epoch: Optional[Callable[[int], None]] = None,
-            ) -> Tuple[model_heads.EmbModel, List[float], List[float],
+            ) -> Tuple[torch.nn.Module, List[float], List[float],
                        List[float], List[float]]:
-        """Train ``model`` in place for ``epochs`` steps of full-batch Adam.
+        """Train ``model`` (a head of ``models/heads.py``) in place for
+        ``epochs`` steps of full-batch Adam; the validation forward runs
+        with ``train=False``, the loss's with ``train=True`` (dropout).
 
         ``frozen``: names of top-level submodules / parameters
         (``embedding``, ``rgcn1``, ``rgcn2``) that get no update.
@@ -177,6 +198,7 @@ class Trainer:
             if train:
                 trainable.append(p)
         opt = make_optimizer(trainable, self.lr, self.weight_d) if trainable else None
+        gen = self._dropout_generator(model)
         losses, metrics = [], []
         for epoch in range(self.epochs):
             if not sum_graph:
@@ -185,7 +207,7 @@ class Trainer:
                     logits = self._logits(model, graph)
                     metrics.append(torch.stack(evaluate(
                         logits, graph.x_val, graph.y_val, activation)))
-            logits = self._logits(model, graph)
+            logits = self._logits(model, graph, train=True, gen=gen)
             loss = loss_fn(logits[graph.x_train], graph.y_train)
             if opt is not None:
                 opt.zero_grad(set_to_none=True)
@@ -230,7 +252,7 @@ class Trainer:
 
     # -- weight transfer (modelTrainer.py:26-39) ---------------------------
 
-    def transfer_weights(self, model: model_heads.EmbModel) -> None:
+    def transfer_weights(self, model: torch.nn.Module) -> None:
         """Copy the summary model's trunk into ``model`` (a copy, so
         fine-tuning leaves the summary model as it was)."""
         if self.sum_model is None:
@@ -243,17 +265,13 @@ class Trainer:
 
     def train_original(self, head: str, configs: Dict[str, Any], exp: str,
                        verbose: bool = True) -> Dict[str, Any]:
-        if head not in model_heads.HEADS:
-            raise NotImplementedError(
-                f"the {head!r} head is not ported yet (ROADMAP.md queue 1: "
-                "the MLP and attention heads)")
         og = self.data.orgGraph
         dev_graph = self._device_graph(og)
         model = model_heads.HEADS[head](
             self.gen, og.num_relation_slots, self.hidden_l,
             self.data.num_classes, og.num_nodes, self.emb_dim,
-            num_bases=self.num_bases, num_blocks=self.num_blocks,
-            device=self.device)
+            num_sums=configs.get("num_sums", 1), num_bases=self.num_bases,
+            num_blocks=self.num_blocks, device=self.device)
         model.embedding = torch.nn.Parameter(self._pad_embedding(
             model.embedding.detach(), dev_graph))
         frozen = set()
@@ -294,7 +312,7 @@ class Trainer:
         }
 
     @torch.no_grad()
-    def evaluate_test(self, model: model_heads.EmbModel, graph: DeviceGraph,
+    def evaluate_test(self, model: torch.nn.Module, graph: DeviceGraph,
                       activation: str, report: bool = False
                       ) -> Tuple[float, float, float]:
         """Test-split metrics, with a per-class table when ``report``

@@ -1,10 +1,10 @@
-"""Summary -> full-graph embedding transfer, summation trick.
+"""Summary -> full-graph embedding transfer ("embedding tricks").
 
-Reference model/embeddingTricks.py:8-25,45-49: per summary graph, an
+Reference model/embeddingTricks.py:8-49: per summary graph, an
 ``[N_org, d]`` tensor drawn U[0, 1) (``torch.rand``) whose row
 ``idx(orgNode)`` is overwritten with the trained embedding row of its
-summary node; the per-summary tensors are summed. The concat and stack
-tricks of the MLP and attention heads are not ported yet.
+summary node; the per-summary tensors are summed (summation head),
+concatenated (MLP head) or stacked (attention head).
 """
 
 from __future__ import annotations
@@ -41,6 +41,22 @@ def sum_embeddings(org_graph: Graph, sum_graphs: List[Graph], emb_dim: int,
         org_graph, sum_graphs, emb_dim, gen)).sum(0)
 
 
+def concat_embeddings(org_graph: Graph, sum_graphs: List[Graph], emb_dim: int,
+                      gen: torch.Generator) -> torch.Tensor:
+    """[N, K*d] — feature concat (embeddingTricks.py:37-43)."""
+    return torch.cat(build_transfer_tensors(org_graph, sum_graphs, emb_dim,
+                                            gen), dim=-1)
+
+
+def stack_embeddings(org_graph: Graph, sum_graphs: List[Graph], emb_dim: int,
+                     gen: torch.Generator) -> torch.Tensor:
+    """[K, N, d] — stacked for the attention head (embeddingTricks.py:28-35)."""
+    return torch.stack(build_transfer_tensors(org_graph, sum_graphs, emb_dim,
+                                              gen))
+
+
 EMBEDDING_TRICKS = {
     "summation": sum_embeddings,
+    "mlp": concat_embeddings,
+    "attention": stack_embeddings,
 }

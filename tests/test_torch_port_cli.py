@@ -24,7 +24,7 @@ def _args(tmp_path, exp):
             "-results_root", str(tmp_path / "results")]
 
 
-@pytest.mark.parametrize("exp", ["summation", "baseline"])
+@pytest.mark.parametrize("exp", ["summation", "baseline", "mlp", "attention"])
 def test_cli_runs_on_cpu_with_jax_result_keys(tmp_path, exp, capsys):
     """Summary pre-training, transfer and fine-tuning on the CPU; the
     results JSON carry the JAX CLI's keys (its configs, the per-experiment
@@ -66,13 +66,46 @@ def test_cli_runs_non_fused_flags_on_cpu(tmp_path, flags, capsys):
     assert 0.0 <= report["Test acc summation"]["mean"] <= 100.0
 
 
+def test_cli_without_exp_runs_every_head(tmp_path, capsys):
+    """No ``-exp``: summation, MLP and attention, as the JAX CLI runs
+    them, into one report."""
+    args = [a for a in _args(tmp_path, "summation")
+            if a not in ("-exp", "summation")]
+    tmain.main(args + ["-device", "cpu"])
+    out = capsys.readouterr().out
+    assert out.count("ACC ON TEST SET") == 3
+    (report,) = glob.glob(str(tmp_path / "results" / "*" / "report_*.json"))
+    (series,) = glob.glob(str(tmp_path / "results" / "*" / "run_results_*.json"))
+    report, series = json.load(open(report)), json.load(open(series))
+    exps = ("summation", "mlp", "attention")
+    assert set(series) == set(exps)
+    for exp in exps:
+        assert set(report[exp]) == {"accuracy", "loss", "f1 weighted",
+                                    "f1 macro"}
+        assert 0.0 <= report[f"Test acc {exp}"]["mean"] <= 100.0
+    assert report["exp"] is None
+
+
+def test_cli_attention_over_two_shards(tmp_path, capsys):
+    """``-exp attention -devices 2``: the stacked ``[K, N, d]`` embedding
+    laid out over a halo partition of 2 virtual CPU shards."""
+    args = _args(tmp_path, "attention") + ["-devices", "2"]
+    tmain.main(args + ["-device", "cpu"])
+    assert "ACC ON TEST SET" in capsys.readouterr().out
+    (report,) = glob.glob(str(tmp_path / "results" / "*" / "report_*.json"))
+    report = json.load(open(report))
+    assert report["devices"] == 2 and report["partition"] == "halo"
+    assert set(report["attention"]) == {"accuracy", "loss", "f1 weighted",
+                                        "f1 macro"}
+    assert 0.0 <= report["Test acc attention"]["mean"] <= 100.0
+
+
 @pytest.mark.parametrize("flags", [
-    ["-exp", "mlp"], ["-exp", "attention"], [],
-    ["-exp", "mlp", "-devices", "2"], ["-ckpt_dir", "ck"], ["-ckpt_every", "2"],
-    ["-plan_cache", "pc"], ["-e_viz", "true"],
+    ["-ckpt_dir", "ck"], ["-ckpt_every", "2"], ["-plan_cache", "pc"],
+    ["-e_viz", "true"],
 ])
 def test_unported_flags_raise(tmp_path, flags):
-    base = ["-exp", "summation"] if "-exp" not in flags and flags else []
+    base = ["-exp", "summation"]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tmain.main(base + flags + ["-device", "cpu",
                                    "-data_root", str(tmp_path)])

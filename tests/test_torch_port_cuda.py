@@ -1,6 +1,6 @@
 """The CUDA kernels (span, segment sum, grouped matmul, d_rhs, halo
-exchange and fused halo aggregate) against their plain PyTorch versions,
-on the card.
+exchange, fused halo aggregate and the one-pass backward's variants)
+against their plain PyTorch versions, on the card.
 
 Needs a CUDA device and nvcc; skips without a card. Imports no jax (the
 card's machine has none), so on the card run it without the JAX test
@@ -247,6 +247,40 @@ def test_cuda_fused_halo_matches_plain(s_n, d_in, d_out, dtype, monkeypatch):
     for got in results[1:]:
         for a, b in zip(got, results[0]):
             torch.testing.assert_close(a, b, **_tol(dtype, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d_in,d_out", [(63, 4), (11, 63), (16, 8), (64, 16),
+                                        (128, 32)])
+@pytest.mark.parametrize("variant", ["base", "nodw", "nodx", "statrmw"])
+def test_cuda_bwd_variant_matches_plain(variant, d_in, d_out, dtype):
+    """Kernel #8's variants against their plain versions, with empty
+    relations, rows without edges and (128 -> 32, 30 slots) several
+    relation passes; on a plan with ``dst`` folded into a window too."""
+    from scaling_rgcn_training_tpu_torch.ops import bwd_kernels as bk
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(d_in + 7 * d_out)
+    n, e, slots = 500, 4000, 30
+    src, dst, rel, norm = _graph(rng, n, e, slots)
+    plan = sk.plan_span(src, dst, rel, norm, n, slots, device="cuda")
+    dt = getattr(torch, dtype)
+    x = torch.randn(n, d_in, device="cuda").to(dt)
+    w = (torch.randn(slots, d_in, d_out, device="cuda") * 0.2).to(dt)
+    g = torch.randn(n, d_out, device="cuda").to(dt)
+    for p in (plan, bk.fold_dst(plan, 37)):
+        before = cuda_build.LAUNCHES["span_backward_variant"]
+        got = bk.span_backward_variant(g, x, w, p, variant)
+        torch.cuda.synchronize()
+        assert cuda_build.LAUNCHES["span_backward_variant"] == before + 1
+        ref = bk.span_backward_variant_plain(g, x, w, p, variant)
+        for a, b in zip(got, ref):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert a.dtype == torch.float32
+                torch.testing.assert_close(a, b, **_tol(dtype, b))
 
 
 @pytest.mark.cuda

@@ -1,0 +1,270 @@
+"""Port MLP and attention heads against the JAX package's.
+
+Multi-head self-attention, the MLP and attention models' logits and
+gradients (JAX parameters carried across with ``*_model_from_numpy``), the
+concat and stack transfer tricks, and ``Trainer.fit`` of both heads (JAX on
+the CPU, the port with the plain span versions) from the same parameters.
+``jax.random`` and ``torch`` cannot draw the same dropout mask, so the
+attention head is compared with dropout off on both sides (a monkeypatch
+of the JAX heads module's ``mha_self_attention``; no JAX file changes);
+the port's dropout is checked by its mean and its determinism under one
+seed. Tolerances: attention and logits float32 rtol 1e-5 with atol 1e-6
+(summation order); gradients rtol 1e-4 with atol 1e-6 * max|ref|; loss
+series rtol 1e-4 and final parameters as in ``test_torch_port_train.py``.
+"""
+
+import os
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from scaling_rgcn_training_tpu.graphs import dataset as jdataset
+from scaling_rgcn_training_tpu.graphs import synthetic as jsynth
+from scaling_rgcn_training_tpu.graphs.device import build_device_graph as j_build
+from scaling_rgcn_training_tpu.models import attention as jatt
+from scaling_rgcn_training_tpu.models import heads as jheads
+from scaling_rgcn_training_tpu.train import losses as jlosses
+from scaling_rgcn_training_tpu.train import trainer as jtrainer
+from scaling_rgcn_training_tpu.train import transfer as jtransfer
+from scaling_rgcn_training_tpu_torch.graphs import dataset as tdataset
+from scaling_rgcn_training_tpu_torch.graphs import synthetic as tsynth
+from scaling_rgcn_training_tpu_torch.graphs.device import build_device_graph as t_build
+from scaling_rgcn_training_tpu_torch.models import attention as tatt
+from scaling_rgcn_training_tpu_torch.models import heads as theads
+from scaling_rgcn_training_tpu_torch.train import losses as tlosses
+from scaling_rgcn_training_tpu_torch.train import transfer as ttransfer
+from scaling_rgcn_training_tpu_torch.train.trainer import (
+    Trainer as TTrainer, count_trainable_parameters as t_count)
+
+K, EMB, HL = 3, 12, 8
+
+
+def _graph(seed=0, n=200, e=1500, r=3, c=4):
+    rng = np.random.default_rng(seed)
+    labelled = rng.choice(n, 90, replace=False)
+    y = np.eye(c, dtype=np.float32)[rng.integers(0, c, 90)]
+    return SimpleNamespace(
+        edge_src=rng.integers(0, n, e).astype(np.int32),
+        edge_dst=rng.integers(0, n, e).astype(np.int32),
+        edge_type=rng.integers(0, 2 * r, e).astype(np.int32),
+        num_nodes=n, num_relation_slots=2 * r + 1, num_classes=c,
+        x_train=labelled[:60].astype(np.int32), y_train=y[:60],
+        x_val=labelled[60:].astype(np.int32), y_val=y[60:],
+        x_test=None, y_test=None)
+
+
+def _leaves(p):
+    return [np.asarray(a) for a in jax.tree_util.tree_leaves(p)]
+
+
+def _jax_params(head, g, seed=3):
+    """JAX head parameters with a transferred-shape embedding (MLP
+    ``[N, K*d]``, attention ``[K, N, d]``) drawn with numpy."""
+    init = {"mlp": jheads.init_mlp_model, "attention": jheads.init_att_model}
+    params = init[head](jax.random.key(seed), g.num_relation_slots, HL,
+                        g.num_classes, g.num_nodes, EMB, num_sums=K)
+    shape = (g.num_nodes, K * EMB) if head == "mlp" else (K, g.num_nodes, EMB)
+    emb = np.random.default_rng(seed).random(shape).astype(np.float32)
+    return params._replace(embedding=jnp.asarray(emb))
+
+
+def _port_model(head, params):
+    rgcn = [list(params.rgcn1), list(params.rgcn2)]
+    if head == "mlp":
+        return theads.mlp_model_from_numpy(
+            *(np.asarray(a) for a in params[:5]), *rgcn)
+    return theads.att_model_from_numpy(
+        np.asarray(params.embedding), [np.asarray(a) for a in params.att],
+        *rgcn)
+
+
+@pytest.fixture
+def no_jax_dropout(monkeypatch):
+    """The JAX attention head with its dropout off (fresh jitted fits)."""
+    real = jheads.mha_self_attention
+    monkeypatch.setattr(jheads, "mha_self_attention",
+                        lambda p, x, num_heads, dropout_rate=0.0, dropout_rng=None:
+                        real(p, x, num_heads, 0.0, None))
+    jtrainer._cached_fit_fn.cache_clear()
+    yield
+    jtrainer._cached_fit_fn.cache_clear()
+
+
+@pytest.mark.parametrize("seq,batch,d,heads", [(3, 50, 12, 3), (4, 9, 16, 4),
+                                               (1, 7, 6, 1), (5, 20, 10, 5)])
+def test_mha_matches_jax(seq, batch, d, heads):
+    rng = np.random.default_rng(seq * d)
+    x = rng.standard_normal((seq, batch, d)).astype(np.float32)
+    leaves = [rng.standard_normal(s).astype(np.float32) * 0.3
+              for s in ((3 * d, d), (3 * d,), (d, d), (d,))]
+    ref = np.asarray(jatt.mha_self_attention(
+        jatt.MHAParams(*map(jnp.asarray, leaves)), jnp.asarray(x), heads))
+    got = tatt.mha_self_attention(
+        tatt.MHA(*map(torch.tensor, leaves)), torch.tensor(x), heads)
+    assert got.shape == (seq, batch, d)
+    np.testing.assert_allclose(got.detach().numpy(), ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("head", ["mlp", "attention"])
+def test_head_logits_and_gradients_match_jax(head):
+    """Logits and the gradient of ``sum(logits * G)`` for every parameter,
+    JAX leaves carried across; the attention head without dropout
+    (``train=False`` on both sides)."""
+    g = _graph()
+    params = _jax_params(head, g)
+    apply = {"mlp": jheads.apply_mlp_model,
+             "attention": jheads.apply_att_model}[head]
+    jg = j_build(g)
+    cot = np.random.default_rng(1).standard_normal(
+        (g.num_nodes, g.num_classes)).astype(np.float32)
+
+    def obj(p):
+        return jnp.sum(apply(p, jg.edges, backend="gather") * cot)
+
+    ref_logits = np.asarray(apply(params, jg.edges, backend="gather"))
+    ref_grads = _leaves(jax.grad(obj)(params))
+
+    model = _port_model(head, params)
+    logits = model(t_build(g, "cpu").edges)
+    (logits * torch.tensor(cot)).sum().backward()
+    np.testing.assert_allclose(logits.detach().numpy(), ref_logits,
+                               rtol=1e-5, atol=1e-6)
+    grads = [p.grad.numpy() for p in model.parameters()]
+    assert len(grads) == len(ref_grads)
+    for got, ref in zip(grads, ref_grads):
+        np.testing.assert_allclose(got, ref, rtol=1e-4,
+                                   atol=1e-6 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("head", ["mlp", "attention"])
+def test_fit_matches_jax(head, no_jax_dropout):
+    """5 epochs of ``Trainer.fit`` with the embedding frozen, CE/softmax;
+    the attention head with dropout off on both sides."""
+    g = _graph(seed=2)
+    epochs = 5
+    params = _jax_params(head, g, seed=4)
+    apply = {"mlp": jheads.apply_mlp_model,
+             "attention": jheads.apply_att_model}[head]
+    mask = jax.tree_util.tree_map(lambda _: True, params)._replace(
+        embedding=False)
+    jt = jtrainer.Trainer(None, HL, epochs, EMB, 0.01, 5e-5, backend="gather")
+    jloss, act = jlosses.get_loss("SYNTH", sum_model=False)
+    jparams, jaccs, jl, _, _ = jt.fit(params, apply, j_build(g), jloss, act,
+                                      sum_graph=False, mask=mask,
+                                      verbose=False)
+
+    model = _port_model(head, params)
+    if head == "attention":
+        model.dropout = 0.0
+    tt = TTrainer(None, HL, epochs, EMB, 0.01, 5e-5, device="cpu")
+    tloss, tact = tlosses.get_loss("SYNTH", sum_model=False)
+    model, taccs, tl, _, _ = tt.fit(model, t_build(g, "cpu"), tloss, tact,
+                                    sum_graph=False, frozen={"embedding"},
+                                    verbose=False)
+    np.testing.assert_allclose(tl, jl, rtol=1e-4)
+    np.testing.assert_allclose(taccs, jaccs, rtol=0,
+                               atol=1.0 / len(g.x_val) + 1e-7)
+    for (name, t), ref in zip(model.named_parameters(), _leaves(jparams)):
+        got = t.detach().numpy()
+        if name == "att.in_proj_b":
+            # the key bias shifts every score of a softmax row alike, so its
+            # gradient is 0 in exact arithmetic and Adam turns each
+            # framework's rounding noise into steps of up to lr: held only
+            # to that bound
+            keys = slice(EMB, 2 * EMB)
+            assert np.abs(got[keys]).max() <= epochs * 0.01 * 1.01
+            got, ref = np.delete(got, np.r_[keys]), np.delete(ref, np.r_[keys])
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-6)
+    assert t_count(model, {"embedding"}) == jtrainer.count_trainable_parameters(
+        jparams, mask)
+
+
+@pytest.fixture(scope="module")
+def datasets(tmp_path_factory):
+    """The same tiny SYNTH dataset (three attribute summaries) loaded by
+    both packages."""
+    kw = dict(num_entities=400, num_relations=6, num_classes=3,
+              avg_degree=4.0, seed=5, labeled_fraction=0.4)
+    loaded = []
+    for name, synth, mod in (("jax", jsynth, jdataset),
+                             ("torch", tsynth, tdataset)):
+        d = synth.ensure_synthetic_dataset(
+            str(tmp_path_factory.mktemp(name)), **kw)
+        loaded.append(mod.Dataset(
+            os.path.join(d, "SYNTH_complete.nt"), os.path.join(d, "attr", "sum"),
+            os.path.join(d, "attr", "map")).init_dataset(verbose=False))
+    return loaded
+
+
+@pytest.mark.parametrize("trick", ["mlp", "attention"])
+def test_transfer_tricks_match_jax_on_mapped_rows(datasets, trick):
+    """Concat ``[N, K*d]`` and stack ``[K, N, d]``: each summary's block
+    equals the JAX one on the rows that summary maps (the others are
+    U[0, 1) draws of each framework's generator)."""
+    jd, td = datasets
+    rng = np.random.default_rng(9)
+    for js, ts in zip(jd.sumGraphs, td.sumGraphs):
+        js.embedding = ts.embedding = rng.standard_normal(
+            (ts.num_nodes, 6)).astype(np.float32)
+    ref = np.asarray(jtransfer.EMBEDDING_TRICKS[trick](
+        jd.orgGraph, jd.sumGraphs, 6, jax.random.key(0)))
+    got = ttransfer.EMBEDDING_TRICKS[trick](
+        td.orgGraph, td.sumGraphs, 6, torch.Generator().manual_seed(0)).numpy()
+    n, k = td.orgGraph.num_nodes, len(td.sumGraphs)
+    assert k == 3
+    assert got.shape == ref.shape == ((n, k * 6) if trick == "mlp" else (k, n, 6))
+    blocks = (lambda a: np.split(a, k, axis=1)) if trick == "mlp" else list
+    for sg, gb, rb in zip(td.sumGraphs, blocks(got), blocks(ref)):
+        hit = np.array([sg.orgNode2sumNode_dict.get(node) in sg.node_to_enum
+                        for node in td.orgGraph.nodes])
+        assert hit.sum() > 100
+        np.testing.assert_array_equal(gb[hit], rb[hit])
+        assert ((gb[~hit] >= 0) & (gb[~hit] < 1)).all()
+
+
+def test_attention_dropout_mean_and_determinism():
+    """Dropout keeps each weight with probability 0.8 and scales it by
+    1 / 0.8: over many masks the output's mean is the output without
+    dropout. One generator seed gives one output; another seed another."""
+    rng = np.random.default_rng(11)
+    d, heads = 8, 2
+    att = tatt.init_mha(torch.Generator().manual_seed(0), d)
+    x = torch.tensor(rng.standard_normal((heads, 64, d)).astype(np.float32))
+    with torch.no_grad():
+        ref = tatt.mha_self_attention(att, x, heads)
+        run = lambda gen: tatt.mha_self_attention(att, x, heads, 0.2, gen)
+        gen = torch.Generator().manual_seed(5)
+        draws = torch.stack([run(gen) for _ in range(2000)])
+        a = run(torch.Generator().manual_seed(7))
+        b = run(torch.Generator().manual_seed(7))
+        c = run(torch.Generator().manual_seed(8))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert not torch.equal(a, ref)
+    spread = draws.std(0) / np.sqrt(draws.shape[0])
+    assert ((draws.mean(0) - ref).abs() <= 5 * spread + 1e-6).all()
+
+
+def test_trainer_dropout_is_seeded():
+    """Two attention fits from one trainer seed give the same losses;
+    another seed gives other losses (the dropout masks differ); models
+    without dropout draw nothing from the trainer's generator."""
+    g = _graph(seed=6)
+    tloss, tact = tlosses.get_loss("SYNTH", sum_model=False)
+    dg = t_build(g, "cpu")
+
+    def fit(seed, head="attention"):
+        tt = TTrainer(None, HL, 3, EMB, 0.01, 5e-5, seed=seed, device="cpu")
+        model = _port_model(head, _jax_params(head, g, seed=6))
+        _, _, losses, _, _ = tt.fit(model, dg, tloss, tact, sum_graph=False,
+                                    verbose=False)
+        return losses, int(torch.randint(0, 2**30, (1,), generator=tt.gen))
+
+    (l1, _), (l2, _), (l3, _) = fit(0), fit(0), fit(1)
+    assert l1 == l2 and l1 != l3
+    _, after = fit(0, "mlp")
+    assert after == int(torch.randint(0, 2**30, (1,),
+                                      generator=torch.Generator().manual_seed(0)))
