@@ -7,13 +7,20 @@ Phases, in order; any failure exits non-zero:
 1. environment: torch and CUDA versions, the card's name and power limit;
    TF32 off for matmuls and cuDNN;
 2. build every kernel source in ``scaling_rgcn_training_tpu_torch/csrc``
-   (one ``nvcc`` per source, all at once);
+   (one ``nvcc`` per source, all at once) and print ``ptxas``'s registers
+   and spills of every kernel;
 3. the span kernels against their plain PyTorch versions on the card, for
    ``out``, ``dx`` and ``dW``: at a small edge-case shape (d_in 63, d_out 4
-   and 11, empty relations, nodes with no edges) and at the bench shape
-   (N 200,000, E 4,000,000, 91 relation slots, d 64 -> hidden 16 -> C 8);
-   plus wide rows over 30 relations (several relation passes); kernel and
-   plain times at the bench shape; then the conv's autograd on the card
+   and 11, empty relations, nodes with no edges, chunks that end inside a
+   64-edge tile) and at the bench shape (N 200,000, E 4,000,000, 91
+   relation slots, d 64 -> hidden 16 -> C 8); plus wide rows over 30
+   relations (several relation passes of the row route); the forward (#1,
+   ``csrc/span_fwd_tc.cu`` on the tensor cores) also against
+   ``span_forward_tiled_plain`` (its dataflow) at the small shapes, and its
+   earlier row route ``span_forward_rows`` against the plain version
+   everywhere; two runs give the same bits; at the bench shape, L1 and L2
+   in float32 and bfloat16, the times of #1, of the row route and of the
+   plain versions, beside #1's bound; then the conv's autograd on the card
    against the same conv on the CPU;
 4. the segment-sum, grouped-matmul and d_rhs kernels against their plain
    versions: edge cases (empty groups and rows, groups spanning tiles, row
@@ -29,9 +36,12 @@ Phases, in order; any failure exits non-zero:
    epochs in float32 and 10 with bfloat16 edge streams, first with the
    fused conv (span kernels), then on the same graph built without the span
    plan with ``backend="pallas"`` (edge mode: kernels #3, #4, #5; its f32
-   losses must match the fused run's), then ``aggr="attention"`` for 5
+   losses must match the fused run's); the fused f32 step is timed again
+   with #1's row route swapped in, in turns with the tensor-core forward
+   (the swap is this script's: no main path calls the row route); then
+   ``aggr="attention"`` for 5
    epochs: finite losses, the kernels' launch counters advanced on every
-   step, ms/step and peak memory;
+   step (and the row route of #1 on none), ms/step and peak memory;
 6. ``rgcn_conv`` in ``mode="auto"`` on a layer too wide for the span
    kernels (128 -> 64) at the bench N and E: it must take the edge mode
    and match the plain versions, forward and backward;
@@ -75,8 +85,9 @@ Phases, in order; any failure exits non-zero:
 Tolerances: float32 within rtol 1e-4 and atol 1e-4 * max|ref| (summation
 order differs), bfloat16 inputs within 2e-2 * max|ref|.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The second-to-last line is a JSON object with one entry per kernel (#1's
+with ``previous_ms``, the row route's time in the same run); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -99,10 +110,10 @@ ATT_EPOCHS = 5
 HALO_EPOCHS = 5
 HALO_SHARDS = 4
 WARMUP = 3
-# H100 SXM: HBM bytes/s; peak operations/s by input type (CUDA-core f32,
-# dense bf16 tensor cores)
+# H100 SXM: HBM bytes/s; peak operations/s of the units (CUDA-core f32,
+# dense TF32 and bf16 tensor cores)
 HBM_RATE = 3.35e12
-PEAK_RATE = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_RATE = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
 JAX_PKG = "scaling_rgcn_training_tpu/"
 DEV = "cuda"
 
@@ -171,10 +182,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: int, ops: float, dtype_name: str) -> dict:
+def bound(n_bytes: int, ops: float, unit: str) -> dict:
     """Least time on an H100 SXM: the larger of bytes over the HBM rate and
-    operations over the peak rate for the input type."""
-    t_bytes, t_ops = n_bytes / HBM_RATE, ops / PEAK_RATE[dtype_name]
+    operations over the peak rate of the unit that runs them (``PEAK_RATE``:
+    the input type's, or ``tf32``)."""
+    t_bytes, t_ops = n_bytes / HBM_RATE, ops / PEAK_RATE[unit]
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -192,8 +204,11 @@ def dtype_name(dtype) -> str:
     return str(dtype)[6:]
 
 
-def compare_span_kernels(sk, plan, d_in, d_out, dtype, rng, tag, timing=False):
-    """span_forward / span_backward against their plain versions."""
+def compare_span_kernels(sk, plan, d_in, d_out, dtype, rng, tag, timing=False,
+                         tiled=False):
+    """span_forward / span_backward against their plain versions, and the
+    forward's row route ``span_forward_rows`` (with ``tiled``, the forward
+    also against ``span_forward_tiled_plain``)."""
     import torch
 
     dev = plan.device
@@ -205,6 +220,7 @@ def compare_span_kernels(sk, plan, d_in, d_out, dtype, rng, tag, timing=False):
     g = torch.as_tensor(rng.standard_normal((plan.num_nodes, d_out)),
                         dtype=torch.float32).to(dev, dtype)
     out = sk.span_forward(x, w, plan)
+    rows = sk.span_forward_rows(x, w, plan)
     torch.cuda.synchronize()
     out_ref = sk.span_forward_plain(x, w, plan)
     dx, dw = sk.span_backward(g, x, w, plan)
@@ -216,7 +232,12 @@ def compare_span_kernels(sk, plan, d_in, d_out, dtype, rng, tag, timing=False):
         "bwd_err": max(check_close(f"{tag} dx", dx, dx_ref, bf16),
                        check_close(f"{tag} dW", dw, dw_ref, bf16)),
     }
-    # a second run must give the same bits (no atomics, fixed-order dW)
+    check_close(f"{tag} out (row route)", rows, out_ref, bf16)
+    if tiled:
+        res["fwd_err"] = max(res["fwd_err"], check_close(
+            f"{tag} out vs tiled plain", out,
+            sk.span_forward_tiled_plain(x, w, plan), bf16))
+    # a second run must give the same bits (no atomics, fixed-order sums)
     dx2, dw2 = sk.span_backward(g, x, w, plan)
     out2 = sk.span_forward(x, w, plan)
     torch.cuda.synchronize()
@@ -225,12 +246,24 @@ def compare_span_kernels(sk, plan, d_in, d_out, dtype, rng, tag, timing=False):
     if timing:
         e = plan.fwd_src.numel()
         ops = 2 * e * d_in * d_out
+        # order: plain, #1, row route, row route, #1, plain
         res["fwd"] = time_kernel(lambda: sk.span_forward(x, w, plan),
                                  lambda: sk.span_forward_plain(x, w, plan),
+                                 lambda: sk.span_forward_rows(x, w, plan),
                                  reps=20, plain_reps=20)
+        res["fwd"]["previous_ms"] = res["fwd"]["library_ms"]
+        res["fwd"]["library_ms"] = None
+        # #1 reads x, W, the relation-ordered edges, the chunks and the
+        # forward CSR's row pointer and positions, and writes out; its msg
+        # scratch is the design's own. f32 runs 4 TF32 products per FMA.
         res["fwd"].update(bound(nbytes(
+            x, w, plan.rel_src, plan.rel_norm, plan.chunk_lo, plan.chunk_hi,
+            plan.rel_chunk_ptr, plan.fwd_rowptr, plan.fwd_pos, out),
+            ops if bf16 else 4 * ops, "bfloat16" if bf16 else "tf32"))
+        # the row route's own bound (CUDA-core FMAs over the forward CSR)
+        res["fwd"]["previous_bound_ms"] = bound(nbytes(
             x, w, plan.fwd_rowptr, plan.fwd_src, plan.fwd_rel, plan.fwd_norm,
-            out), ops, dtype_name(dtype)))
+            out), ops, dtype_name(dtype))["bound_ms"]
         res["bwd"] = time_kernel(lambda: sk.span_backward(g, x, w, plan),
                                  lambda: sk.span_backward_plain(g, x, w, plan),
                                  reps=20, plain_reps=20)
@@ -239,8 +272,11 @@ def compare_span_kernels(sk, plan, d_in, d_out, dtype, rng, tag, timing=False):
             plan.rel_src, plan.rel_dst, plan.rel_norm, plan.chunk_lo,
             plan.chunk_hi, plan.rel_chunk_ptr, dx, dw), 2 * ops,
             dtype_name(dtype)))
-        print(f"  {tag} times: span_forward {res['fwd']['ms']:.4f} ms "
-              f"(plain {res['fwd']['plain_ms']:.4f} ms), span_backward "
+        f = res["fwd"]
+        print(f"  {tag} times: span_forward {f['ms']:.4f} ms (row route "
+              f"{f['previous_ms']:.4f} ms, plain {f['plain_ms']:.4f} ms; "
+              f"bound {f['bound_ms']:.4f} ms {f['bound_by']}, the row "
+              f"route's {f['previous_bound_ms']:.4f} ms), span_backward "
               f"{res['bwd']['ms']:.4f} ms (plain {res['bwd']['plain_ms']:.4f} "
               "ms)", flush=True)
     return res
@@ -396,11 +432,15 @@ def run_fit(graph, compute_dtype, epochs, launches, head="summation",
 
 
 def require_per_step(tag, steps, least):
+    """Every step launched each kernel of ``least`` at least that often,
+    and the row route of #1 (``span_forward_rows``) never."""
     for i, st in enumerate(steps):
         for k, n in least.items():
             if st[k] < n:
                 fail(f"{tag}: step {i} launched {k} {st[k]} times, "
                      f"expected at least {n}")
+        if st["span_forward_rows"]:
+            fail(f"{tag}: step {i} ran #1's row route")
 
 
 def wide_auto_check(edges, rng, launches, reset):
@@ -845,13 +885,15 @@ def main() -> None:
     for d_in, d_out in ((63, 4), (63, 11), (11, 63)):
         for dtype in (torch.float32, torch.bfloat16):
             compare_span_kernels(sk, small, d_in, d_out, dtype, rng,
-                                 f"small {d_in}->{d_out} {dtype_name(dtype)}")
+                                 f"small {d_in}->{d_out} {dtype_name(dtype)}",
+                                 tiled=True)
     # wide rows and 30 relations: W takes several shared-memory passes
     src, dst, typ = random_graph(rng, 400, 6000, 30)
     wide = build_rel_edges(src, dst, typ, 400, 30, device=DEV).span
     for dtype in (torch.float32, torch.bfloat16):
         compare_span_kernels(sk, wide, 128, 32, dtype, rng,
-                             f"small 128->32 30 slots {dtype_name(dtype)}")
+                             f"small 128->32 30 slots {dtype_name(dtype)}",
+                             tiled=True)
     t0 = time.perf_counter()
     src, dst, typ = bs.bench_edges()
     edges = build_rel_edges(src, dst, typ, bs.N, bs.SLOTS, device=DEV)
@@ -923,6 +965,8 @@ def main() -> None:
 
     phase("5 trainer at the bench shape")
     from scaling_rgcn_training_tpu_torch.graphs.device import DeviceGraph
+    from scaling_rgcn_training_tpu_torch.ops import rgcn_conv
+    from scaling_rgcn_training_tpu_torch.ops.span_kernels import span_forward
 
     splits = bs.bench_splits(DEV)
     fits = {}
@@ -933,6 +977,22 @@ def main() -> None:
         require_per_step(f"fused {cd}", fits[("fused", cd)]["steps"],
                          {"span_forward": 4, "span_backward": 2})
     fused_launches = dict(launches)
+    # the end-to-end effect of #1's redesign: the fused f32 step with the
+    # row route in its place, in turns with the tensor-core forward
+    swap = {}
+    for name in ("rows", "rows", "tensor cores"):
+        rgcn_conv.span_forward = (sk.span_forward_rows if name == "rows"
+                                  else span_forward)
+        try:
+            f = run_fit(DeviceGraph(edges=edges, **splits), None, EPOCHS,
+                        launches)
+        finally:
+            rgcn_conv.span_forward = span_forward
+        swap.setdefault(name, []).append(f["step_ms"])
+    swap["tensor cores"].insert(0, fits[("fused", None)]["step_ms"])
+    print(f"  fused f32 ms/step, #1 on the tensor cores "
+          f"{swap['tensor cores']} vs its row route {swap['rows']} (order: "
+          "tensor cores, rows, rows, tensor cores)", flush=True)
 
     t0 = time.perf_counter()
     plain_edges = build_rel_edges(src, dst, typ, bs.N, bs.SLOTS, device=DEV,
@@ -993,17 +1053,19 @@ def main() -> None:
 
     kernels = []
     b = bench[("layer1", "float32")]
-    for kname, key, replaces in (("span_forward", "fwd", "span_kernels.py:425"),
-                                 ("span_backward", "bwd", "span_kernels.py:542")):
+    for kname, key, src_file, replaces in (
+            ("span_forward", "fwd", "span_fwd_tc.cu", "span_kernels.py:425"),
+            ("span_backward", "bwd", "span_kernels.cu", "span_kernels.py:542")):
         kernels.append({
             "name": kname, "route": "cuda",
-            "source": f"{PKG}/csrc/span_kernels.cu",
+            "source": f"{PKG}/csrc/{src_file}",
             "replaces": JAX_PKG + "ops/" + replaces,
             "launches": fused_launches[kname],
             "max_abs_err": max(v[f"{key}_err"] for v in bench.values()),
             "ms": b[key]["ms"], "plain_ms": b[key]["plain_ms"],
             "bound_ms": b[key]["bound_ms"], "bound_by": b[key]["bound_by"],
-            "library_ms": None})
+            "library_ms": None,
+            **({"previous_ms": b[key]["previous_ms"]} if key == "fwd" else {})})
     for kname, src_file, replaces in (
             ("segment_sum", "segment_kernels.cu", "segment_kernels.py:87"),
             ("grouped_matmul", "grouped_kernels.cu", "pallas_kernels.py:56"),
@@ -1049,6 +1111,7 @@ def main() -> None:
             "step_ms": f["step_ms"], "peak_mib": f["peak_mib"],
             "loss_first": f["losses"][0], "loss_last": f["losses"][-1],
             "launches_step0": f["steps"][0]} for (mode, cd), f in fits.items()},
+        "fused_f32_step_ms_by_forward": swap,
         "launches": {"fused": fused_launches, "edge": edge_launches,
                      "attention": att_launches, **halo["counts"],
                      **head_launches},

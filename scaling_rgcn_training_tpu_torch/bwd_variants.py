@@ -18,10 +18,10 @@ layer 2 16 -> 8. Rows, each the TPU variant of the same name:
 - ``noonehot``: #8 over the plan with ``dst`` folded into a 4,096-row
   window that stays in L2 (the cost of the random ``g_out`` gather; the
   TPU variant dropped the one-hot matrix that is its gather);
-- ``fwdrev``: the shipped ``span_rows`` kernel over the backward plan with
-  ``W^T`` (the dx half of #2 alone);
-- ``shipped``: ``span_backward`` (#2); ``fwdnorm``: ``span_forward`` (#1)
-  on the forward plan;
+- ``fwdrev``: the ``span_rows`` kernel (``span_forward_rows``) over the
+  backward plan with ``W^T`` (the dx half of #2 alone);
+- ``shipped``: ``span_backward`` (#2); ``fwdnorm``: ``span_forward`` (#1,
+  its tensor-core messages and their CSR sum) on the forward plan;
 - ``floor``: the harness alone, one empty launch per call.
 
 Each row but ``floor`` is first held against its plain PyTorch version on
@@ -29,8 +29,10 @@ the same inputs (float32 within 1e-4 * |ref| + 1e-4 * max|ref|, bfloat16
 within 2e-2 * max|ref|; a mismatch exits non-zero), then timed with CUDA
 events over ``--inner`` calls, best of 3. Printed per row: ms, the bound
 (the larger of the bytes each input read once and each output written once
-over 3.35 TB/s and the operations over the peak for the input type, 67
-TFLOP/s float32, 989 bfloat16: an H100 SXM) and the largest difference
+over 3.35 TB/s and the operations over the peak of the units that run
+them, 67 TFLOP/s float32 on the CUDA cores, 495 TFLOP/s TF32 (``fwdnorm``
+in float32 counts four TF32 products per multiply-add) and 989
+bfloat16 on the tensor cores: an H100 SXM) and the largest difference
 from the plain version; a JSON line last. ``--device cpu`` runs the plain
 versions and measures no time.
 
@@ -52,15 +54,15 @@ import torch
 
 ROWS = ("base", "nodw", "nodx", "statrmw", "noonehot", "fwdrev", "shipped",
         "fwdnorm", "floor")
-# H100 SXM: HBM bytes/s; peak operations/s by input type (CUDA-core f32,
-# dense bf16 tensor cores)
+# H100 SXM: HBM bytes/s; peak operations/s of the units (CUDA-core f32,
+# dense TF32 and bf16 tensor cores)
 HBM_RATE = 3.35e12
-PEAK_RATE = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_RATE = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
 WINDOW = 4096
 
 
-def bound(n_bytes: float, ops: float, dtype: torch.dtype) -> dict:
-    t_bytes, t_ops = n_bytes / HBM_RATE, ops / PEAK_RATE[dtype]
+def bound(n_bytes: float, ops: float, unit: str) -> dict:
+    t_bytes, t_ops = n_bytes / HBM_RATE, ops / PEAK_RATE[unit]
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -103,9 +105,10 @@ def time_ms(fn, inner: int) -> float:
 
 
 def row_specs(plan, g, x, w, names) -> Dict[str, tuple]:
-    """``name -> (kernel call, plain call, bytes, operations)``: the calls
-    return tuples of outputs; bytes and operations are those of the row's
-    function on these inputs."""
+    """``name -> (kernel call, plain call, bytes, operations[, unit])``:
+    the calls return tuples of outputs; bytes and operations are those of
+    the row's function on these inputs, the operations at the peak of
+    ``unit`` (by default the input type's, ``PEAK_RATE``)."""
     from scaling_rgcn_training_tpu_torch.ops import bwd_kernels as bk
     from scaling_rgcn_training_tpu_torch.ops import span_kernels as sk
 
@@ -133,17 +136,23 @@ def row_specs(plan, g, x, w, names) -> Dict[str, tuple]:
             gb * min(n, WINDOW) / max(n, 1) + xb + wb + csr + dxb + dwb,
             2 * half)
     rev, wt = bk.reverse_plan(plan), w.transpose(1, 2).contiguous()
-    specs["fwdrev"] = (lambda: (sk.span_forward(g, wt, rev),),
+    specs["fwdrev"] = (lambda: (sk.span_forward_rows(g, wt, rev),),
                        lambda: (sk.span_forward_plain(g, wt, rev),),
                        gb + wb + csr + dxb, half)
     specs["shipped"] = (lambda: sk.span_backward(g, x, w, plan),
                         lambda: sk.span_backward_plain(g, x, w, plan),
                         *specs["base"][2:])
-    fwd_csr = nbytes(plan.fwd_rowptr, plan.fwd_src, plan.fwd_rel,
-                     plan.fwd_norm)
+    # #1's two kernels read the relation-ordered edges, the chunks and the
+    # forward CSR's row pointer and positions; its msg scratch is its own
+    fwd_plan = nbytes(plan.rel_src, plan.rel_norm, plan.chunk_lo,
+                      plan.chunk_hi, plan.rel_chunk_ptr, plan.fwd_rowptr,
+                      plan.fwd_pos)
+    f32 = x.dtype == torch.float32
     specs["fwdnorm"] = (lambda: (sk.span_forward(x, w, plan),),
                         lambda: (sk.span_forward_plain(x, w, plan),),
-                        xb + wb + fwd_csr + 4 * n * d_out, half)
+                        xb + wb + fwd_plan + 4 * n * d_out,
+                        4 * half if f32 else half,
+                        "tf32" if f32 else "bfloat16")
     specs["floor"] = ((lambda: bk.floor_launch(g.device)) if g.is_cuda
                       else (lambda: None), None, 0, 0)
     return {k: specs[k] for k in names}
@@ -162,15 +171,16 @@ def run_rows(plan, d_in: int, d_out: int, dtype: torch.dtype, inner: int,
          * 0.2).to(dtype)
     on_card = dev.type == "cuda"
     results, bad = {}, []
-    for name, (kernel, plain, n_bytes, ops) in row_specs(
+    for name, (kernel, plain, n_bytes, ops, *unit) in row_specs(
             plan, g, x, w, names).items():
+        unit = unit[0] if unit else str(dtype)[6:]
         err = None
         if plain is not None:
             err = max_error(kernel(), plain(), dtype)
             if err is None:
                 bad.append(name)
         ms = time_ms(kernel, inner) if on_card else None
-        res = {"ms": ms, **bound(n_bytes, ops, dtype), "max_abs_err": err}
+        res = {"ms": ms, **bound(n_bytes, ops, unit), "max_abs_err": err}
         results[name] = res
         shown = "not measured" if ms is None else f"{ms:9.4f} ms"
         check = "" if plain is None else \

@@ -67,13 +67,22 @@ def fold_dst(plan: sk.SpanPlan, window: int = 4096) -> sk.SpanPlan:
 
 
 def reverse_plan(plan: sk.SpanPlan) -> sk.SpanPlan:
-    """The plan with ``src`` and ``dst`` swapped, so that ``span_forward``
-    over it with ``w^T`` computes the backward's dx (the ``fwdrev`` row:
-    #2's dx half alone)."""
+    """The plan with ``src`` and ``dst`` swapped, so that a forward over it
+    with ``w^T`` computes the backward's dx (the ``fwdrev`` row: #2's dx
+    half alone, through ``span_forward_rows``)."""
+    # fwd_pos of the src-sorted CSR: both it and the relation order sort
+    # the edges stably, so a stable sort of its edges by (rel, src) is the
+    # relation order
+    src, _, rel, _ = plan_edge_arrays(plan)
+    order = np.argsort(rel.astype(np.int64) * max(plan.num_src, 1) + src,
+                       kind="stable")
+    pos = np.empty(order.shape[0], np.int32)
+    pos[order] = np.arange(order.shape[0])
     return dataclasses.replace(
         plan, num_nodes=plan.num_src, num_src=plan.num_nodes,
         fwd_rowptr=plan.bwd_rowptr, fwd_src=plan.bwd_dst,
         fwd_rel=plan.bwd_rel, fwd_norm=plan.bwd_norm,
+        fwd_pos=torch.as_tensor(pos).to(plan.device),
         bwd_rowptr=plan.fwd_rowptr, bwd_dst=plan.fwd_src,
         bwd_rel=plan.fwd_rel, bwd_norm=plan.fwd_norm,
         rel_src=plan.rel_dst, rel_dst=plan.rel_src)

@@ -5,8 +5,9 @@ The JAX package runs the conv's message passing as two Pallas kernels
 (``scaling_rgcn_training_tpu/ops/span_kernels.py``: ``_fwd_kernel`` through
 ``rel_span_matmul_scatter``, ``_bwd_kernel`` through
 ``rel_span_backward_scatter``). Here they are hand-written CUDA for
-``sm_90a`` (``csrc/span_kernels.cu``), with the same contract in node
-order:
+``sm_90a`` (the forward ``csrc/span_fwd_tc.cu``, on the tensor cores over
+the plan's relation chunks; the backward ``csrc/span_kernels.cu``), with
+the same contract in node order:
 
 - ``span_forward(x, w, plan) -> out [N, d_out]``,
   ``out[n] = sum_{e: dst_e = n} norm_e * x[src_e] @ w[rel_e]``;
@@ -25,7 +26,8 @@ and loaded with ``ctypes`` (``ops/cuda_build.py``); a failed build raises.
 
 The plan (:class:`SpanPlan`) is the port's own, built in numpy from
 ``(src, dst, rel, norm)``: a dst-sorted CSR for the forward, a src-sorted
-CSR for dx, and relation-sorted edges cut into one-relation chunks for dW.
+CSR for dx, and relation-sorted edges cut into one-relation chunks for dW
+and the forward's per-edge products.
 None of the TPU plan's machinery (relation bands, tile-packed edge
 columns, swept bucket sizes, padding) is needed on the card.
 """
@@ -44,7 +46,7 @@ from scaling_rgcn_training_tpu_torch.ops.cuda_build import LAUNCHES
 
 # edges of one relation per dW block (partial sums reduced in order)
 DW_CHUNK = 1024
-# widths the CUDA kernels take (csrc/span_kernels.cu)
+# widths the CUDA kernels take (csrc/span_fwd_tc.cu, csrc/span_kernels.cu)
 MAX_WIDTH = 128
 MAX_DW_ELEMS = 4096
 
@@ -58,7 +60,8 @@ class SpanPlan:
     halo partition, whose halo segment reads a received row buffer.
 
     - forward, dst-sorted CSR by ``(dst, rel)``: ``fwd_rowptr [N+1]``,
-      ``fwd_src``, ``fwd_rel``, ``fwd_norm`` ``[E]``;
+      ``fwd_src``, ``fwd_rel``, ``fwd_norm`` ``[E]``, and ``fwd_pos [E]``,
+      each edge's index in the relation order below;
     - dx, src-sorted CSR by ``(src, rel)``: ``bwd_rowptr [num_src+1]``,
       ``bwd_dst``, ``bwd_rel``, ``bwd_norm`` ``[E]``;
     - dW, relation-sorted by ``(rel, src)``: ``rel_src``, ``rel_dst``,
@@ -76,6 +79,7 @@ class SpanPlan:
     fwd_src: torch.Tensor
     fwd_rel: torch.Tensor
     fwd_norm: torch.Tensor
+    fwd_pos: torch.Tensor
     bwd_rowptr: torch.Tensor
     bwd_dst: torch.Tensor
     bwd_rel: torch.Tensor
@@ -154,6 +158,8 @@ def plan_span(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
     within = np.arange(chunk_rel.shape[0]) - rel_chunk_ptr[chunk_rel]
     chunk_lo = rel_edge_ptr[chunk_rel] + within * DW_CHUNK
     chunk_hi = np.minimum(chunk_lo + DW_CHUNK, rel_edge_ptr[chunk_rel + 1])
+    rel_rank = np.empty(r_order.shape[0], np.int64)
+    rel_rank[r_order] = np.arange(r_order.shape[0])
 
     t = lambda a, dtype=torch.int32: torch.as_tensor(
         np.ascontiguousarray(a)).to(dtype).to(device)
@@ -161,6 +167,7 @@ def plan_span(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
         num_nodes=int(num_nodes), num_slots=int(num_slots),
         num_src=int(num_src), fwd_rowptr=t(f_rowptr), fwd_src=t(src[f_order]),
         fwd_rel=t(rel[f_order]), fwd_norm=t(norm[f_order], torch.float32),
+        fwd_pos=t(rel_rank[f_order]),
         bwd_rowptr=t(b_rowptr), bwd_dst=t(dst[b_order]),
         bwd_rel=t(rel[b_order]), bwd_norm=t(norm[b_order], torch.float32),
         rel_src=t(src[r_order]), rel_dst=t(dst[r_order]),
@@ -196,6 +203,30 @@ def span_forward_plain(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def span_forward_tiled_plain(x: torch.Tensor, w: torch.Tensor,
+                             plan: SpanPlan) -> torch.Tensor:
+    """``span_forward`` in the CUDA kernels' dataflow, for tests and
+    chip_smoke.py: each chunk's messages ``norm_j * x[rel_src[j]] @ w[r]``
+    into a scratch ``[E, d_out]`` in relation order, then each output row's
+    sum of its edges' messages in forward-CSR order through ``fwd_pos``;
+    summed in ``_acc_dtype``."""
+    acc = _acc_dtype(x.dtype)
+    msg = torch.zeros(plan.fwd_pos.shape[0], w.shape[2], dtype=acc,
+                      device=x.device)
+    ptr = plan.rel_chunk_ptr.tolist()
+    lo, hi = plan.chunk_lo.tolist(), plan.chunk_hi.tolist()
+    for r in range(plan.num_slots):
+        for c in range(ptr[r], ptr[r + 1]):
+            sl = slice(lo[c], hi[c])
+            msg[sl] = (x.index_select(0, plan.rel_src[sl]).to(acc)
+                       @ w[r].to(acc)) * plan.rel_norm[sl, None].to(acc)
+    rows = torch.repeat_interleave(
+        torch.arange(plan.num_nodes, device=x.device),
+        torch.diff(plan.fwd_rowptr.long()))
+    out = torch.zeros(plan.num_nodes, w.shape[2], dtype=acc, device=x.device)
+    return out.index_add_(0, rows, msg.index_select(0, plan.fwd_pos))
+
+
 def span_backward_plain(g_out: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                         plan: SpanPlan) -> Tuple[torch.Tensor, torch.Tensor]:
     """``span_backward`` with index_select, per-relation matmuls and
@@ -223,6 +254,17 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 def _kernels() -> ctypes.CDLL:
     return cuda_build.load("span_kernels", _declare)
+
+
+def _declare_tc(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.span_fwd_tc.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, i, i, i,
+                                i, i, p]
+    lib.span_fwd_tc.restype = i
+
+
+def _tc_kernels() -> ctypes.CDLL:
+    return cuda_build.load("span_fwd_tc", _declare_tc)
 
 
 def _cuda_dtype_code(*tensors: torch.Tensor) -> int:
@@ -270,7 +312,39 @@ def span_forward(x: torch.Tensor, w: torch.Tensor,
                  plan: SpanPlan) -> torch.Tensor:
     """``out[n] = sum_{e: dst_e = n} norm_e * x[src_e] @ w[rel_e]``:
     ``x [num_src, d_in]``, ``w [slots, d_in, d_out]`` -> ``[N, d_out]``
-    float32."""
+    float32. On the card two kernels of ``csrc/span_fwd_tc.cu``: the
+    per-edge messages on the tensor cores, chunk by chunk, into an
+    ``[E, d_out]`` float32 scratch, then their sum per row."""
+    _check_shapes(x, w, plan)
+    if not cuda_build.on_card(x, w, plan.fwd_src):
+        return span_forward_plain(x, w, plan)
+    code = _cuda_dtype_code(x, w)
+    slots, d_in, d_out = w.shape
+    _check_widths(d_in, d_out)
+    lib = _tc_kernels()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    out = torch.empty(plan.num_nodes, d_out, **f32)
+    msg = torch.empty(plan.fwd_pos.shape[0], d_out, **f32)
+    with torch.cuda.device(x.device):
+        err = lib.span_fwd_tc(
+            code, x.data_ptr(), w.data_ptr(), plan.chunk_lo.data_ptr(),
+            plan.chunk_hi.data_ptr(), plan.rel_chunk_ptr.data_ptr(),
+            plan.rel_src.data_ptr(), plan.rel_norm.data_ptr(),
+            plan.fwd_rowptr.data_ptr(), plan.fwd_pos.data_ptr(),
+            msg.data_ptr(), out.data_ptr(), plan.num_chunks, plan.num_nodes,
+            d_in, d_out, slots, torch.cuda.current_stream().cuda_stream)
+    cuda_build.check_launch(lib, err, "span_forward")
+    LAUNCHES["span_forward"] += 1
+    return out
+
+
+def span_forward_rows(x: torch.Tensor, w: torch.Tensor,
+                      plan: SpanPlan) -> torch.Tensor:
+    """``span_forward`` by the earlier route, ``span_rows_kernel``
+    (``csrc/span_rows.cuh``: one warp per dst row, scalar FMAs on the
+    CUDA cores), which the dx half of ``span_backward`` still runs. No
+    main path calls it: chip_smoke.py times it beside ``span_forward``
+    and the microbench's ``fwdrev`` row measures #2's dx half with it."""
     _check_shapes(x, w, plan)
     if not cuda_build.on_card(x, w, plan.fwd_src):
         return span_forward_plain(x, w, plan)
@@ -282,8 +356,8 @@ def span_forward(x: torch.Tensor, w: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         _rows(lib, code, x, w, plan.fwd_rowptr, plan.fwd_src, plan.fwd_rel,
-              plan.fwd_norm, out, stream, "span_forward")
-    LAUNCHES["span_forward"] += 1
+              plan.fwd_norm, out, stream, "span_forward_rows")
+    LAUNCHES["span_forward_rows"] += 1
     return out
 
 

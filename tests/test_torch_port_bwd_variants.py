@@ -94,8 +94,8 @@ def test_variant_plain_matches_jax(variant, d_in, d_out, dtype, rtol, atol):
     tt = lambda a: torch.tensor(a).to(getattr(torch, dtype))
     if variant == "fwdrev":
         wt = tt(w).transpose(1, 2).contiguous()
-        _close(sk.span_forward(tt(g), wt, bk.reverse_plan(plan)), dx_ref,
-               rtol, atol)
+        _close(sk.span_forward_rows(tt(g), wt, bk.reverse_plan(plan)),
+               dx_ref, rtol, atol)
         return
     v = "base" if variant == "noonehot" else variant
     dx, dw = bk.span_backward_variant(tt(g), tt(x), tt(w), plan, v)
@@ -139,7 +139,9 @@ def test_pass_split(variant, dtype, d_in, d_out, slots, expected):
 
 def test_plans_of_the_rows():
     """``fold_dst`` keeps every edge with ``dst % window``; ``reverse_plan``
-    swaps the forward and backward layouts."""
+    swaps the forward and backward layouts, with the forward positions of
+    the swapped CSR in the relation order (the tensor-core forward's
+    dataflow over it gives the forward's result)."""
     rng = np.random.default_rng(3)
     src, dst, rel, norm = _graph(rng, 120, 900, 5)
     plan = sk.plan_span(src, dst, rel, norm, 120, 5)
@@ -153,6 +155,12 @@ def test_plans_of_the_rows():
     assert torch.equal(rev.fwd_rowptr, plan.bwd_rowptr)
     assert torch.equal(rev.bwd_dst, plan.fwd_src)
     assert (rev.num_nodes, rev.num_src) == (plan.num_src, plan.num_nodes)
+    for p in (plan, folded, rev):
+        assert np.array_equal(np.sort(p.fwd_pos.numpy()), np.arange(900))
+        x = torch.randn(p.num_src, 6, dtype=torch.float64)
+        w = torch.randn(5, 6, 3, dtype=torch.float64)
+        torch.testing.assert_close(sk.span_forward_tiled_plain(x, w, p),
+                                   sk.span_forward_plain(x, w, p))
 
 
 def test_cpu_calls_launch_nothing_and_bad_calls_raise():

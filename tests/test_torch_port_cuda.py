@@ -1,6 +1,7 @@
-"""The CUDA kernels (span, segment sum, grouped matmul, d_rhs, halo
-exchange, fused halo aggregate and the one-pass backward's variants)
-against their plain PyTorch versions, on the card.
+"""The CUDA kernels (span forward on the tensor cores and its earlier row
+route, span backward, segment sum, grouped matmul, d_rhs, halo exchange,
+fused halo aggregate and the one-pass backward's variants) against their
+plain PyTorch versions, on the card.
 
 Needs a CUDA device and nvcc; skips without a card. Imports no jax (the
 card's machine has none), so on the card run it without the JAX test
@@ -69,6 +70,63 @@ def _tol(dtype, ref):
     scale = float(ref.abs().max())
     return dict(rtol=1e-4, atol=1e-4 * scale) if dtype == "float32" else \
         dict(rtol=0, atol=2e-2 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d_in,d_out,slots", [(63, 4, 9), (63, 11, 9),
+                                              (11, 63, 9), (128, 32, 30)])
+@pytest.mark.parametrize("num_src", [None, 650])
+def test_cuda_span_forward_tensor_cores(d_in, d_out, slots, num_src, dtype,
+                                        monkeypatch):
+    """#1 on the tensor cores (``csrc/span_fwd_tc.cu``) against
+    ``span_forward_plain`` and ``span_forward_tiled_plain``, with empty
+    relations, rows without edges, chunks of 100 edges (a chunk's end
+    inside a 64-edge tile) and (``num_src``) a rectangular plan: two runs
+    give the same bits, each call counts one launch and none of the row
+    route; ``span_forward_rows`` still matches the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(d_in * d_out + slots)
+    n, e = 500, 4000
+    src, dst, rel, norm = _graph(rng, n, e, slots)
+    if num_src is not None:
+        src = rng.integers(0, num_src, e).astype(np.int32)
+    monkeypatch.setattr(sk, "DW_CHUNK", 100)
+    plan = sk.plan_span(src, dst, rel, norm, n, slots, device="cuda",
+                        num_src=num_src)
+    dt = getattr(torch, dtype)
+    x = torch.randn(plan.num_src, d_in, device="cuda").to(dt)
+    w = (torch.randn(slots, d_in, d_out, device="cuda") * 0.2).to(dt)
+    before = dict(cuda_build.LAUNCHES)
+    got, again = sk.span_forward(x, w, plan), sk.span_forward(x, w, plan)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["span_forward"] == before["span_forward"] + 2
+    assert cuda_build.LAUNCHES["span_forward_rows"] == before["span_forward_rows"]
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    assert not got[n - n // 10:].any()          # rows without edges
+    for ref in (sk.span_forward_plain(x, w, plan),
+                sk.span_forward_tiled_plain(x, w, plan)):
+        torch.testing.assert_close(got, ref, **_tol(dtype, ref))
+    rows = sk.span_forward_rows(x, w, plan)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["span_forward_rows"] == before["span_forward_rows"] + 1
+    ref = sk.span_forward_plain(x, w, plan)
+    torch.testing.assert_close(rows, ref, **_tol(dtype, ref))
+
+
+@pytest.mark.cuda
+def test_cuda_span_forward_without_edges():
+    """A plan with no edges: no chunk to multiply, every row written 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    none = np.zeros(0, np.int32)
+    plan = sk.plan_span(none, none, none, none.astype(np.float32), 40, 3,
+                        device="cuda")
+    out = sk.span_forward(torch.randn(40, 8, device="cuda"),
+                          torch.randn(3, 8, 5, device="cuda"), plan)
+    torch.cuda.synchronize()
+    assert out.shape == (40, 5) and not out.any()
 
 
 @pytest.mark.cuda

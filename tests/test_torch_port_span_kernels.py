@@ -56,9 +56,21 @@ def _pair(a, dtype):
             torch.tensor(a).to(getattr(torch, dtype)))
 
 
-@pytest.mark.parametrize("dtype,rtol,atol", DTYPES)
+# the CUDA kernels' dataflow (span_forward_tiled_plain) in float32: rtol
+# 1e-5, atol 1e-5 * max|ref|; in bfloat16 as DTYPES
+TILED_DTYPES = [("float32", 1e-5, 1e-5), DTYPES[1]]
+
+
+@pytest.mark.parametrize("dataflow,dtype,rtol,atol",
+                         [("plain", *d) for d in DTYPES]
+                         + [("tiled", *d) for d in TILED_DTYPES])
 @pytest.mark.parametrize("n,e,slots,d_in,d_out,k", SHAPES)
-def test_span_forward_matches_jax(n, e, slots, d_in, d_out, k, dtype, rtol, atol):
+def test_span_forward_matches_jax(n, e, slots, d_in, d_out, k, dtype, rtol,
+                                  atol, dataflow, monkeypatch):
+    """``span_forward`` (its plain version on the CPU) and, ``tiled``, the
+    CUDA kernels' dataflow ``span_forward_tiled_plain`` over chunks of 100
+    edges (a chunk's end inside a 64-edge tile) against the JAX kernel;
+    the tiled dataflow also against ``span_forward_plain``."""
     rng = np.random.default_rng(n + e + d_out)
     src, dst, rel, norm = _graph(rng, n, e, slots)
     x = rng.standard_normal((n, d_in)).astype(np.float32)
@@ -70,12 +82,110 @@ def test_span_forward_matches_jax(n, e, slots, d_in, d_out, k, dtype, rtol, atol
     ref = np.asarray(rel_span_matmul_scatter(
         _pair(vals, dtype)[0], span, _pair(w, dtype)[0]))
 
+    monkeypatch.setattr(sk, "DW_CHUNK", 100)
     plan = sk.plan_span(src, dst, rel, norm, n, slots)
-    out = sk.span_forward(_pair(x, dtype)[1], _pair(w, dtype)[1], plan)
+    xt, wt = _pair(x, dtype)[1], _pair(w, dtype)[1]
+    fwd = sk.span_forward if dataflow == "plain" else sk.span_forward_tiled_plain
+    out = fwd(xt, wt, plan)
     assert out.dtype == torch.float32 and out.shape == (n, d_out)
     np.testing.assert_allclose(out.numpy(), ref, rtol=rtol,
                                atol=atol * np.abs(ref).max())
     assert not out[n - n // 10:].any()          # nodes without edges
+    if dataflow == "tiled":
+        plain = sk.span_forward_plain(xt, wt, plan)
+        torch.testing.assert_close(out, plain, rtol=1e-5,
+                                   atol=1e-5 * float(plain.abs().max()))
+
+
+def _tf32(a: np.ndarray) -> np.ndarray:
+    """float32 rounded to TF32 (10 mantissa bits), round to nearest even,
+    as ``csrc/span_fwd_tc.cu`` ``tf32_round``."""
+    u = np.asarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    finite = (u & 0x7F800000) != 0x7F800000
+    u = np.where(finite, u + 0xFFF + ((u >> 13) & 1), u) & 0xFFFFE000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _grid_big(a: np.ndarray, axis: int) -> np.ndarray:
+    """``a`` on the grid of 2^-10 times the power of two above its row's
+    (``axis=1``) or column's (``axis=0``) largest |a|, round to nearest
+    even, as ``csrc/span_fwd_tc.cu`` ``Grid``."""
+    _, e = np.frexp(np.abs(a).max(axis=axis, keepdims=True))
+    unit = np.ldexp(np.float32(1), e - 10).astype(np.float32)
+    return (np.rint(a / unit) * unit).astype(np.float32)
+
+
+def _toward_zero(v: np.ndarray) -> np.ndarray:
+    """float64 to float32 rounded toward zero, as the tensor cores round
+    the sums they form."""
+    f = v.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(v)
+    return np.where(over, np.nextafter(f, np.float32(0)), f)
+
+
+def _split_product(a, b, a_big, b_big, small_small=True):
+    """``a @ b`` from big and small parts as the kernel forms it, one mma
+    per 8 of depth, each sum of the tensor cores cut toward zero: each
+    step's big products, and its other products, in fresh sums added in
+    float32 (round to nearest)."""
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    small = np.zeros_like(acc)
+    for k0 in range(0, a.shape[1], 8):
+        sl = slice(k0, k0 + 8)
+        f64 = lambda x, y: x[:, sl].astype(np.float64) @ y[sl].astype(np.float64)
+        big = f64(a_big, b_big)
+        cross = _toward_zero(f64(a_small, b_big))
+        cross = _toward_zero(cross + f64(a_big, b_small))
+        if small_small:
+            cross = _toward_zero(cross + f64(a_small, b_small))
+        acc += _toward_zero(big)
+        small += cross
+    return acc + small
+
+
+@pytest.mark.parametrize("k", [64, 128])
+def test_split_tf32_keeps_float32_precision(k):
+    """The f32 route's product: big parts on each row's (column's)
+    fixed-point grid, small parts rounded to TF32, a_big b_big + a_small
+    b_big + a_big b_small + a_small b_small. Each step's big products sum
+    exactly in
+    float32, and the result is within rtol 1e-5 (atol 1e-5 * max|ref|) of
+    the float64 product, where one TF32 product is not."""
+    rng = np.random.default_rng(k)
+    a = rng.standard_normal((64, k)).astype(np.float32)
+    b = (rng.standard_normal((k, 16)) * 0.2).astype(np.float32)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    a_big, b_big = _grid_big(a, 1), _grid_big(b, 0)
+    for t in (a_big, b_big, _tf32(a - a_big), _tf32(b - b_big)):
+        assert not (t.view(np.uint32) & 0x1FFF).any()   # 10 mantissa bits
+    for k0 in range(0, k, 8):
+        part = a_big[:, k0:k0 + 8].astype(np.float64) @ b_big[k0:k0 + 8]
+        assert np.array_equal(part.astype(np.float32), part)   # exact
+    got = _split_product(a, b, a_big, b_big)
+    one = _toward_zero(_tf32(a).astype(np.float64) @ _tf32(b))
+    limit = 1e-5 * np.abs(ref) + 1e-5 * np.abs(ref).max()
+    assert (np.abs(got - ref) <= limit).all()
+    assert not (np.abs(one - ref) <= limit).all()
+
+
+def test_split_tf32_exact_big_parts_remove_the_bias():
+    """Sums cut toward zero shrink the products of big parts tf32(a),
+    tf32(b) (the split tried first: a signed error of about -4e-8 relative
+    on the card, which moved a training run); with the big parts on the
+    fixed-point grid their sums are exact, and what is left is noise of a
+    few 1e-9 either way."""
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((4096, 64)).astype(np.float32)
+    b = (rng.standard_normal((64, 16)) * 0.2).astype(np.float32)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    bias = lambda got: float(((got - ref) * np.sign(ref)).sum()
+                             / np.abs(ref).sum())
+    tf32_big = bias(_split_product(a, b, _tf32(a), _tf32(b),
+                                   small_small=False))
+    exact = bias(_split_product(a, b, _grid_big(a, 1), _grid_big(b, 0)))
+    assert tf32_big < -2e-8
+    assert abs(exact) < 1e-8
 
 
 @pytest.mark.parametrize("dtype,rtol,atol", DTYPES)
@@ -104,21 +214,26 @@ def test_span_backward_matches_jax(n, e, slots, d_in, d_out, k, dtype, rtol, ato
     assert not dw[1::3].any()                  # relations without edges
 
 
-def test_plan_layouts(monkeypatch):
+@pytest.mark.parametrize("num_src", [None, 150])
+def test_plan_layouts(monkeypatch, num_src):
     """Each layout holds every edge once, in its sort order; dW chunks hold
-    one relation each and at most ``DW_CHUNK`` edges."""
+    one relation each and at most ``DW_CHUNK`` edges; ``fwd_pos`` maps each
+    forward-CSR edge to the same edge in relation order. ``num_src``: a
+    rectangular plan (more source rows than dst rows)."""
     rng = np.random.default_rng(5)
     n, e, slots, chunk = 120, 1500, 8, 64
     src, dst, rel, norm = _graph(rng, n, e, slots)
+    if num_src is not None:
+        src = rng.integers(0, num_src, e).astype(np.int32)
     monkeypatch.setattr(sk, "DW_CHUNK", chunk)
-    plan = sk.plan_span(src, dst, rel, norm, n, slots)
+    plan = sk.plan_span(src, dst, rel, norm, n, slots, num_src=num_src)
     edges = sorted(zip(src.tolist(), dst.tolist(), rel.tolist(), norm.tolist()))
 
     def csr_edges(rowptr, other, rels, norms, row_is_dst):
         rowptr = rowptr.numpy()
         assert rowptr[0] == 0 and rowptr[-1] == e and (np.diff(rowptr) >= 0).all()
         out = []
-        for row in range(n):
+        for row in range(len(rowptr) - 1):
             lo, hi = rowptr[row], rowptr[row + 1]
             r = rels[lo:hi].numpy()
             assert (np.diff(r) >= 0).all()          # (row, rel) order
@@ -143,6 +258,17 @@ def test_plan_layouts(monkeypatch):
         rel_edges += [(int(plan.rel_src[j]), int(plan.rel_dst[j]), r,
                        float(plan.rel_norm[j])) for j in covered]
     assert sorted(rel_edges) == edges
+
+    # fwd_pos: a permutation of [0, E) from forward-CSR to relation order
+    pos = plan.fwd_pos.numpy()
+    assert plan.fwd_pos.dtype == torch.int32
+    assert np.array_equal(np.sort(pos), np.arange(e))
+    fwd_dst = np.repeat(np.arange(n), np.diff(plan.fwd_rowptr.numpy()))
+    rel_rel = np.repeat(np.arange(slots), np.diff(ptr))
+    assert np.array_equal(plan.rel_src.numpy()[pos], plan.fwd_src.numpy())
+    assert np.array_equal(plan.rel_dst.numpy()[pos], fwd_dst)
+    assert np.array_equal(rel_rel[pos], plan.fwd_rel.numpy())
+    assert np.array_equal(plan.rel_norm.numpy()[pos], plan.fwd_norm.numpy())
 
 
 @pytest.mark.parametrize("bad", ["node", "relation", "length"])
