@@ -18,10 +18,12 @@ Phases, in order; any failure exits non-zero:
    ``csrc/span_fwd_tc.cu`` on the tensor cores) also against
    ``span_forward_tiled_plain`` (its dataflow) at the small shapes, and its
    earlier row route ``span_forward_rows`` against the plain version
-   everywhere; two runs give the same bits; at the bench shape, L1 and L2
-   in float32 and bfloat16, the times of #1, of the row route and of the
-   plain versions, beside #1's bound; then the conv's autograd on the card
-   against the same conv on the CPU;
+   everywhere (at the small shapes with one row of x scaled by 1e-37);
+   two runs give the same bits; at the bench shape, L1 and L2 in float32
+   and bfloat16, the times of #1, of the row route and of the plain
+   versions, beside #1's bound (``span_kernels.forward_cost``), and in
+   float32 #1's signed error against float64 (at most ``MAX_BIAS``); then
+   the conv's autograd on the card against the same conv on the CPU;
 4. the segment-sum, grouped-matmul and d_rhs kernels against their plain
    versions: edge cases (empty groups and rows, groups spanning tiles, row
    counts off the tiles, widths of every class the kernels dispatch on:
@@ -63,7 +65,10 @@ Phases, in order; any failure exits non-zero:
    edge partition (``backend="pallas"``); losses within 1e-4 relative of
    phase 5's single-device run of the same dtype (bfloat16: 1e-3), the
    kernels' launch counters advanced on every step, ms/step and peak
-   memory;
+   memory; the halo f32 step with the library exchange timed again with
+   #1's row route swapped in, in turns with the tensor-core forward, 10
+   steps each; and #1 and its row route per call on shard 0's local and
+   halo segments (host microseconds until a call returns, card milliseconds);
 9. kernel #8 (the one-pass backward of the attribution microbench) against
    its plain versions, every variant (``base``, ``nodw``, ``nodx``,
    ``statrmw``): at phase 3's edge cases (63 -> 4 and 11, 11 -> 63; 128 ->
@@ -110,10 +115,9 @@ ATT_EPOCHS = 5
 HALO_EPOCHS = 5
 HALO_SHARDS = 4
 WARMUP = 3
-# H100 SXM: HBM bytes/s; peak operations/s of the units (CUDA-core f32,
-# dense TF32 and bf16 tensor cores)
-HBM_RATE = 3.35e12
-PEAK_RATE = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
+# signed error of #1's f32 sums against float64, relative (a sum cut
+# toward zero on every call gave -4e-8 and moved phase 5's losses)
+MAX_BIAS = 1e-8
 JAX_PKG = "scaling_rgcn_training_tpu/"
 DEV = "cuda"
 
@@ -184,11 +188,12 @@ def nbytes(*tensors) -> int:
 
 def bound(n_bytes: int, ops: float, unit: str) -> dict:
     """Least time on an H100 SXM: the larger of bytes over the HBM rate and
-    operations over the peak rate of the unit that runs them (``PEAK_RATE``:
-    the input type's, or ``tf32``)."""
-    t_bytes, t_ops = n_bytes / HBM_RATE, ops / PEAK_RATE[unit]
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    operations over the peak rate of the unit that runs them (the input
+    type's, or ``tf32``): ``bwd_variants.bound``, the port's one copy of
+    the card's rates."""
+    from scaling_rgcn_training_tpu_torch.bwd_variants import bound as card_bound
+
+    return card_bound(n_bytes, ops, unit)
 
 
 def random_graph(rng, n, e, slots, n_live=None, live_rels=None):
@@ -208,7 +213,9 @@ def compare_span_kernels(sk, plan, d_in, d_out, dtype, rng, tag, timing=False,
                          tiled=False):
     """span_forward / span_backward against their plain versions, and the
     forward's row route ``span_forward_rows`` (with ``tiled``, the forward
-    also against ``span_forward_tiled_plain``)."""
+    also against ``span_forward_tiled_plain``, and row 0 of x scaled by
+    1e-37); with ``timing``, the forward's signed error against float64
+    (float32 inputs)."""
     import torch
 
     dev = plan.device
@@ -219,6 +226,8 @@ def compare_span_kernels(sk, plan, d_in, d_out, dtype, rng, tag, timing=False,
                         dtype=torch.float32).to(dev, dtype)
     g = torch.as_tensor(rng.standard_normal((plan.num_nodes, d_out)),
                         dtype=torch.float32).to(dev, dtype)
+    if tiled:
+        x[0] *= 1e-37   # a row far below #1's fixed-point grids
     out = sk.span_forward(x, w, plan)
     rows = sk.span_forward_rows(x, w, plan)
     torch.cuda.synchronize()
@@ -253,13 +262,22 @@ def compare_span_kernels(sk, plan, d_in, d_out, dtype, rng, tag, timing=False,
                                  reps=20, plain_reps=20)
         res["fwd"]["previous_ms"] = res["fwd"]["library_ms"]
         res["fwd"]["library_ms"] = None
-        # #1 reads x, W, the relation-ordered edges, the chunks and the
-        # forward CSR's row pointer and positions, and writes out; its msg
-        # scratch is the design's own. f32 runs 4 TF32 products per FMA.
-        res["fwd"].update(bound(nbytes(
-            x, w, plan.rel_src, plan.rel_norm, plan.chunk_lo, plan.chunk_hi,
-            plan.rel_chunk_ptr, plan.fwd_rowptr, plan.fwd_pos, out),
-            ops if bf16 else 4 * ops, "bfloat16" if bf16 else "tf32"))
+        res["fwd"].update(bound(*sk.forward_cost(x, w, plan)))
+        if not bf16:
+            # signed error against float64: a sum cut toward zero on every
+            # call shows here long before it breaks the tolerance
+            ref64 = sk.span_forward_plain(x.double(), w.double(), plan)
+            sign, scale = ref64.sign(), float(ref64.abs().sum())
+            for key, got in (("bias", out), ("previous_bias", rows)):
+                res["fwd"][key] = float(
+                    ((got.double() - ref64) * sign).sum()) / scale
+            del ref64, sign
+            print(f"  {tag} signed error against float64: span_forward "
+                  f"{res['fwd']['bias']:.2e} (row route "
+                  f"{res['fwd']['previous_bias']:.2e}, limit {MAX_BIAS:.0e})",
+                  flush=True)
+            if abs(res["fwd"]["bias"]) > MAX_BIAS:
+                fail(f"{tag}: span_forward's sums are biased")
         # the row route's own bound (CUDA-core FMAs over the forward CSR)
         res["fwd"]["previous_bound_ms"] = bound(nbytes(
             x, w, plan.fwd_rowptr, plan.fwd_src, plan.fwd_rel, plan.fwd_norm,
@@ -441,6 +459,60 @@ def require_per_step(tag, steps, least):
                      f"expected at least {n}")
         if st["span_forward_rows"]:
             fail(f"{tag}: step {i} ran #1's row route")
+
+
+def forward_swap(graph, launches, **fit_kw) -> dict:
+    """Median ms/step of float32 ``Trainer.fit`` runs on ``graph`` with #1
+    on the tensor cores and with its row route ``span_forward_rows``
+    swapped into ``rgcn_conv``, in the order tensor cores, rows, rows,
+    tensor cores (the swap is this script's: no main path calls the row
+    route)."""
+    from scaling_rgcn_training_tpu_torch.ops import rgcn_conv
+    from scaling_rgcn_training_tpu_torch.ops import span_kernels as sk
+
+    swap = {"tensor cores": [], "rows": []}
+    for name in ("tensor cores", "rows", "rows", "tensor cores"):
+        rgcn_conv.span_forward = (sk.span_forward_rows if name == "rows"
+                                  else sk.span_forward)
+        try:
+            swap[name].append(run_fit(graph, None, EPOCHS, launches,
+                                      **fit_kw)["step_ms"])
+        finally:
+            rgcn_conv.span_forward = sk.span_forward
+    return swap
+
+
+def host_cost(plans) -> dict:
+    """Per call of #1 and of its row route on each ``(tag, plan)``, float32
+    at layers 1 and 2: host microseconds until it returns (``perf_counter``
+    over 50 calls that the card is still running) and card milliseconds
+    (CUDA events)."""
+    import torch
+    from scaling_rgcn_training_tpu_torch import bench_shape as bs
+    from scaling_rgcn_training_tpu_torch.ops import span_kernels as sk
+
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    res = {}
+    for tag, plan in plans:
+        for d_in, d_out in ((bs.D, bs.HL), (bs.HL, bs.C)):
+            x = torch.randn(plan.num_src, d_in, generator=gen, device=DEV)
+            w = torch.randn(plan.num_slots, d_in, d_out, generator=gen,
+                            device=DEV) * 0.2
+            for name, fn in (("span_forward", sk.span_forward),
+                             ("span_forward_rows", sk.span_forward_rows)):
+                call = lambda: fn(x, w, plan)
+                call()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(50):
+                    call()
+                host_us = (time.perf_counter() - t0) / 50 * 1e6
+                torch.cuda.synchronize()
+                key = f"{tag} {d_in}->{d_out} {name}"
+                res[key] = {"host_us": host_us, "ms": cuda_time_ms(call, 20)}
+                print(f"  {key}: host {host_us:.1f} us a call, card "
+                      f"{res[key]['ms']:.4f} ms", flush=True)
+    return res
 
 
 def wide_auto_check(edges, rng, launches, reset):
@@ -668,6 +740,16 @@ def halo_phase(bench_src, bench_dst, bench_typ, splits, fits, launches,
     if counts["halo library"]["halo_exchange"] or \
             counts["halo library"]["fused_halo_aggregate"]:
         fail(f"library-exchange run launched {counts['halo library']}")
+    # #1 against its row route on the halo step (library exchange, f32),
+    # and per call at the segments' sizes (shard 0)
+    halo_swap = forward_swap(halo_graph, launches, mesh=mesh,
+                             partition="halo")
+    print(f"  halo library f32 ms/step, #1 on the tensor cores "
+          f"{halo_swap['tensor cores']} vs its row route {halo_swap['rows']} "
+          "(order: tensor cores, rows, rows, tensor cores)", flush=True)
+    sh = he.shards[0]
+    per_call = host_cost((("shard 0 local", sh.local.span),
+                          ("shard 0 halo", sh.halo.span)))
 
     t0 = time.perf_counter()
     se = device_put_sharded_edges(shard_rel_edges(
@@ -695,7 +777,8 @@ def halo_phase(bench_src, bench_dst, bench_typ, splits, fits, launches,
         print(f"  {name} {cd or 'float32'} losses match the single-device "
               f"fused run's (max rel diff {rel:.2e}, limit {rtol:.0e})",
               flush=True)
-    return {"bench": bench, "errs": errs, "counts": counts}
+    return {"bench": bench, "errs": errs, "counts": counts,
+            "swap": halo_swap, "per_call": per_call}
 
 
 def check_bwd_variants(plan, d_in, d_out, dtype, rng, tag, variants=None,
@@ -965,8 +1048,6 @@ def main() -> None:
 
     phase("5 trainer at the bench shape")
     from scaling_rgcn_training_tpu_torch.graphs.device import DeviceGraph
-    from scaling_rgcn_training_tpu_torch.ops import rgcn_conv
-    from scaling_rgcn_training_tpu_torch.ops.span_kernels import span_forward
 
     splits = bs.bench_splits(DEV)
     fits = {}
@@ -977,19 +1058,8 @@ def main() -> None:
         require_per_step(f"fused {cd}", fits[("fused", cd)]["steps"],
                          {"span_forward": 4, "span_backward": 2})
     fused_launches = dict(launches)
-    # the end-to-end effect of #1's redesign: the fused f32 step with the
-    # row route in its place, in turns with the tensor-core forward
-    swap = {}
-    for name in ("rows", "rows", "tensor cores"):
-        rgcn_conv.span_forward = (sk.span_forward_rows if name == "rows"
-                                  else span_forward)
-        try:
-            f = run_fit(DeviceGraph(edges=edges, **splits), None, EPOCHS,
-                        launches)
-        finally:
-            rgcn_conv.span_forward = span_forward
-        swap.setdefault(name, []).append(f["step_ms"])
-    swap["tensor cores"].insert(0, fits[("fused", None)]["step_ms"])
+    # the end-to-end effect of #1's redesign
+    swap = forward_swap(DeviceGraph(edges=edges, **splits), launches)
     print(f"  fused f32 ms/step, #1 on the tensor cores "
           f"{swap['tensor cores']} vs its row route {swap['rows']} (order: "
           "tensor cores, rows, rows, tensor cores)", flush=True)
@@ -1112,6 +1182,8 @@ def main() -> None:
             "loss_first": f["losses"][0], "loss_last": f["losses"][-1],
             "launches_step0": f["steps"][0]} for (mode, cd), f in fits.items()},
         "fused_f32_step_ms_by_forward": swap,
+        "halo_f32_step_ms_by_forward": halo["swap"],
+        "halo_span_forward_per_call": halo["per_call"],
         "launches": {"fused": fused_launches, "edge": edge_launches,
                      "attention": att_launches, **halo["counts"],
                      **head_launches},

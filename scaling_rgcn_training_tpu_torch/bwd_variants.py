@@ -31,8 +31,9 @@ events over ``--inner`` calls, best of 3. Printed per row: ms, the bound
 (the larger of the bytes each input read once and each output written once
 over 3.35 TB/s and the operations over the peak of the units that run
 them, 67 TFLOP/s float32 on the CUDA cores, 495 TFLOP/s TF32 (``fwdnorm``
-in float32 counts four TF32 products per multiply-add) and 989
-bfloat16 on the tensor cores: an H100 SXM) and the largest difference
+in float32: ``span_kernels.forward_cost``, three TF32 products per
+multiply-add) and 989 bfloat16 on the tensor cores: an H100 SXM) and the
+largest difference
 from the plain version; a JSON line last. ``--device cpu`` runs the plain
 versions and measures no time.
 
@@ -105,10 +106,10 @@ def time_ms(fn, inner: int) -> float:
 
 
 def row_specs(plan, g, x, w, names) -> Dict[str, tuple]:
-    """``name -> (kernel call, plain call, bytes, operations[, unit])``:
-    the calls return tuples of outputs; bytes and operations are those of
-    the row's function on these inputs, the operations at the peak of
-    ``unit`` (by default the input type's, ``PEAK_RATE``)."""
+    """``name -> (kernel call, plain call, bytes, operations, unit)``: the
+    calls return tuples of outputs; bytes and operations are those of the
+    row's function on these inputs, the operations at the peak of
+    ``unit`` (``PEAK_RATE``: the input type's, or ``tf32``)."""
     from scaling_rgcn_training_tpu_torch.ops import bwd_kernels as bk
     from scaling_rgcn_training_tpu_torch.ops import span_kernels as sk
 
@@ -118,6 +119,7 @@ def row_specs(plan, g, x, w, names) -> Dict[str, tuple]:
     gb, xb, wb = nbytes(g), nbytes(x), nbytes(w)
     dxb, dwb = 4 * n_src * d_in, 4 * slots * d_in * d_out
     half = 2 * e * d_in * d_out
+    unit = str(x.dtype)[6:]
     specs = {}
 
     def calls(p, v):
@@ -126,35 +128,27 @@ def row_specs(plan, g, x, w, names) -> Dict[str, tuple]:
 
     for v in bk.VARIANTS:
         specs[v] = calls(plan, v)
-    specs["base"] += (gb + xb + wb + csr + dxb + dwb, 2 * half)
+    specs["base"] += (gb + xb + wb + csr + dxb + dwb, 2 * half, unit)
     specs["statrmw"] += specs["base"][2:]
-    specs["nodw"] += (gb + wb + csr + dxb, half)
-    specs["nodx"] += (gb + xb + csr + dwb, half)
+    specs["nodw"] += (gb + wb + csr + dxb, half, unit)
+    specs["nodx"] += (gb + xb + csr + dwb, half, unit)
     if "noonehot" in names:
         folded = bk.fold_dst(plan, WINDOW)
         specs["noonehot"] = calls(folded, "base") + (
             gb * min(n, WINDOW) / max(n, 1) + xb + wb + csr + dxb + dwb,
-            2 * half)
+            2 * half, unit)
     rev, wt = bk.reverse_plan(plan), w.transpose(1, 2).contiguous()
     specs["fwdrev"] = (lambda: (sk.span_forward_rows(g, wt, rev),),
                        lambda: (sk.span_forward_plain(g, wt, rev),),
-                       gb + wb + csr + dxb, half)
+                       gb + wb + csr + dxb, half, unit)
     specs["shipped"] = (lambda: sk.span_backward(g, x, w, plan),
                         lambda: sk.span_backward_plain(g, x, w, plan),
                         *specs["base"][2:])
-    # #1's two kernels read the relation-ordered edges, the chunks and the
-    # forward CSR's row pointer and positions; its msg scratch is its own
-    fwd_plan = nbytes(plan.rel_src, plan.rel_norm, plan.chunk_lo,
-                      plan.chunk_hi, plan.rel_chunk_ptr, plan.fwd_rowptr,
-                      plan.fwd_pos)
-    f32 = x.dtype == torch.float32
     specs["fwdnorm"] = (lambda: (sk.span_forward(x, w, plan),),
                         lambda: (sk.span_forward_plain(x, w, plan),),
-                        xb + wb + fwd_plan + 4 * n * d_out,
-                        4 * half if f32 else half,
-                        "tf32" if f32 else "bfloat16")
+                        *sk.forward_cost(x, w, plan))
     specs["floor"] = ((lambda: bk.floor_launch(g.device)) if g.is_cuda
-                      else (lambda: None), None, 0, 0)
+                      else (lambda: None), None, 0, 0, unit)
     return {k: specs[k] for k in names}
 
 
@@ -171,9 +165,8 @@ def run_rows(plan, d_in: int, d_out: int, dtype: torch.dtype, inner: int,
          * 0.2).to(dtype)
     on_card = dev.type == "cuda"
     results, bad = {}, []
-    for name, (kernel, plain, n_bytes, ops, *unit) in row_specs(
+    for name, (kernel, plain, n_bytes, ops, unit) in row_specs(
             plan, g, x, w, names).items():
-        unit = unit[0] if unit else str(dtype)[6:]
         err = None
         if plain is not None:
             err = max_error(kernel(), plain(), dtype)

@@ -34,26 +34,30 @@
 // float32 inputs: split TF32 products with exact big sums. One TF32
 // product keeps about three decimal digits, so a = a_big + a_small and b
 // likewise, and the product is a_big b_big + a_small b_big + a_big b_small
-// + a_small b_small. The tensor cores cut each sum they form toward zero;
-// with a_big = tf32(a) (3xTF32) the sums of big products lost up to an ulp
-// toward zero, a signed error of -4e-8 relative on every call that moved
-// a 10-step f32 training run's loss 2.5e-4 away from the CUDA-core routes
-// (an H100). So a_big is a on a fixed-point grid of 2^-kFixBits times the
-// power of two above its row's largest |a| (b_big: its column's), round to
-// nearest: an m16n8k8 product then sums 8 integers of at most 2^20 in one
-// unit, at most 2^23, which float32 holds exactly. a_small = tf32(a -
-// a_big) (round to nearest even) is at most 2^-(kFixBits+1) of the row's
-// top, so the other three products' sums are cut at 2^-11 of the result's
-// scale. Each k step's products go into fresh accumulators, added to the
-// running sums in registers, rounded to nearest. bfloat16 products are
-// exact too; their sums per k step are cut toward zero (bfloat16 inputs
-// are held to 2e-2).
+// (3xTF32) + a_small b_small. The tensor cores cut each sum they form
+// toward zero; with a_big = tf32(a) the sums of big products lost up to an
+// ulp toward zero, a signed error of -4e-8 relative on every call that
+// moved a 10-step f32 training run's loss 2.5e-4 away from the CUDA-core
+// routes (an H100). So a_big is a on a fixed-point grid of 2^-kFixBits
+// times the power of two above its row's largest |a| (b_big: its
+// column's), round to nearest: an m16n8k8 product then sums 8 integers of
+// at most 2^20 in one unit, at most 2^23, which float32 holds exactly.
+// a_small = tf32(a - a_big) (round to nearest even) is at most
+// 2^-(kFixBits+1) of the row's top, so the other products' sums are cut at
+// 2^-11 of the result's scale. On this grid a_small carries whole every
+// value below 2^-11 of its row's top, so the fourth product stays: without
+// it the largest error at layer 1 of the bench shape was 2.9x the one with
+// it, and the 10-step run's loss moved 3.7e-4 (an H100). Each k step's
+// products go into fresh accumulators, added to the running sums in
+// registers, rounded to nearest. bfloat16 products are exact too; their
+// sums per k step are cut toward zero (bfloat16 inputs are held to 2e-2).
 //
 // What bounds it on an H100: the msg round trip (written once and read
 // once, E * M * 4 bytes each way: 256 MB at layer 1 of the bench shape)
 // and the gather of x[src] (E * K elements, mostly served from the 50 MB
-// L2 since each chunk is src-sorted), not the products: the four TF32
-// products at layer 1 are 33 GFLOP, 0.07 ms at the TF32 peak. The earlier
+// L2 since each chunk is src-sorted), not the products: 3xTF32 at layer 1
+// is 25 GFLOP, 0.05 ms at the TF32 peak (33 GFLOP with the fourth
+// product, the design's own cost). The earlier
 // route (span_rows_kernel, csrc/span_rows.cuh) ran K * M scalar FMAs per
 // edge on the CUDA cores and stays callable as span_forward_rows.
 //
@@ -77,6 +81,10 @@ constexpr int kGatherBatch = 8;
 constexpr int kNGroup = 4;
 // fraction bits of the big parts' grid below a row's (column's) top
 constexpr int kFixBits = 10;
+// least exponent of a grid's top: a row (column) of smaller values takes
+// this grid, so 2^(kFixBits - e) stays finite and the values go wholly to
+// the small parts
+constexpr int kMinTopExp = -100;
 // widest output the kernels take (the wrapper checks)
 constexpr int kMaxM = 128;
 constexpr unsigned kFull = 0xffffffffu;
@@ -129,12 +137,13 @@ __device__ __forceinline__ float tf32_round(float v) {
 }
 
 // The big parts' grid of a row (column) whose largest |value| is top:
-// multiples of 2^(e - kFixBits), where top < 2^e.
+// multiples of 2^(e - kFixBits), where top < 2^e and e >= kMinTopExp.
 struct Grid {
   float unit, inv;
   __device__ __forceinline__ explicit Grid(float top) {
     int e;
     frexpf(top, &e);
+    e = max(e, kMinTopExp);
     unit = ldexpf(1.f, e - kFixBits);
     inv = ldexpf(1.f, kFixBits - e);
   }
@@ -501,9 +510,12 @@ cudaError_t launch_msg(const void* x, const void* w, const int* chunk_lo,
   const int per16 = 16 / (int)sizeof(T), per4 = 4 / (int)sizeof(T);
   const int unit = K % per16 == 0 && at % 16 == 0 ? 16
                    : K % per4 == 0 && at % 4 == 0 ? 4 : 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  // a host call each launch: only for the widths past the default 48 KiB
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
   kernel<<<n_chunks, kMsgThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), chunk_lo, chunk_hi,
       rel_chunk_ptr, rel_src, rel_norm, msg, K, M, n_slots, unit);

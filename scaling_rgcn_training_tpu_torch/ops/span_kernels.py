@@ -338,6 +338,27 @@ def span_forward(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def forward_cost(x: torch.Tensor, w: torch.Tensor,
+                 plan: SpanPlan) -> Tuple[int, int, str]:
+    """``(bytes, operations, unit)`` of ``span_forward``'s function on
+    these inputs, for its bound: bytes are ``x``, ``w``, the plan arrays
+    its kernels read (the relation-ordered edges, the chunks, the forward
+    CSR's row pointer and positions), each once, and the float32 ``out``
+    once. Operations: ``2 E d_in d_out`` on the tensor cores, three times
+    for float32 (3xTF32, ``unit`` ``"tf32"``), once for bfloat16. The
+    ``msg`` round trip and the kernel's fourth TF32 product (``a_small
+    b_small``) are the design's own cost, not the function's."""
+    d_out = w.shape[2]
+    n_bytes = sum(t.numel() * t.element_size() for t in (
+        x, w, plan.rel_src, plan.rel_norm, plan.chunk_lo, plan.chunk_hi,
+        plan.rel_chunk_ptr, plan.fwd_rowptr, plan.fwd_pos))
+    n_bytes += 4 * plan.num_nodes * d_out
+    ops = 2 * plan.fwd_pos.numel() * x.shape[1] * d_out
+    if x.dtype == torch.bfloat16:
+        return n_bytes, ops, "bfloat16"
+    return n_bytes, 3 * ops, "tf32"
+
+
 def span_forward_rows(x: torch.Tensor, w: torch.Tensor,
                       plan: SpanPlan) -> torch.Tensor:
     """``span_forward`` by the earlier route, ``span_rows_kernel``

@@ -131,6 +131,33 @@ def test_cuda_span_forward_without_edges():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tiny", ["row", "column"])
+def test_cuda_span_forward_tiny_values(tiny, dtype):
+    """A row of x (a column of W) scaled by 1e-37, below the least top of
+    #1's fixed-point grids: finite values that match the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(37)
+    n, e, slots = 500, 4000, 9
+    src, dst, rel, norm = _graph(rng, n, e, slots)
+    plan = sk.plan_span(src, dst, rel, norm, n, slots, device="cuda")
+    dt = getattr(torch, dtype)
+    x = torch.randn(n, 64, device="cuda")
+    w = torch.randn(slots, 64, 16, device="cuda") * 0.2
+    if tiny == "row":
+        x[int(src[0])] *= 1e-37
+    else:
+        w[:, :, 5] *= 1e-37
+    x, w = x.to(dt), w.to(dt)
+    got = sk.span_forward(x, w, plan)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    ref = sk.span_forward_plain(x, w, plan)
+    torch.testing.assert_close(got, ref, **_tol(dtype, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("h", [4, 8, 11, 16, 32, 64, 130])
 def test_cuda_segment_sum_matches_plain(h, dtype):
     """Empty rows, one long row and rows of any width."""
