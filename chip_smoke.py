@@ -15,15 +15,19 @@ Phases, in order; any failure exits non-zero:
    64-edge tile) and at the bench shape (N 200,000, E 4,000,000, 91
    relation slots, d 64 -> hidden 16 -> C 8); plus wide rows over 30
    relations (several relation passes of the row route); the forward (#1,
-   ``csrc/span_fwd_tc.cu`` on the tensor cores) also against
-   ``span_forward_tiled_plain`` (its dataflow) at the small shapes, and its
-   earlier row route ``span_forward_rows`` against the plain version
-   everywhere (at the small shapes with one row of x scaled by 1e-37);
-   two runs give the same bits; at the bench shape, L1 and L2 in float32
-   and bfloat16, the times of #1, of the row route and of the plain
-   versions, beside #1's bound (``span_kernels.forward_cost``), and in
-   float32 #1's signed error against float64 (at most ``MAX_BIAS``); then
-   the conv's autograd on the card against the same conv on the CPU;
+   ``csrc/span_fwd_tc.cu``) and the backward (#2, ``csrc/span_bwd_tc.cu``),
+   both on the tensor cores, also against their dataflows
+   (``span_forward_tiled_plain``, ``span_backward_tiled_plain``) at the
+   small shapes, and their earlier routes on the CUDA cores
+   (``span_forward_rows``, ``span_backward_rows``) against the plain
+   versions everywhere (at the small shapes with one row of x and one of
+   g scaled by 1e-37); two runs give the same bits; at the bench shape,
+   L1 and L2 in float32 and bfloat16, the times of #1 and #2, of their
+   earlier routes and of the plain versions, #2's dx and dW halves alone,
+   beside the bounds (``span_kernels.forward_cost``, ``backward_cost``),
+   and in float32 the signed errors against float64 of #1's out and #2's
+   dx and dW (each at most ``MAX_BIAS``); then the conv's autograd on the
+   card against the same conv on the CPU;
 4. the segment-sum, grouped-matmul and d_rhs kernels against their plain
    versions: edge cases (empty groups and rows, groups spanning tiles, row
    counts off the tiles, widths of every class the kernels dispatch on:
@@ -39,11 +43,11 @@ Phases, in order; any failure exits non-zero:
    fused conv (span kernels), then on the same graph built without the span
    plan with ``backend="pallas"`` (edge mode: kernels #3, #4, #5; its f32
    losses must match the fused run's); the fused f32 step is timed again
-   with #1's row route swapped in, in turns with the tensor-core forward
-   (the swap is this script's: no main path calls the row route); then
-   ``aggr="attention"`` for 5
-   epochs: finite losses, the kernels' launch counters advanced on every
-   step (and the row route of #1 on none), ms/step and peak memory;
+   with #1's and then #2's earlier route swapped in, in turns with the
+   tensor-core kernel (the swap is this script's: no main path calls the
+   earlier routes); then ``aggr="attention"`` for 5 epochs: finite losses,
+   the kernels' launch counters advanced on every step (and the earlier
+   routes of #1 and #2 on none), ms/step and peak memory;
 6. ``rgcn_conv`` in ``mode="auto"`` on a layer too wide for the span
    kernels (128 -> 64) at the bench N and E: it must take the edge mode
    and match the plain versions, forward and backward;
@@ -66,9 +70,10 @@ Phases, in order; any failure exits non-zero:
    phase 5's single-device run of the same dtype (bfloat16: 1e-3), the
    kernels' launch counters advanced on every step, ms/step and peak
    memory; the halo f32 step with the library exchange timed again with
-   #1's row route swapped in, in turns with the tensor-core forward, 10
-   steps each; and #1 and its row route per call on shard 0's local and
-   halo segments (host microseconds until a call returns, card milliseconds);
+   #1's and then #2's earlier route swapped in, in turns with the
+   tensor-core kernel, 10 steps each; and #1 and its row route per call on
+   shard 0's local and halo segments (host microseconds until a call
+   returns, card milliseconds);
 9. kernel #8 (the one-pass backward of the attribution microbench) against
    its plain versions, every variant (``base``, ``nodw``, ``nodx``,
    ``statrmw``): at phase 3's edge cases (63 -> 4 and 11, 11 -> 63; 128 ->
@@ -91,8 +96,8 @@ Tolerances: float32 within rtol 1e-4 and atol 1e-4 * max|ref| (summation
 order differs), bfloat16 inputs within 2e-2 * max|ref|.
 
 The second-to-last line is a JSON object with one entry per kernel (#1's
-with ``previous_ms``, the row route's time in the same run); the last line
-is ``{"ok": true, "device": {...}}``.
+and #2's with ``previous_ms``, their earlier routes' times in the same
+run); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -115,8 +120,8 @@ ATT_EPOCHS = 5
 HALO_EPOCHS = 5
 HALO_SHARDS = 4
 WARMUP = 3
-# signed error of #1's f32 sums against float64, relative (a sum cut
-# toward zero on every call gave -4e-8 and moved phase 5's losses)
+# signed error of #1's and #2's f32 sums against float64, relative (a sum
+# cut toward zero on every call gave -4e-8 and moved phase 5's losses)
 MAX_BIAS = 1e-8
 JAX_PKG = "scaling_rgcn_training_tpu/"
 DEV = "cuda"
@@ -209,13 +214,22 @@ def dtype_name(dtype) -> str:
     return str(dtype)[6:]
 
 
+def signed_error(got, ref64) -> float:
+    """Signed error of ``got`` against the float64 ``ref64``, relative to
+    the sum of |ref64|: a sum cut toward zero on every call shows here long
+    before it breaks the tolerance."""
+    return float(((got.double() - ref64) * ref64.sign()).sum()) / float(
+        ref64.abs().sum())
+
+
 def compare_span_kernels(sk, plan, d_in, d_out, dtype, rng, tag, timing=False,
                          tiled=False):
-    """span_forward / span_backward against their plain versions, and the
-    forward's row route ``span_forward_rows`` (with ``tiled``, the forward
-    also against ``span_forward_tiled_plain``, and row 0 of x scaled by
-    1e-37); with ``timing``, the forward's signed error against float64
-    (float32 inputs)."""
+    """span_forward / span_backward against their plain versions, and their
+    earlier routes ``span_forward_rows`` / ``span_backward_rows`` (with
+    ``tiled``, both also against their ``*_tiled_plain`` dataflows, and row
+    0 of x and of g scaled by 1e-37); with ``timing``, each half of the
+    backward alone and, for float32 inputs, the signed errors against
+    float64 of out, dx and dW."""
     import torch
 
     dev = plan.device
@@ -227,12 +241,14 @@ def compare_span_kernels(sk, plan, d_in, d_out, dtype, rng, tag, timing=False,
     g = torch.as_tensor(rng.standard_normal((plan.num_nodes, d_out)),
                         dtype=torch.float32).to(dev, dtype)
     if tiled:
-        x[0] *= 1e-37   # a row far below #1's fixed-point grids
+        x[0] *= 1e-37   # rows far below the kernels' fixed-point grids
+        g[0] *= 1e-37
     out = sk.span_forward(x, w, plan)
     rows = sk.span_forward_rows(x, w, plan)
     torch.cuda.synchronize()
     out_ref = sk.span_forward_plain(x, w, plan)
     dx, dw = sk.span_backward(g, x, w, plan)
+    bwd_rows = sk.span_backward_rows(g, x, w, plan)
     torch.cuda.synchronize()
     dx_ref, dw_ref = sk.span_backward_plain(g, x, w, plan)
     torch.cuda.synchronize()
@@ -242,10 +258,16 @@ def compare_span_kernels(sk, plan, d_in, d_out, dtype, rng, tag, timing=False,
                        check_close(f"{tag} dW", dw, dw_ref, bf16)),
     }
     check_close(f"{tag} out (row route)", rows, out_ref, bf16)
+    check_close(f"{tag} dx (row route)", bwd_rows[0], dx_ref, bf16)
+    check_close(f"{tag} dW (row route)", bwd_rows[1], dw_ref, bf16)
     if tiled:
         res["fwd_err"] = max(res["fwd_err"], check_close(
             f"{tag} out vs tiled plain", out,
             sk.span_forward_tiled_plain(x, w, plan), bf16))
+        tdx, tdw = sk.span_backward_tiled_plain(g, x, w, plan)
+        res["bwd_err"] = max(res["bwd_err"],
+                             check_close(f"{tag} dx vs tiled plain", dx, tdx, bf16),
+                             check_close(f"{tag} dW vs tiled plain", dw, tdw, bf16))
     # a second run must give the same bits (no atomics, fixed-order sums)
     dx2, dw2 = sk.span_backward(g, x, w, plan)
     out2 = sk.span_forward(x, w, plan)
@@ -263,40 +285,54 @@ def compare_span_kernels(sk, plan, d_in, d_out, dtype, rng, tag, timing=False,
         res["fwd"]["previous_ms"] = res["fwd"]["library_ms"]
         res["fwd"]["library_ms"] = None
         res["fwd"].update(bound(*sk.forward_cost(x, w, plan)))
-        if not bf16:
-            # signed error against float64: a sum cut toward zero on every
-            # call shows here long before it breaks the tolerance
-            ref64 = sk.span_forward_plain(x.double(), w.double(), plan)
-            sign, scale = ref64.sign(), float(ref64.abs().sum())
-            for key, got in (("bias", out), ("previous_bias", rows)):
-                res["fwd"][key] = float(
-                    ((got.double() - ref64) * sign).sum()) / scale
-            del ref64, sign
-            print(f"  {tag} signed error against float64: span_forward "
-                  f"{res['fwd']['bias']:.2e} (row route "
-                  f"{res['fwd']['previous_bias']:.2e}, limit {MAX_BIAS:.0e})",
-                  flush=True)
-            if abs(res["fwd"]["bias"]) > MAX_BIAS:
-                fail(f"{tag}: span_forward's sums are biased")
         # the row route's own bound (CUDA-core FMAs over the forward CSR)
         res["fwd"]["previous_bound_ms"] = bound(nbytes(
             x, w, plan.fwd_rowptr, plan.fwd_src, plan.fwd_rel, plan.fwd_norm,
             out), ops, dtype_name(dtype))["bound_ms"]
+        # order: plain, #2, earlier route, earlier route, #2, plain
         res["bwd"] = time_kernel(lambda: sk.span_backward(g, x, w, plan),
                                  lambda: sk.span_backward_plain(g, x, w, plan),
+                                 lambda: sk.span_backward_rows(g, x, w, plan),
                                  reps=20, plain_reps=20)
-        res["bwd"].update(bound(nbytes(
-            g, x, w, plan.bwd_rowptr, plan.bwd_dst, plan.bwd_rel, plan.bwd_norm,
-            plan.rel_src, plan.rel_dst, plan.rel_norm, plan.chunk_lo,
-            plan.chunk_hi, plan.rel_chunk_ptr, dx, dw), 2 * ops,
-            dtype_name(dtype)))
-        f = res["fwd"]
+        res["bwd"]["previous_ms"] = res["bwd"]["library_ms"]
+        res["bwd"]["library_ms"] = None
+        res["bwd"].update(bound(*sk.backward_cost(g, x, w, plan)))
+        for half in ("dx", "dw"):
+            call = lambda: sk.span_backward_half(g, x, w, plan, half)
+            call()
+            res["bwd"][f"{half}_ms"] = cuda_time_ms(call, 20)
+        if not bf16:
+            ref64 = sk.span_forward_plain(x.double(), w.double(), plan)
+            res["fwd"]["bias"] = signed_error(out, ref64)
+            res["fwd"]["previous_bias"] = signed_error(rows, ref64)
+            dx64, dw64 = sk.span_backward_plain(g.double(), x.double(),
+                                                w.double(), plan)
+            for key, got, ref in (("dx", dx, dx64), ("dw", dw, dw64),
+                                  ("previous_dx", bwd_rows[0], dx64),
+                                  ("previous_dw", bwd_rows[1], dw64)):
+                res["bwd"][f"{key}_bias"] = signed_error(got, ref)
+            del ref64, dx64, dw64
+            f, b = res["fwd"], res["bwd"]
+            print(f"  {tag} signed error against float64: span_forward "
+                  f"{f['bias']:.2e} (row route {f['previous_bias']:.2e}), "
+                  f"span_backward dx {b['dx_bias']:.2e} dW {b['dw_bias']:.2e} "
+                  f"(earlier route {b['previous_dx_bias']:.2e}, "
+                  f"{b['previous_dw_bias']:.2e}); limit {MAX_BIAS:.0e}",
+                  flush=True)
+            for name, value in (("span_forward", f["bias"]),
+                                ("span_backward dx", b["dx_bias"]),
+                                ("span_backward dW", b["dw_bias"])):
+                if abs(value) > MAX_BIAS:
+                    fail(f"{tag}: {name}'s sums are biased ({value:.2e})")
+        f, b = res["fwd"], res["bwd"]
         print(f"  {tag} times: span_forward {f['ms']:.4f} ms (row route "
               f"{f['previous_ms']:.4f} ms, plain {f['plain_ms']:.4f} ms; "
               f"bound {f['bound_ms']:.4f} ms {f['bound_by']}, the row "
               f"route's {f['previous_bound_ms']:.4f} ms), span_backward "
-              f"{res['bwd']['ms']:.4f} ms (plain {res['bwd']['plain_ms']:.4f} "
-              "ms)", flush=True)
+              f"{b['ms']:.4f} ms (dx half {b['dx_ms']:.4f}, dW half "
+              f"{b['dw_ms']:.4f}; earlier route {b['previous_ms']:.4f} ms, "
+              f"plain {b['plain_ms']:.4f} ms; bound {b['bound_ms']:.4f} ms "
+              f"{b['bound_by']})", flush=True)
     return res
 
 
@@ -451,34 +487,45 @@ def run_fit(graph, compute_dtype, epochs, launches, head="summation",
 
 def require_per_step(tag, steps, least):
     """Every step launched each kernel of ``least`` at least that often,
-    and the row route of #1 (``span_forward_rows``) never."""
+    and the earlier routes of #1 and #2 (``span_forward_rows``,
+    ``span_backward_rows``) and #2's halves alone never."""
     for i, st in enumerate(steps):
         for k, n in least.items():
             if st[k] < n:
                 fail(f"{tag}: step {i} launched {k} {st[k]} times, "
                      f"expected at least {n}")
-        if st["span_forward_rows"]:
-            fail(f"{tag}: step {i} ran #1's row route")
+        for k in ("span_forward_rows", "span_backward_rows",
+                  "span_backward_half"):
+            if st[k]:
+                fail(f"{tag}: step {i} launched {k}")
 
 
-def forward_swap(graph, launches, **fit_kw) -> dict:
-    """Median ms/step of float32 ``Trainer.fit`` runs on ``graph`` with #1
-    on the tensor cores and with its row route ``span_forward_rows``
-    swapped into ``rgcn_conv``, in the order tensor cores, rows, rows,
-    tensor cores (the swap is this script's: no main path calls the row
-    route)."""
+def route_swap(graph, launches, kernel, **fit_kw) -> dict:
+    """Median ms/step of float32 ``Trainer.fit`` runs on ``graph`` with
+    ``kernel`` (``span_forward``, #1, or ``span_backward``, #2) on the
+    tensor cores and with its earlier route (``span_forward_rows``,
+    ``span_backward_rows``) swapped in wherever the conv binds it
+    (``rgcn_conv``; for #2 also ``fused_halo``), in the order tensor cores,
+    rows, rows, tensor cores (the swap is this script's: no main path calls
+    the earlier routes)."""
     from scaling_rgcn_training_tpu_torch.ops import rgcn_conv
     from scaling_rgcn_training_tpu_torch.ops import span_kernels as sk
+    from scaling_rgcn_training_tpu_torch.parallel import fused_halo
 
+    modules = (rgcn_conv,) if kernel == "span_forward" else (rgcn_conv,
+                                                             fused_halo)
+    routes = {"tensor cores": getattr(sk, kernel),
+              "rows": getattr(sk, f"{kernel}_rows")}
     swap = {"tensor cores": [], "rows": []}
     for name in ("tensor cores", "rows", "rows", "tensor cores"):
-        rgcn_conv.span_forward = (sk.span_forward_rows if name == "rows"
-                                  else sk.span_forward)
+        for mod in modules:
+            setattr(mod, kernel, routes[name])
         try:
             swap[name].append(run_fit(graph, None, EPOCHS, launches,
                                       **fit_kw)["step_ms"])
         finally:
-            rgcn_conv.span_forward = sk.span_forward
+            for mod in modules:
+                setattr(mod, kernel, routes["tensor cores"])
     return swap
 
 
@@ -740,13 +787,15 @@ def halo_phase(bench_src, bench_dst, bench_typ, splits, fits, launches,
     if counts["halo library"]["halo_exchange"] or \
             counts["halo library"]["fused_halo_aggregate"]:
         fail(f"library-exchange run launched {counts['halo library']}")
-    # #1 against its row route on the halo step (library exchange, f32),
-    # and per call at the segments' sizes (shard 0)
-    halo_swap = forward_swap(halo_graph, launches, mesh=mesh,
-                             partition="halo")
-    print(f"  halo library f32 ms/step, #1 on the tensor cores "
-          f"{halo_swap['tensor cores']} vs its row route {halo_swap['rows']} "
-          "(order: tensor cores, rows, rows, tensor cores)", flush=True)
+    # #1 and #2 against their earlier routes on the halo step (library
+    # exchange, f32), and #1 per call at the segments' sizes (shard 0)
+    halo_swap = {}
+    for kernel in ("span_forward", "span_backward"):
+        halo_swap[kernel] = s = route_swap(halo_graph, launches, kernel,
+                                           mesh=mesh, partition="halo")
+        print(f"  halo library f32 ms/step, {kernel} on the tensor cores "
+              f"{s['tensor cores']} vs its earlier route {s['rows']} "
+              "(order: tensor cores, rows, rows, tensor cores)", flush=True)
     sh = he.shards[0]
     per_call = host_cost((("shard 0 local", sh.local.span),
                           ("shard 0 halo", sh.halo.span)))
@@ -1058,11 +1107,14 @@ def main() -> None:
         require_per_step(f"fused {cd}", fits[("fused", cd)]["steps"],
                          {"span_forward": 4, "span_backward": 2})
     fused_launches = dict(launches)
-    # the end-to-end effect of #1's redesign
-    swap = forward_swap(DeviceGraph(edges=edges, **splits), launches)
-    print(f"  fused f32 ms/step, #1 on the tensor cores "
-          f"{swap['tensor cores']} vs its row route {swap['rows']} (order: "
-          "tensor cores, rows, rows, tensor cores)", flush=True)
+    # the end-to-end effect of #1's and #2's redesigns
+    swap = {}
+    for kernel in ("span_forward", "span_backward"):
+        swap[kernel] = s = route_swap(DeviceGraph(edges=edges, **splits),
+                                      launches, kernel)
+        print(f"  fused f32 ms/step, {kernel} on the tensor cores "
+              f"{s['tensor cores']} vs its earlier route {s['rows']} (order: "
+              "tensor cores, rows, rows, tensor cores)", flush=True)
 
     t0 = time.perf_counter()
     plain_edges = build_rel_edges(src, dst, typ, bs.N, bs.SLOTS, device=DEV,
@@ -1125,7 +1177,7 @@ def main() -> None:
     b = bench[("layer1", "float32")]
     for kname, key, src_file, replaces in (
             ("span_forward", "fwd", "span_fwd_tc.cu", "span_kernels.py:425"),
-            ("span_backward", "bwd", "span_kernels.cu", "span_kernels.py:542")):
+            ("span_backward", "bwd", "span_bwd_tc.cu", "span_kernels.py:542")):
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"{PKG}/csrc/{src_file}",
@@ -1134,8 +1186,7 @@ def main() -> None:
             "max_abs_err": max(v[f"{key}_err"] for v in bench.values()),
             "ms": b[key]["ms"], "plain_ms": b[key]["plain_ms"],
             "bound_ms": b[key]["bound_ms"], "bound_by": b[key]["bound_by"],
-            "library_ms": None,
-            **({"previous_ms": b[key]["previous_ms"]} if key == "fwd" else {})})
+            "library_ms": None, "previous_ms": b[key]["previous_ms"]})
     for kname, src_file, replaces in (
             ("segment_sum", "segment_kernels.cu", "segment_kernels.py:87"),
             ("grouped_matmul", "grouped_kernels.cu", "pallas_kernels.py:56"),
@@ -1181,8 +1232,8 @@ def main() -> None:
             "step_ms": f["step_ms"], "peak_mib": f["peak_mib"],
             "loss_first": f["losses"][0], "loss_last": f["losses"][-1],
             "launches_step0": f["steps"][0]} for (mode, cd), f in fits.items()},
-        "fused_f32_step_ms_by_forward": swap,
-        "halo_f32_step_ms_by_forward": halo["swap"],
+        "fused_f32_step_ms_by_route": swap,
+        "halo_f32_step_ms_by_route": halo["swap"],
         "halo_span_forward_per_call": halo["per_call"],
         "launches": {"fused": fused_launches, "edge": edge_launches,
                      "attention": att_launches, **halo["counts"],

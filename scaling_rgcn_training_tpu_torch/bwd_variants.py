@@ -19,9 +19,12 @@ layer 2 16 -> 8. Rows, each the TPU variant of the same name:
   window that stays in L2 (the cost of the random ``g_out`` gather; the
   TPU variant dropped the one-hot matrix that is its gather);
 - ``fwdrev``: the ``span_rows`` kernel (``span_forward_rows``) over the
-  backward plan with ``W^T`` (the dx half of #2 alone);
-- ``shipped``: ``span_backward`` (#2); ``fwdnorm``: ``span_forward`` (#1,
-  its tensor-core messages and their CSR sum) on the forward plan;
+  backward plan with ``W^T`` (the dx half of #2's earlier route alone);
+- ``shipped``: ``span_backward`` (#2: dx messages and dW partials on the
+  tensor cores per relation chunk, then their sums); ``rows``:
+  ``span_backward_rows`` (#2's earlier route on the CUDA cores);
+  ``fwdnorm``: ``span_forward`` (#1, its tensor-core messages and their CSR
+  sum) on the forward plan;
 - ``floor``: the harness alone, one empty launch per call.
 
 Each row but ``floor`` is first held against its plain PyTorch version on
@@ -30,9 +33,10 @@ within 2e-2 * max|ref|; a mismatch exits non-zero), then timed with CUDA
 events over ``--inner`` calls, best of 3. Printed per row: ms, the bound
 (the larger of the bytes each input read once and each output written once
 over 3.35 TB/s and the operations over the peak of the units that run
-them, 67 TFLOP/s float32 on the CUDA cores, 495 TFLOP/s TF32 (``fwdnorm``
-in float32: ``span_kernels.forward_cost``, three TF32 products per
-multiply-add) and 989 bfloat16 on the tensor cores: an H100 SXM) and the
+them, 67 TFLOP/s float32 on the CUDA cores, 495 TFLOP/s TF32 (``shipped``
+and ``fwdnorm`` in float32: ``span_kernels.backward_cost`` and
+``forward_cost``, three TF32 products per multiply-add) and 989 bfloat16
+on the tensor cores: an H100 SXM) and the
 largest difference
 from the plain version; a JSON line last. ``--device cpu`` runs the plain
 versions and measures no time.
@@ -54,7 +58,7 @@ from typing import Dict, List, Optional
 import torch
 
 ROWS = ("base", "nodw", "nodx", "statrmw", "noonehot", "fwdrev", "shipped",
-        "fwdnorm", "floor")
+        "rows", "fwdnorm", "floor")
 # H100 SXM: HBM bytes/s; peak operations/s of the units (CUDA-core f32,
 # dense TF32 and bf16 tensor cores)
 HBM_RATE = 3.35e12
@@ -143,7 +147,9 @@ def row_specs(plan, g, x, w, names) -> Dict[str, tuple]:
                        gb + wb + csr + dxb, half, unit)
     specs["shipped"] = (lambda: sk.span_backward(g, x, w, plan),
                         lambda: sk.span_backward_plain(g, x, w, plan),
-                        *specs["base"][2:])
+                        *sk.backward_cost(g, x, w, plan))
+    specs["rows"] = (lambda: sk.span_backward_rows(g, x, w, plan),
+                     specs["shipped"][1], *specs["base"][2:])
     specs["fwdnorm"] = (lambda: (sk.span_forward(x, w, plan),),
                         lambda: (sk.span_forward_plain(x, w, plan),),
                         *sk.forward_cost(x, w, plan))

@@ -1,6 +1,9 @@
-// Span kernels of the R-GCN conv for Hopper (sm_90a): gather, per-edge
-// relational matmul and segment sum in one pass, with a plain C interface
-// (bound from Python with ctypes, see ops/span_kernels.py).
+// Span kernels of the R-GCN conv for Hopper (sm_90a) on the CUDA cores:
+// gather, per-edge relational matmul and segment sum in one pass, with a
+// plain C interface (bound from Python with ctypes, see
+// ops/span_kernels.py). They are the earlier routes of kernels #1 and #2,
+// which now run on the tensor cores (span_fwd_tc.cu, span_bwd_tc.cu); no
+// main path calls them (span_forward_rows, span_backward_rows).
 //
 // span_rows replaces both the forward kernel and the dx half of the
 // backward kernel of the JAX package:
@@ -16,17 +19,18 @@
 //     dW[r] = sum_{e: rel_e = r} x[src_e]^T (norm_e * g[dst_e])
 // over relation-sorted edges cut into chunks of one relation each. Each
 // block writes the partial sum of its chunk; a second pass adds the
-// partials of each relation in chunk order, so runs reproduce bit for bit
-// (the TPU kernel summed dW across its sequential grid; CUDA blocks run in
-// no order and a shared accumulator would race).
+// partials of each relation in chunk order (span_dw_reduce_kernel, shared
+// with span_bwd_tc.cu in span_tc.cuh), so runs reproduce bit for bit (the
+// TPU kernel summed dW across its sequential grid; CUDA blocks run in no
+// order and a shared accumulator would race).
 //
 // span_rows_kernel (csrc/span_rows.cuh, shared with halo_kernels.cu's
 // kernel #7) says what bounds the row kernel on an H100 and how it is
 // built: W staged in shared memory in relation passes, one warp per output
 // row, write-once, no atomics.
-// A simple design: tensor cores are later work.
 
 #include "span_rows.cuh"
+#include "span_tc.cuh"
 
 namespace {
 
@@ -88,20 +92,6 @@ span_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
-// dW[r] = sum of relation r's chunk partials, in chunk order; 0 when r
-// has no edges.
-__global__ void span_dw_reduce_kernel(const float* __restrict__ partial,
-                                      const int* __restrict__ rel_chunk_ptr,
-                                      float* __restrict__ dw, int P) {
-  const int r = blockIdx.y;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  float s = 0.f;
-  for (int c = rel_chunk_ptr[r]; c < rel_chunk_ptr[r + 1]; ++c)
-    s += partial[(size_t)c * P + p];
-  dw[(size_t)r * P + p] = s;
-}
-
 template <typename T>
 void launch_dw(const void* x, const void* g, const int* chunk_lo,
                const int* chunk_hi, const int* rel_chunk_ptr, const int* e_src,
@@ -115,8 +105,7 @@ void launch_dw(const void* x, const void* g, const int* chunk_lo,
         static_cast<const T*>(x), static_cast<const T*>(g), chunk_lo, chunk_hi,
         e_src, e_dst, e_norm, partial, K, M);
   }
-  const dim3 grid((P + 255) / 256, slots);
-  span_dw_reduce_kernel<<<grid, 256, 0, stream>>>(partial, rel_chunk_ptr, dw, P);
+  launch_dw_reduce(partial, rel_chunk_ptr, dw, slots, P, stream);
 }
 
 }  // namespace

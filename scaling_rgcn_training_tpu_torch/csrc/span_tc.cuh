@@ -1,0 +1,476 @@
+// Device helpers of the span kernels on Hopper's tensor cores (sm_90a),
+// shared by span_fwd_tc.cu (kernel #1) and span_bwd_tc.cu (kernel #2):
+// the mma tile shapes, the split of float32 operands into a big part on a
+// fixed-point grid and a TF32 small part (span_fwd_tc.cu says why), the
+// mma.sync and cp.async wrappers in inline PTX, the warp's row gather, the
+// product of a warp's 16-row tile with a staged B operand, the fixed-order
+// CSR sum of per-edge messages and the chunk-ordered reduce of dW partials.
+//
+// Fragments (PTX ISA, mma.m16n8k8 / m16n8k16): lane = 4 g + t holds rows g
+// and g + 8 of A, column g of B and of the sums, columns 2 t, 2 t + 1.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <type_traits>
+
+namespace {
+
+// warps of a chunk kernel's block
+constexpr int kMsgWarps = 4;
+constexpr int kMsgThreads = kMsgWarps * 32;
+constexpr int kSumThreads = 256;
+// elements a lane loads before it stores them to shared memory
+// (the gather without cp.async: bfloat16 rows of odd width)
+constexpr int kGatherBatch = 8;
+// 8-column tiles of the output a warp keeps in registers at once
+constexpr int kNGroup = 4;
+// fraction bits of the big parts' grid below a row's (column's) top
+constexpr int kFixBits = 10;
+// least exponent of a grid's top: a row (column) of smaller values takes
+// this grid, so 2^(kFixBits - e) stays finite and the values go wholly to
+// the small parts
+constexpr int kMinTopExp = -100;
+// widest row the kernels take (the wrappers check)
+constexpr int kMaxM = 128;
+constexpr unsigned kFull = 0xffffffffu;
+
+// Depth of one mma (kK) and the row stride of the shared tiles, in
+// elements: stride % kPeriod == kRes keeps a fragment load's 32 lanes on
+// 32 banks.
+template <typename T> struct TileShape;
+template <> struct TileShape<float> {
+  static constexpr int kK = 8, kRes = 4, kPeriod = 32;
+};
+template <> struct TileShape<__nv_bfloat16> {
+  static constexpr int kK = 16, kRes = 8, kPeriod = 64;
+};
+
+// n rounded up to a multiple of m
+__host__ __device__ __forceinline__ int round_up(int n, int m) {
+  return (n + m - 1) / m * m;
+}
+
+// the least stride >= n with stride % period == res
+__host__ __device__ __forceinline__ int padded_stride(int n, int res,
+                                                      int period) {
+  return n + ((res - n % period) + period) % period;
+}
+
+// bytes rounded up to 16
+__host__ __device__ __forceinline__ size_t align16(size_t bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
+// Shared memory of one block of span_msg_kernel: W[r]^T as [Np, ld] (its
+// big and small parts for float32), then per warp two [16, ld] x tiles;
+// both are read as fragments of Kp columns, so they share the row stride
+// ld.
+template <typename T>
+struct TileDims {
+  static constexpr bool kSplit = std::is_same<T, float>::value;
+  int Kp, Np, ld;
+  size_t w_elems, w_bytes, x_bytes;
+  __host__ __device__ TileDims(int K, int M) {
+    using S = TileShape<T>;
+    Kp = round_up(K, S::kK);
+    Np = round_up(M, 8);
+    ld = padded_stride(Kp, S::kRes, S::kPeriod);
+    w_elems = (size_t)Np * ld;
+    w_bytes = align16(w_elems * sizeof(T) * (kSplit ? 2 : 1));
+    x_bytes = align16((size_t)16 * ld * sizeof(T));
+  }
+  __host__ __device__ size_t smem() const {
+    return w_bytes + kMsgWarps * 2 * x_bytes;
+  }
+};
+
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
+
+__device__ __forceinline__ float as_float(float v) { return v; }
+__device__ __forceinline__ float as_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// v in T, round to nearest even
+template <typename T> __device__ __forceinline__ T from_float(float v);
+template <> __device__ __forceinline__ float from_float<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// v rounded to TF32 (10 mantissa bits), round to nearest even; the low 13
+// bits are zero, so the tensor cores read it exactly.
+__device__ __forceinline__ float tf32_round(float v) {
+  unsigned u = __float_as_uint(v);
+  if ((u & 0x7f800000u) != 0x7f800000u) u += 0xfffu + ((u >> 13) & 1u);
+  return __uint_as_float(u & 0xffffe000u);
+}
+
+// The big parts' grid of a row (column) whose largest |value| is top:
+// multiples of 2^(e - kFixBits), where top < 2^e and e >= kMinTopExp.
+// For finite top >= 0, e is frexpf's exponent (top = f 2^e, f in [0.5,
+// 1)) read from the bits (0 and subnormal tops take kMinTopExp), and the
+// powers of two are built from their bits: the same grid as frexpf and
+// ldexpf give, in a few integer operations.
+struct Grid {
+  float unit, inv;
+  __device__ __forceinline__ explicit Grid(float top) {
+    const int e = max((int)((__float_as_uint(top) >> 23) & 0xffu) - 126,
+                      kMinTopExp);
+    unit = __int_as_float((e - kFixBits + 127) << 23);
+    inv = __int_as_float((kFixBits - e + 127) << 23);
+  }
+  __device__ __forceinline__ float big(float v) const {
+    return rintf(v * inv) * unit;
+  }
+};
+
+// The largest of v over the four lanes of a fragment row (lanes 4 g .. 4 g
+// + 3).
+__device__ __forceinline__ float quad_max(float v) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1)
+    v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
+
+// d = a b (fresh: the accumulator input is 0), m16n8k8 TF32 -> f32.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+// d += a b, m16n8k8 TF32 -> f32.
+__device__ __forceinline__ void mma_tf32_acc(float (&d)[4],
+                                             const unsigned (&a)[4],
+                                             unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a b (fresh), m16n8k16 bfloat16 -> f32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+__device__ __forceinline__ unsigned bits(float v) { return __float_as_uint(v); }
+
+// two consecutive bfloat16 (4-byte aligned) as one register
+__device__ __forceinline__ unsigned pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// two bfloat16 as one register, lo in the low half (the lower index of a
+// fragment's pair)
+__device__ __forceinline__ unsigned pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (unsigned)__bfloat16_as_ushort(lo)
+         | ((unsigned)__bfloat16_as_ushort(hi) << 16);
+}
+
+// cp.async of `bytes` (4 or 16) from global to shared memory; src_bytes 0
+// writes zeros.
+__device__ __forceinline__ void cp_async4(void* to, const void* from,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(to)),
+               "l"(from), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* to, const void* from,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(to)),
+               "l"(from), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The widest cp.async (16 or 4 bytes) that divides a row of K elements of
+// T and the rows' alignment, or 0: plain loads (bfloat16 rows of odd
+// width).
+template <typename T>
+int copy_unit(const void* rows, int K) {
+  const size_t at = reinterpret_cast<size_t>(rows);
+  const int per16 = 16 / (int)sizeof(T), per4 = 4 / (int)sizeof(T);
+  return K % per16 == 0 && at % 16 == 0 ? 16
+         : K % per4 == 0 && at % 4 == 0 ? 4 : 0;
+}
+
+// The warp's 16 rows of x into xs [16, ld], zero-padded to Kp columns
+// (lane r < 16 holds row r's source row src, -1 for none; Kp is a multiple
+// of the mma depth). unit: the bytes of one cp.async (copy_unit), or 0:
+// plain loads and stores, kGatherBatch loads in flight per lane. Copy
+// (element) c = lane + 32 i is row c / kc, unit c % kc of it; a lane walks
+// its copies by (32 / kc, 32 % kc) steps.
+template <typename T>
+__device__ __forceinline__ void gather_rows(T* xs, const T* __restrict__ x,
+                                            int src, int K, int Kp, int ld,
+                                            int unit, int lane) {
+  const int v = unit > 0 ? unit / (int)sizeof(T) : 1;   // elements a copy
+  const int kc = Kp / v;
+  const int n_cp = 16 * kc;   // a multiple of 32
+  const int step_rows = 32 / kc, step_cols = 32 % kc;
+  int rr = lane / kc, cu = lane % kc;
+  if (unit > 0) {
+    for (int c0 = 0; c0 < n_cp; c0 += 32) {
+      const int s = __shfl_sync(kFull, src, rr);
+      const int k = cu * v;
+      const bool valid = s >= 0 && k < K;
+      const T* from = x + (valid ? (size_t)s * K + k : 0);
+      T* to = xs + rr * ld + k;
+      if (unit == 16) cp_async16(to, from, valid ? 16 : 0);
+      else cp_async4(to, from, valid ? 4 : 0);
+      rr += step_rows;
+      cu += step_cols;
+      if (cu >= kc) {
+        cu -= kc;
+        ++rr;
+      }
+    }
+    return;
+  }
+  for (int c0 = 0; c0 < n_cp; c0 += 32 * kGatherBatch) {
+    T val[kGatherBatch];
+    int at[kGatherBatch];
+#pragma unroll
+    for (int b = 0; b < kGatherBatch; ++b) {
+      const bool in = c0 + 32 * b < n_cp;   // the same on every lane
+      const int s = __shfl_sync(kFull, src, in ? rr : 0);
+      at[b] = in ? rr * ld + cu : -1;
+      val[b] = in && s >= 0 && cu < K ? x[(size_t)s * K + cu] : zero<T>();
+      rr += step_rows;
+      cu += step_cols;
+      if (cu >= kc) {
+        cu -= kc;
+        ++rr;
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kGatherBatch; ++b)
+      if (at[b] >= 0) xs[at[b]] = val[b];
+  }
+}
+
+// The warp's 16-row tile times a staged B operand:
+//   out[(row0 + i) * N + n] = scale_i * sum_k A[i, k] B[k, n]
+// for rows i < n_rows and columns n < N, with A the rows of `as` (stride
+// lda, Kp columns, zero-padded to Kp) and B^T staged n-major as b_big
+// [Np, ldb] (and b_small for float32: the parts on each column's grid).
+// scale_g, scale_g8: the scales of rows g and g + 8. float32: each row's
+// grid over its Kp values, four products a multiply-add (span_fwd_tc.cu);
+// bfloat16: one exact product.
+template <typename T>
+__device__ __forceinline__ void tile_times_staged(
+    const T* as, int lda, int Kp, const T* b_big, const T* b_small, int ldb,
+    int Np, int N, float* __restrict__ out, size_t row0, int n_rows,
+    float scale_g, float scale_g8, int lane) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  const int g = lane >> 2, t = lane & 3;
+  const T* row_g = as + g * lda;
+  const T* row_g8 = as + (g + 8) * lda;
+
+  // the grids of rows g and g + 8: their tops over the four lanes of g
+  float top_g = 0.f, top_g8 = 0.f;
+  if constexpr (kF32) {
+    for (int k0 = 0; k0 < Kp; k0 += 8) {
+      top_g = fmaxf(top_g, fmaxf(fabsf(row_g[k0 + t]), fabsf(row_g[k0 + t + 4])));
+      top_g8 = fmaxf(top_g8, fmaxf(fabsf(row_g8[k0 + t]), fabsf(row_g8[k0 + t + 4])));
+    }
+    top_g = quad_max(top_g);
+    top_g8 = quad_max(top_g8);
+  }
+  const Grid grid_g(top_g), grid_g8(top_g8);
+
+  for (int n0 = 0; n0 < Np; n0 += 8 * kNGroup) {
+    float acc[kNGroup][4] = {}, small[kNGroup][4] = {};
+    for (int k0 = 0; k0 < Kp; k0 += TileShape<T>::kK) {
+      unsigned a_big[4], a_small[4];
+      if constexpr (kF32) {
+        const float a[4] = {row_g[k0 + t], row_g8[k0 + t], row_g[k0 + t + 4],
+                            row_g8[k0 + t + 4]};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float b = (i & 1 ? grid_g8 : grid_g).big(a[i]);
+          a_big[i] = bits(b);
+          a_small[i] = bits(tf32_round(a[i] - b));
+        }
+      } else {
+        a_big[0] = pair(row_g + k0 + 2 * t);
+        a_big[1] = pair(row_g8 + k0 + 2 * t);
+        a_big[2] = pair(row_g + k0 + 2 * t + 8);
+        a_big[3] = pair(row_g8 + k0 + 2 * t + 8);
+      }
+#pragma unroll
+      for (int j = 0; j < kNGroup; ++j) {
+        if (n0 + 8 * j >= Np) break;
+        const size_t wb = (size_t)(n0 + 8 * j + g) * ldb + k0;
+        float part[4];
+        if constexpr (kF32) {
+          mma_tf32(part, a_big, bits(b_big[wb + t]), bits(b_big[wb + t + 4]));
+          float cross[4];
+          mma_tf32(cross, a_small, bits(b_big[wb + t]), bits(b_big[wb + t + 4]));
+          mma_tf32_acc(cross, a_big, bits(b_small[wb + t]),
+                       bits(b_small[wb + t + 4]));
+          mma_tf32_acc(cross, a_small, bits(b_small[wb + t]),
+                       bits(b_small[wb + t + 4]));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) small[j][i] += cross[i];
+        } else {
+          mma_bf16(part, a_big, pair(b_big + wb + 2 * t),
+                   pair(b_big + wb + 2 * t + 8));
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] += part[i];
+      }
+    }
+    // rows g, g + 8 and columns 2 t, 2 t + 1 of each 8-column tile
+#pragma unroll
+    for (int j = 0; j < kNGroup; ++j) {
+      const int col = n0 + 8 * j + 2 * t;
+      if (n0 + 8 * j >= Np) break;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = i < 2 ? g : g + 8;
+        if (row < n_rows && col + (i & 1) < N)
+          out[(row0 + row) * N + col + (i & 1)] =
+              (acc[j][i] + small[j][i]) * (i < 2 ? scale_g : scale_g8);
+      }
+    }
+  }
+}
+
+// The relation r of chunk c: rel_chunk_ptr[r] <= c < rel_chunk_ptr[r + 1].
+__device__ __forceinline__ int chunk_relation(const int* __restrict__ rel_chunk_ptr,
+                                              int c, int n_slots) {
+  int r = 0, r_end = n_slots;
+  while (r_end - r > 1) {
+    const int mid = (r + r_end) >> 1;
+    if (rel_chunk_ptr[mid] <= c) r = mid; else r_end = mid;
+  }
+  return r;
+}
+
+// G lanes own one output row (32 / G rows per warp), OC columns per lane:
+// column o = c * G + (lane % G). Each lane sums its columns over the row's
+// edges in CSR order: out[n] = sum_{j = rowptr[n]}^{rowptr[n+1]-1}
+// msg[pos[j]]; rows with no edges are written as 0.
+template <int G, int OC>
+__global__ void __launch_bounds__(kSumThreads)
+span_msg_sum_kernel(const float* __restrict__ msg,
+                    const int* __restrict__ rowptr, const int* __restrict__ pos,
+                    float* __restrict__ out, int n_rows, int M) {
+  const int lane = threadIdx.x & 31;
+  const int row = ((blockIdx.x * blockDim.x + threadIdx.x) >> 5) * (32 / G)
+                  + lane / G;
+  if (row >= n_rows) return;
+  const int lg = lane % G;
+  float acc[OC];
+#pragma unroll
+  for (int c = 0; c < OC; ++c) acc[c] = 0.f;
+  const int hi = rowptr[row + 1];
+  int j = rowptr[row];
+  // four edges' loads in flight, added in order
+  for (; j + 4 <= hi; j += 4) {
+    const float* m0 = msg + (size_t)pos[j] * M;
+    const float* m1 = msg + (size_t)pos[j + 1] * M;
+    const float* m2 = msg + (size_t)pos[j + 2] * M;
+    const float* m3 = msg + (size_t)pos[j + 3] * M;
+#pragma unroll
+    for (int c = 0; c < OC; ++c) {
+      const int o = c * G + lg;
+      if (o < M) {
+        const float v0 = m0[o], v1 = m1[o], v2 = m2[o], v3 = m3[o];
+        acc[c] = (((acc[c] + v0) + v1) + v2) + v3;
+      }
+    }
+  }
+  for (; j < hi; ++j) {
+    const float* mj = msg + (size_t)pos[j] * M;
+#pragma unroll
+    for (int c = 0; c < OC; ++c) {
+      const int o = c * G + lg;
+      if (o < M) acc[c] += mj[o];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < OC; ++c) {
+    const int o = c * G + lg;
+    if (o < M) out[(size_t)row * M + o] = acc[c];
+  }
+}
+
+template <int G, int OC>
+cudaError_t launch_sum(const float* msg, const int* rowptr, const int* pos,
+                       float* out, int n_rows, int M, cudaStream_t stream) {
+  const long long warps = (n_rows + 32 / G - 1) / (32 / G);
+  const int blocks = (int)((warps * 32 + kSumThreads - 1) / kSumThreads);
+  span_msg_sum_kernel<G, OC><<<blocks, kSumThreads, 0, stream>>>(
+      msg, rowptr, pos, out, n_rows, M);
+  return cudaGetLastError();
+}
+
+// The (G, OC) specialisation for an output width M <= 128.
+cudaError_t dispatch_sum(const float* msg, const int* rowptr, const int* pos,
+                         float* out, int n_rows, int M, cudaStream_t s) {
+  if (M <= 4) return launch_sum<4, 1>(msg, rowptr, pos, out, n_rows, M, s);
+  if (M <= 8) return launch_sum<8, 1>(msg, rowptr, pos, out, n_rows, M, s);
+  if (M <= 16) return launch_sum<16, 1>(msg, rowptr, pos, out, n_rows, M, s);
+  if (M <= 32) return launch_sum<32, 1>(msg, rowptr, pos, out, n_rows, M, s);
+  if (M <= 64) return launch_sum<32, 2>(msg, rowptr, pos, out, n_rows, M, s);
+  return launch_sum<32, 4>(msg, rowptr, pos, out, n_rows, M, s);
+}
+
+// dW[r] = sum of relation r's chunk partials [K, M] (P = K M values), in
+// chunk order; 0 when r has no edges.
+__global__ void span_dw_reduce_kernel(const float* __restrict__ partial,
+                                      const int* __restrict__ rel_chunk_ptr,
+                                      float* __restrict__ dw, int P) {
+  const int r = blockIdx.y;
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  float s = 0.f;
+  for (int c = rel_chunk_ptr[r]; c < rel_chunk_ptr[r + 1]; ++c)
+    s += partial[(size_t)c * P + p];
+  dw[(size_t)r * P + p] = s;
+}
+
+cudaError_t launch_dw_reduce(const float* partial, const int* rel_chunk_ptr,
+                             float* dw, int slots, int P, cudaStream_t stream) {
+  const dim3 grid((P + 255) / 256, slots);
+  span_dw_reduce_kernel<<<grid, 256, 0, stream>>>(partial, rel_chunk_ptr, dw, P);
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -14,8 +14,10 @@ both float32, from float32 or bfloat16 ``g_out``/``x``/``w``. Variants
 (:data:`VARIANTS`): ``base`` (both), ``nodw`` (dx only: ``dw`` is None),
 ``nodx`` (dW only: ``dx`` is None) and ``statrmw`` (every edge's dW added
 into the first relation slot of its relation pass: wrong math, kept for
-its time). The shipped backward (#2, ``span_kernels.span_backward``) reads
-``g_out[dst]`` twice, once for dx and once for dW; #8 reads it once.
+its time). #8 reads ``g_out[dst]`` once, over the src-sorted CSR; so
+does the shipped backward (#2, ``span_kernels.span_backward``), over the
+relation chunks on the tensor cores, while its earlier route
+(``span_backward_rows``) read it twice, once for dx and once for dW.
 
 #8's dW is summed with shared-memory atomics, so two runs may differ in
 the last bits; it is held to a tolerance. A wrapper runs the plain version
@@ -68,23 +70,15 @@ def fold_dst(plan: sk.SpanPlan, window: int = 4096) -> sk.SpanPlan:
 
 def reverse_plan(plan: sk.SpanPlan) -> sk.SpanPlan:
     """The plan with ``src`` and ``dst`` swapped, so that a forward over it
-    with ``w^T`` computes the backward's dx (the ``fwdrev`` row: #2's dx
-    half alone, through ``span_forward_rows``)."""
-    # fwd_pos of the src-sorted CSR: both it and the relation order sort
-    # the edges stably, so a stable sort of its edges by (rel, src) is the
-    # relation order
-    src, _, rel, _ = plan_edge_arrays(plan)
-    order = np.argsort(rel.astype(np.int64) * max(plan.num_src, 1) + src,
-                       kind="stable")
-    pos = np.empty(order.shape[0], np.int32)
-    pos[order] = np.arange(order.shape[0])
+    with ``w^T`` computes the backward's dx (the ``fwdrev`` row: the
+    earlier route's dx half alone, through ``span_forward_rows``). The
+    relation order stays, so the two CSRs swap their positions in it."""
     return dataclasses.replace(
         plan, num_nodes=plan.num_src, num_src=plan.num_nodes,
         fwd_rowptr=plan.bwd_rowptr, fwd_src=plan.bwd_dst,
-        fwd_rel=plan.bwd_rel, fwd_norm=plan.bwd_norm,
-        fwd_pos=torch.as_tensor(pos).to(plan.device),
+        fwd_rel=plan.bwd_rel, fwd_norm=plan.bwd_norm, fwd_pos=plan.bwd_pos,
         bwd_rowptr=plan.fwd_rowptr, bwd_dst=plan.fwd_src,
-        bwd_rel=plan.fwd_rel, bwd_norm=plan.fwd_norm,
+        bwd_rel=plan.fwd_rel, bwd_norm=plan.fwd_norm, bwd_pos=plan.fwd_pos,
         rel_src=plan.rel_dst, rel_dst=plan.rel_src)
 
 

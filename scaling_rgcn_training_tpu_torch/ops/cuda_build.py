@@ -24,7 +24,7 @@ import threading
 from pathlib import Path
 from typing import Callable, Dict, Iterable
 
-SOURCES = ("span_fwd_tc", "span_kernels", "segment_kernels",
+SOURCES = ("span_fwd_tc", "span_bwd_tc", "span_kernels", "segment_kernels",
            "grouped_kernels", "halo_kernels", "bwd_variants")
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: Dict[str, int] = {
     "span_forward": 0, "span_forward_rows": 0, "span_backward": 0,
-    "segment_sum": 0, "grouped_matmul": 0, "grouped_drhs": 0,
+    "span_backward_half": 0, "span_backward_rows": 0, "segment_sum": 0,
+    "grouped_matmul": 0, "grouped_drhs": 0,
     "halo_exchange": 0, "fused_halo_aggregate": 0,
     "span_backward_variant": 0}
 

@@ -5,9 +5,10 @@ The JAX package runs the conv's message passing as two Pallas kernels
 (``scaling_rgcn_training_tpu/ops/span_kernels.py``: ``_fwd_kernel`` through
 ``rel_span_matmul_scatter``, ``_bwd_kernel`` through
 ``rel_span_backward_scatter``). Here they are hand-written CUDA for
-``sm_90a`` (the forward ``csrc/span_fwd_tc.cu``, on the tensor cores over
-the plan's relation chunks; the backward ``csrc/span_kernels.cu``), with
-the same contract in node order:
+``sm_90a`` on the tensor cores over the plan's relation chunks (the
+forward ``csrc/span_fwd_tc.cu``, the backward ``csrc/span_bwd_tc.cu``;
+their shared helpers ``csrc/span_tc.cuh``), with the same contract in node
+order:
 
 - ``span_forward(x, w, plan) -> out [N, d_out]``,
   ``out[n] = sum_{e: dst_e = n} norm_e * x[src_e] @ w[rel_e]``;
@@ -24,10 +25,14 @@ the kernel when they lie on a CUDA device, and raises otherwise. The
 kernels are built with ``nvcc`` at first use into ``build/torch_kernels/``
 and loaded with ``ctypes`` (``ops/cuda_build.py``); a failed build raises.
 
+The earlier routes on the CUDA cores (``csrc/span_kernels.cu``) stay
+callable as ``span_forward_rows`` and ``span_backward_rows``; no main path
+calls them.
+
 The plan (:class:`SpanPlan`) is the port's own, built in numpy from
-``(src, dst, rel, norm)``: a dst-sorted CSR for the forward, a src-sorted
-CSR for dx, and relation-sorted edges cut into one-relation chunks for dW
-and the forward's per-edge products.
+``(src, dst, rel, norm)``: a dst-sorted CSR for the forward sum, a
+src-sorted CSR for the dx sum, and relation-sorted edges cut into
+one-relation chunks, over which both kernels form their per-edge products.
 None of the TPU plan's machinery (relation bands, tile-packed edge
 columns, swept bucket sizes, padding) is needed on the card.
 """
@@ -46,7 +51,8 @@ from scaling_rgcn_training_tpu_torch.ops.cuda_build import LAUNCHES
 
 # edges of one relation per dW block (partial sums reduced in order)
 DW_CHUNK = 1024
-# widths the CUDA kernels take (csrc/span_fwd_tc.cu, csrc/span_kernels.cu)
+# widths the CUDA kernels take (csrc/span_fwd_tc.cu, csrc/span_bwd_tc.cu,
+# csrc/span_kernels.cu)
 MAX_WIDTH = 128
 MAX_DW_ELEMS = 4096
 
@@ -63,7 +69,8 @@ class SpanPlan:
       ``fwd_src``, ``fwd_rel``, ``fwd_norm`` ``[E]``, and ``fwd_pos [E]``,
       each edge's index in the relation order below;
     - dx, src-sorted CSR by ``(src, rel)``: ``bwd_rowptr [num_src+1]``,
-      ``bwd_dst``, ``bwd_rel``, ``bwd_norm`` ``[E]``;
+      ``bwd_dst``, ``bwd_rel``, ``bwd_norm`` ``[E]``, and ``bwd_pos [E]``,
+      each edge's index in the relation order below;
     - dW, relation-sorted by ``(rel, src)``: ``rel_src``, ``rel_dst``,
       ``rel_norm`` ``[E]``; chunks of at most ``DW_CHUNK`` edges of one
       relation ``[chunk_lo, chunk_hi)``; relation ``r`` owns chunks
@@ -84,6 +91,7 @@ class SpanPlan:
     bwd_dst: torch.Tensor
     bwd_rel: torch.Tensor
     bwd_norm: torch.Tensor
+    bwd_pos: torch.Tensor
     rel_src: torch.Tensor
     rel_dst: torch.Tensor
     rel_norm: torch.Tensor
@@ -170,6 +178,7 @@ def plan_span(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
         fwd_pos=t(rel_rank[f_order]),
         bwd_rowptr=t(b_rowptr), bwd_dst=t(dst[b_order]),
         bwd_rel=t(rel[b_order]), bwd_norm=t(norm[b_order], torch.float32),
+        bwd_pos=t(rel_rank[b_order]),
         rel_src=t(src[r_order]), rel_dst=t(dst[r_order]),
         rel_norm=t(norm[r_order], torch.float32),
         chunk_lo=t(chunk_lo), chunk_hi=t(chunk_hi),
@@ -242,6 +251,36 @@ def span_backward_plain(g_out: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     return dx, dw
 
 
+def span_backward_tiled_plain(g_out: torch.Tensor, x: torch.Tensor,
+                              w: torch.Tensor, plan: SpanPlan
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``span_backward`` in the CUDA kernels' dataflow, for tests and
+    chip_smoke.py: per chunk, the gathered ``g_out`` rows times ``norm``,
+    rounded to the input type (``t``), then the dx messages ``t @ w[r]^T``
+    into a scratch ``[E, d_in]`` in relation order and the chunk's dW
+    partial ``x[rel_src]^T t``; then each src row's sum of its edges'
+    messages in src-CSR order through ``bwd_pos`` and each relation's sum
+    of its partials in chunk order; summed in ``_acc_dtype``."""
+    acc = _acc_dtype(x.dtype)
+    slots, d_in, d_out = w.shape
+    msg = torch.zeros(plan.bwd_pos.shape[0], d_in, dtype=acc, device=x.device)
+    dw = torch.zeros(w.shape, dtype=acc, device=x.device)
+    ptr = plan.rel_chunk_ptr.tolist()
+    lo, hi = plan.chunk_lo.tolist(), plan.chunk_hi.tolist()
+    for r in range(slots):
+        for c in range(ptr[r], ptr[r + 1]):
+            sl = slice(lo[c], hi[c])
+            t = (g_out.index_select(0, plan.rel_dst[sl]).to(acc)
+                 * plan.rel_norm[sl, None].to(acc)).to(g_out.dtype).to(acc)
+            msg[sl] = t @ w[r].to(acc).T
+            dw[r] += x.index_select(0, plan.rel_src[sl]).to(acc).T @ t
+    rows = torch.repeat_interleave(
+        torch.arange(plan.num_src, device=x.device),
+        torch.diff(plan.bwd_rowptr.long()))
+    dx = torch.zeros(plan.num_src, d_in, dtype=acc, device=x.device)
+    return dx.index_add_(0, rows, msg.index_select(0, plan.bwd_pos)), dw
+
+
 # -- the CUDA kernels --------------------------------------------------------
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -265,6 +304,16 @@ def _declare_tc(lib: ctypes.CDLL) -> None:
 
 def _tc_kernels() -> ctypes.CDLL:
     return cuda_build.load("span_fwd_tc", _declare_tc)
+
+
+def _declare_bwd(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.span_bwd_tc.argtypes = [i, i, *[p] * 15, i, i, i, i, i, p]
+    lib.span_bwd_tc.restype = i
+
+
+def _bwd_kernels() -> ctypes.CDLL:
+    return cuda_build.load("span_bwd_tc", _declare_bwd)
 
 
 def _cuda_dtype_code(*tensors: torch.Tensor) -> int:
@@ -359,13 +408,35 @@ def forward_cost(x: torch.Tensor, w: torch.Tensor,
     return n_bytes, 3 * ops, "tf32"
 
 
+def backward_cost(g_out: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                  plan: SpanPlan) -> Tuple[int, int, str]:
+    """``(bytes, operations, unit)`` of ``span_backward``'s function on
+    these inputs, for its bound: bytes are ``g_out``, ``x``, ``w``, the
+    plan arrays its kernels read (the relation-ordered edges, the chunks,
+    the src-sorted CSR's row pointer and positions), each once, and the
+    float32 ``dx`` and ``dw`` once. Operations: ``2 E d_in d_out`` for each
+    half on the tensor cores, three times for float32 (3xTF32, ``unit``
+    ``"tf32"``), once for bfloat16. The ``[E, d_in]`` message round trip
+    and the kernel's fourth TF32 product are the design's own cost, not the
+    function's."""
+    slots, d_in, d_out = w.shape
+    n_bytes = sum(t.numel() * t.element_size() for t in (
+        g_out, x, w, plan.rel_src, plan.rel_dst, plan.rel_norm, plan.chunk_lo,
+        plan.chunk_hi, plan.rel_chunk_ptr, plan.bwd_rowptr, plan.bwd_pos))
+    n_bytes += 4 * (plan.num_src * d_in + slots * d_in * d_out)
+    ops = 2 * 2 * plan.bwd_pos.numel() * d_in * d_out
+    if x.dtype == torch.bfloat16:
+        return n_bytes, ops, "bfloat16"
+    return n_bytes, 3 * ops, "tf32"
+
+
 def span_forward_rows(x: torch.Tensor, w: torch.Tensor,
                       plan: SpanPlan) -> torch.Tensor:
     """``span_forward`` by the earlier route, ``span_rows_kernel``
     (``csrc/span_rows.cuh``: one warp per dst row, scalar FMAs on the
-    CUDA cores), which the dx half of ``span_backward`` still runs. No
-    main path calls it: chip_smoke.py times it beside ``span_forward``
-    and the microbench's ``fwdrev`` row measures #2's dx half with it."""
+    CUDA cores). No main path calls it: chip_smoke.py times it beside
+    ``span_forward``, and the microbench's ``fwdrev`` row measures the
+    earlier backward route's dx half with it."""
     _check_shapes(x, w, plan)
     if not cuda_build.on_card(x, w, plan.fwd_src):
         return span_forward_plain(x, w, plan)
@@ -382,31 +453,106 @@ def span_forward_rows(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def span_backward(g_out: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
-                  plan: SpanPlan) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Both aggregation gradients: ``g_out [N, d_out]`` (in ``w``'s dtype)
-    -> ``dx [num_src, d_in]`` and ``dw [slots, d_in, d_out]``, float32."""
+def _check_backward(g_out: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                    plan: SpanPlan) -> bool:
+    """Check a backward call's shapes; True when its tensors lie on the
+    card (then also their types and widths), False on the CPU."""
     _check_shapes(x, w, plan)
     if g_out.shape != (plan.num_nodes, w.shape[2]):
         raise ValueError(f"g_out {tuple(g_out.shape)} is not "
                          f"[{plan.num_nodes}, {w.shape[2]}]")
     if not cuda_build.on_card(g_out, x, w, plan.fwd_src):
+        return False
+    _check_widths(w.shape[1], w.shape[2])
+    return True
+
+
+def _backward_tc(g_out: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                 plan: SpanPlan, parts: int
+                 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The kernels of ``csrc/span_bwd_tc.cu`` on the card: ``parts`` 1 the
+    dx half, 2 the dW half, 3 both (the chunk kernel, then the dx sum and
+    the dW reduce)."""
+    code = _cuda_dtype_code(g_out, x, w)
+    slots, d_in, d_out = w.shape
+    lib = _bwd_kernels()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = msg = dw = partial = None
+    if parts & 1:
+        dx = torch.empty(plan.num_src, d_in, **f32)
+        msg = torch.empty(plan.bwd_pos.shape[0], d_in, **f32)
+    if parts & 2:
+        dw = torch.empty(slots, d_in, d_out, **f32)
+        partial = torch.empty(plan.num_chunks, d_in, d_out, **f32)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(x.device):
+        err = lib.span_bwd_tc(
+            code, parts, g_out.data_ptr(), x.data_ptr(), w.data_ptr(),
+            plan.chunk_lo.data_ptr(), plan.chunk_hi.data_ptr(),
+            plan.rel_chunk_ptr.data_ptr(), plan.rel_src.data_ptr(),
+            plan.rel_dst.data_ptr(), plan.rel_norm.data_ptr(),
+            plan.bwd_rowptr.data_ptr(), plan.bwd_pos.data_ptr(), ptr(msg),
+            ptr(partial), ptr(dx), ptr(dw), plan.num_chunks, plan.num_src,
+            d_in, d_out, slots, torch.cuda.current_stream().cuda_stream)
+    cuda_build.check_launch(lib, err, "span_backward")
+    return dx, dw
+
+
+def span_backward(g_out: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                  plan: SpanPlan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both aggregation gradients: ``g_out [N, d_out]`` (in ``w``'s dtype)
+    -> ``dx [num_src, d_in]`` and ``dw [slots, d_in, d_out]``, float32. On
+    the card three kernels of ``csrc/span_bwd_tc.cu``: per relation chunk,
+    the dx messages into an ``[E, d_in]`` float32 scratch and the dW
+    partials, both on the tensor cores, then the messages' sum per src row
+    and the partials' sum per relation."""
+    if not _check_backward(g_out, x, w, plan):
+        return span_backward_plain(g_out, x, w, plan)
+    dx, dw = _backward_tc(g_out, x, w, plan, 3)
+    LAUNCHES["span_backward"] += 1
+    return dx, dw
+
+
+def span_backward_half(g_out: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                       plan: SpanPlan, half: str) -> torch.Tensor:
+    """One half of ``span_backward`` alone, ``half`` ``"dx"`` (the chunk
+    kernel's dx messages and their sum per src row) or ``"dw"`` (its dW
+    partials and their sum per relation), for timing each half: no main
+    path calls it."""
+    if half not in ("dx", "dw"):
+        raise ValueError(f"half {half!r} is not 'dx' or 'dw'")
+    which = ("dx", "dw").index(half)
+    if not _check_backward(g_out, x, w, plan):
+        return span_backward_plain(g_out, x, w, plan)[which]
+    out = _backward_tc(g_out, x, w, plan, 1 << which)[which]
+    LAUNCHES["span_backward_half"] += 1
+    return out
+
+
+def span_backward_rows(g_out: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                       plan: SpanPlan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``span_backward`` by the earlier route on the CUDA cores
+    (``csrc/span_kernels.cu``): dx by ``span_rows_kernel`` over the
+    src-sorted CSR with ``W^T``, dW by ``span_dw_partial_kernel``'s scalar
+    FMAs per chunk and the chunk-ordered reduce. No main path calls it:
+    chip_smoke.py times it beside ``span_backward``, and so does the
+    microbench's ``rows`` row."""
+    if not _check_backward(g_out, x, w, plan):
         return span_backward_plain(g_out, x, w, plan)
     code = _cuda_dtype_code(g_out, x, w)
     slots, d_in, d_out = w.shape
-    _check_widths(d_in, d_out)
     lib = _kernels()
     dev = x.device
     dx = torch.empty(plan.num_src, d_in, dtype=torch.float32, device=dev)
     dw = torch.empty(slots, d_in, d_out, dtype=torch.float32, device=dev)
     partial = torch.empty(max(plan.num_chunks, 1), d_in, d_out,
                           dtype=torch.float32, device=dev)
-    # dx runs the forward's row kernel over the src-sorted CSR with W^T
     wt = w.transpose(1, 2).contiguous()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         _rows(lib, code, g_out, wt, plan.bwd_rowptr, plan.bwd_dst,
-              plan.bwd_rel, plan.bwd_norm, dx, stream, "span_backward (dx)")
+              plan.bwd_rel, plan.bwd_norm, dx, stream,
+              "span_backward_rows (dx)")
         err = lib.span_dw(code, x.data_ptr(), g_out.data_ptr(),
                           plan.chunk_lo.data_ptr(), plan.chunk_hi.data_ptr(),
                           plan.rel_chunk_ptr.data_ptr(),
@@ -414,6 +560,6 @@ def span_backward(g_out: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                           plan.rel_norm.data_ptr(), partial.data_ptr(),
                           dw.data_ptr(), plan.num_chunks, slots, d_in, d_out,
                           stream)
-        cuda_build.check_launch(lib, err, "span_backward (dW)")
-    LAUNCHES["span_backward"] += 1
+        cuda_build.check_launch(lib, err, "span_backward_rows (dW)")
+    LAUNCHES["span_backward_rows"] += 1
     return dx, dw

@@ -1,5 +1,5 @@
-"""The CUDA kernels (span forward on the tensor cores and its earlier row
-route, span backward, segment sum, grouped matmul, d_rhs, halo exchange,
+"""The CUDA kernels (span forward and backward on the tensor cores and
+their earlier routes, segment sum, grouped matmul, d_rhs, halo exchange,
 fused halo aggregate and the one-pass backward's variants) against their
 plain PyTorch versions, on the card.
 
@@ -154,6 +154,101 @@ def test_cuda_span_forward_tiny_values(tiny, dtype):
     assert torch.isfinite(got).all()
     ref = sk.span_forward_plain(x, w, plan)
     torch.testing.assert_close(got, ref, **_tol(dtype, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d_in,d_out,slots", [(63, 4, 9), (63, 11, 9),
+                                              (11, 63, 9), (64, 16, 9),
+                                              (16, 8, 9), (128, 32, 30)])
+@pytest.mark.parametrize("num_src", [None, 650])
+def test_cuda_span_backward_tensor_cores(d_in, d_out, slots, num_src, dtype,
+                                         monkeypatch):
+    """#2 on the tensor cores (``csrc/span_bwd_tc.cu``) against
+    ``span_backward_plain`` and ``span_backward_tiled_plain``, with empty
+    relations, rows without edges, chunks of 100 edges (a chunk's end
+    inside a 16-edge tile and a 4-tile stage) and (``num_src``) a
+    rectangular plan: two runs give the same bits, each call counts one
+    launch and none of the row route; each half alone gives the same bits;
+    ``span_backward_rows`` still matches the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(d_in * d_out + slots + 1)
+    n, e = 500, 4000
+    src, dst, rel, norm = _graph(rng, n, e, slots)
+    if num_src is not None:
+        src = rng.integers(0, num_src, e).astype(np.int32)
+    monkeypatch.setattr(sk, "DW_CHUNK", 100)
+    plan = sk.plan_span(src, dst, rel, norm, n, slots, device="cuda",
+                        num_src=num_src)
+    dt = getattr(torch, dtype)
+    x = torch.randn(plan.num_src, d_in, device="cuda").to(dt)
+    w = (torch.randn(slots, d_in, d_out, device="cuda") * 0.2).to(dt)
+    g = torch.randn(n, d_out, device="cuda").to(dt)
+    before = dict(cuda_build.LAUNCHES)
+    got, again = sk.span_backward(g, x, w, plan), sk.span_backward(g, x, w, plan)
+    halves = [sk.span_backward_half(g, x, w, plan, h) for h in ("dx", "dw")]
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["span_backward"] == before["span_backward"] + 2
+    assert cuda_build.LAUNCHES["span_backward_rows"] == before["span_backward_rows"]
+    for a, b, h in zip(got, again, halves):
+        assert a.dtype == torch.float32 and torch.equal(a, b) and torch.equal(a, h)
+    assert not got[1][1::3].any()               # relations without edges
+    if num_src is None:
+        assert not got[0][n - n // 10:].any()   # rows without edges
+    for ref in (sk.span_backward_plain(g, x, w, plan),
+                sk.span_backward_tiled_plain(g, x, w, plan)):
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, **_tol(dtype, b))
+    rows = sk.span_backward_rows(g, x, w, plan)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["span_backward_rows"] == before["span_backward_rows"] + 1
+    for a, b in zip(rows, sk.span_backward_plain(g, x, w, plan)):
+        torch.testing.assert_close(a, b, **_tol(dtype, b))
+
+
+@pytest.mark.cuda
+def test_cuda_span_backward_without_edges():
+    """A plan with no edges: no chunk to multiply, dx and dW written 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    none = np.zeros(0, np.int32)
+    plan = sk.plan_span(none, none, none, none.astype(np.float32), 40, 3,
+                        device="cuda")
+    dx, dw = sk.span_backward(torch.randn(40, 5, device="cuda"),
+                              torch.randn(40, 8, device="cuda"),
+                              torch.randn(3, 8, 5, device="cuda"), plan)
+    torch.cuda.synchronize()
+    assert dx.shape == (40, 8) and not dx.any()
+    assert dw.shape == (3, 8, 5) and not dw.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tiny", ["x row", "g row"])
+def test_cuda_span_backward_tiny_values(tiny, dtype):
+    """A row of x (of g) scaled by 1e-37, below the least top of #2's
+    fixed-point grids: finite dx and dW that match the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(38)
+    n, e, slots = 500, 4000, 9
+    src, dst, rel, norm = _graph(rng, n, e, slots)
+    plan = sk.plan_span(src, dst, rel, norm, n, slots, device="cuda")
+    dt = getattr(torch, dtype)
+    x = torch.randn(n, 64, device="cuda")
+    g = torch.randn(n, 16, device="cuda")
+    w = torch.randn(slots, 64, 16, device="cuda") * 0.2
+    if tiny == "x row":
+        x[int(src[0])] *= 1e-37
+    else:
+        g[int(dst[0])] *= 1e-37
+    x, g, w = x.to(dt), g.to(dt), w.to(dt)
+    got = sk.span_backward(g, x, w, plan)
+    torch.cuda.synchronize()
+    for a, b in zip(got, sk.span_backward_plain(g, x, w, plan)):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, **_tol(dtype, b))
 
 
 @pytest.mark.cuda

@@ -265,12 +265,118 @@ def test_span_backward_matches_jax(n, e, slots, d_in, d_out, k, dtype, rtol, ato
     assert not dw[1::3].any()                  # relations without edges
 
 
+@pytest.mark.parametrize("dtype,rtol,atol", TILED_DTYPES)
+@pytest.mark.parametrize("n,e,slots,d_in,d_out,k", SHAPES)
+def test_span_backward_tiled_matches_jax(n, e, slots, d_in, d_out, k, dtype,
+                                         rtol, atol, monkeypatch):
+    """The CUDA kernels' dataflow ``span_backward_tiled_plain`` (per chunk
+    of 100 edges, a chunk's end inside a 16-edge tile: the dx messages into
+    ``[E, d_in]`` and the dW partials, then the sum through ``bwd_pos`` and
+    the chunk-ordered reduce) against the JAX kernel and against
+    ``span_backward_plain``."""
+    rng = np.random.default_rng(3 * n + e + d_out)
+    src, dst, rel, norm = _graph(rng, n, e, slots)
+    x = rng.standard_normal((n, d_in)).astype(np.float32)
+    w = (rng.standard_normal((slots, d_in, d_out)) * 0.2).astype(np.float32)
+    g = rng.standard_normal((n, d_out)).astype(np.float32)
+
+    span = plan_rel_span(dst, src, rel, norm, n, slots,
+                         bucket_rows=64, chunk=128, kspan=k)
+    t = g[np.asarray(span.gather_idx)]
+    refs = [np.asarray(a) for a in rel_span_backward_scatter(
+        _pair(t, dtype)[0], span, _pair(x, dtype)[0], _pair(w, dtype)[0])]
+
+    monkeypatch.setattr(sk, "DW_CHUNK", 100)
+    plan = sk.plan_span(src, dst, rel, norm, n, slots)
+    args = (_pair(g, dtype)[1], _pair(x, dtype)[1], _pair(w, dtype)[1], plan)
+    got = sk.span_backward_tiled_plain(*args)
+    assert [a.dtype for a in got] == [torch.float32] * 2
+    assert got[0].shape == (n, d_in) and got[1].shape == (slots, d_in, d_out)
+    for a, ref in zip(got, refs):
+        np.testing.assert_allclose(a.numpy(), ref, rtol=rtol,
+                                   atol=atol * np.abs(ref).max())
+    assert not got[0][n - n // 10:].any()      # rows without edges
+    assert not got[1][1::3].any()              # relations without edges
+    for a, ref in zip(got, sk.span_backward_plain(*args)):
+        torch.testing.assert_close(a, ref, rtol=rtol,
+                                   atol=atol * float(ref.abs().max()))
+
+
+def _dw_split(x, gn, chunk=1024, small_small=True):
+    """``x^T gn`` over one relation's edges (``x [E, K]``, ``gn [E, M]``)
+    as ``csrc/span_bwd_tc.cu`` forms dW in float32: per 16-edge tile (zero
+    rows past the end) the product of A = x_tile^T and B = gn_tile from
+    parts on the grid of each A row (a feature over the tile's edges) and
+    of each B column (an output over the same edges), the edges as the
+    depth (``_split_product``), added to the chunk's running sums in
+    float32; the chunks' partials added in chunk order. Also returns
+    whether every 8-edge step's big products summed exactly in float32."""
+    e, k = x.shape
+    dw, exact = np.zeros((k, gn.shape[1]), np.float32), True
+    for c0 in range(0, e, chunk):
+        run = np.zeros_like(dw)
+        for t0 in range(c0, min(c0 + chunk, e), 16):
+            n_e = min(16, c0 + chunk - t0, e - t0)
+            a = np.zeros((k, 16), np.float32)
+            b = np.zeros((16, dw.shape[1]), np.float32)
+            a[:, :n_e], b[:n_e] = x[t0:t0 + n_e].T, gn[t0:t0 + n_e]
+            a_big, b_big = _grid_big(a, 1), _grid_big(b, 0)
+            for h in (slice(0, 8), slice(8, 16)):
+                part = a_big[:, h].astype(np.float64) @ b_big[h]
+                exact &= np.array_equal(part.astype(np.float32), part)
+            run += _split_product(a, b, a_big, b_big, small_small)
+        dw += run
+    return dw, exact
+
+
+def _relation_edges(rng, e=44_000, k=64, m=16):
+    """One relation's gathered rows at layer 1 of the bench shape: ``x``
+    rows and ``norm * g`` rows (mean norms of in-degree ~20)."""
+    x = rng.standard_normal((e, k)).astype(np.float32)
+    norm = (1.0 / rng.integers(5, 40, e)).astype(np.float32)
+    gn = (rng.standard_normal((e, m)).astype(np.float32) * norm[:, None])
+    return x, gn
+
+
+@pytest.mark.parametrize("small_small", [False, True])
+def test_split_tf32_dw_keeps_float32_precision(small_small):
+    """#2's dW product over a relation of ~44,000 edges (the bench shape's
+    mean) cut into 1,024-edge chunks: each 8-edge step's big products sum
+    exactly, and the result, with 3 (3xTF32) or 4 products a multiply-add,
+    is within rtol 1e-5 (atol 1e-5 * max|ref|) of the float64 product."""
+    x, gn = _relation_edges(np.random.default_rng(11))
+    ref = x.astype(np.float64).T @ gn.astype(np.float64)
+    got, exact = _dw_split(x, gn, small_small=small_small)
+    assert exact
+    limit = 1e-5 * np.abs(ref) + 1e-5 * np.abs(ref).max()
+    assert (np.abs(got - ref) <= limit).all()
+
+
+def test_split_tf32_dw_signed_error():
+    """The signed error of #2's dW split (4 products) against float64,
+    relative to the sum of |ref|, averages below 1e-8 over draws of a
+    ~44,000-edge relation: the tensor cores' truncating sums cut no
+    bias into dW's long sums."""
+    rng = np.random.default_rng(12)
+    biases = []
+    for _ in range(4):
+        x, gn = _relation_edges(rng)
+        ref = x.astype(np.float64).T @ gn.astype(np.float64)
+        got, _ = _dw_split(x, gn)
+        biases.append(float(((got - ref) * np.sign(ref)).sum()
+                            / np.abs(ref).sum()))
+    assert abs(np.mean(biases)) < 1e-8
+
+
 @pytest.mark.parametrize("num_src", [None, 150])
 def test_plan_layouts(monkeypatch, num_src):
     """Each layout holds every edge once, in its sort order; dW chunks hold
-    one relation each and at most ``DW_CHUNK`` edges; ``fwd_pos`` maps each
-    forward-CSR edge to the same edge in relation order. ``num_src``: a
-    rectangular plan (more source rows than dst rows)."""
+    one relation each and at most ``DW_CHUNK`` edges; ``fwd_pos`` and
+    ``bwd_pos`` map each edge of the forward and the src-sorted CSR to the
+    same edge in relation order, and ``reverse_plan`` swaps them.
+    ``num_src``: a rectangular plan (more source rows than dst rows)."""
+    from scaling_rgcn_training_tpu_torch.ops.bwd_kernels import reverse_plan
+
     rng = np.random.default_rng(5)
     n, e, slots, chunk = 120, 1500, 8, 64
     src, dst, rel, norm = _graph(rng, n, e, slots)
@@ -321,6 +427,22 @@ def test_plan_layouts(monkeypatch, num_src):
     assert np.array_equal(rel_rel[pos], plan.fwd_rel.numpy())
     assert np.array_equal(plan.rel_norm.numpy()[pos], plan.fwd_norm.numpy())
 
+    # bwd_pos: the same from the src-sorted CSR
+    pos = plan.bwd_pos.numpy()
+    assert plan.bwd_pos.dtype == torch.int32
+    assert np.array_equal(np.sort(pos), np.arange(e))
+    bwd_src = np.repeat(np.arange(plan.num_src), np.diff(plan.bwd_rowptr.numpy()))
+    assert np.array_equal(plan.rel_src.numpy()[pos], bwd_src)
+    assert np.array_equal(plan.rel_dst.numpy()[pos], plan.bwd_dst.numpy())
+    assert np.array_equal(rel_rel[pos], plan.bwd_rel.numpy())
+    assert np.array_equal(plan.rel_norm.numpy()[pos], plan.bwd_norm.numpy())
+
+    rev = reverse_plan(plan)
+    assert rev.fwd_pos is plan.bwd_pos and rev.bwd_pos is plan.fwd_pos
+    assert np.array_equal(rev.rel_dst.numpy()[rev.fwd_pos.numpy()],
+                          np.repeat(np.arange(rev.num_nodes),
+                                    np.diff(rev.fwd_rowptr.numpy())))
+
 
 @pytest.mark.parametrize("bad", ["node", "relation", "length"])
 def test_plan_rejects_bad_edges(bad):
@@ -353,10 +475,18 @@ def test_cpu_calls_launch_nothing_and_other_devices_raise():
     src, dst, rel, norm = _graph(rng, 30, 100, 4)
     plan = sk.plan_span(src, dst, rel, norm, 30, 4)
     x, w = torch.randn(30, 5), torch.randn(4, 5, 3)
+    g = torch.randn(30, 3)
     before = dict(sk.LAUNCHES)
     sk.span_forward(x, w, plan)
-    sk.span_backward(torch.randn(30, 3), x, w, plan)
+    dx, dw = sk.span_backward(g, x, w, plan)
+    for route in (sk.span_backward_rows, sk.span_backward_tiled_plain):
+        for a, b in zip(route(g, x, w, plan), (dx, dw)):
+            torch.testing.assert_close(a, b)
+    torch.testing.assert_close(sk.span_backward_half(g, x, w, plan, "dx"), dx)
+    torch.testing.assert_close(sk.span_backward_half(g, x, w, plan, "dw"), dw)
     assert sk.LAUNCHES == before
+    with pytest.raises(ValueError):
+        sk.span_backward_half(g, x, w, plan, "both")
     with pytest.raises(ValueError):
         sk.span_forward(x.to("meta"), w.to("meta"), plan)
 
