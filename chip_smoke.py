@@ -61,19 +61,28 @@ Phases, in order; any failure exits non-zero:
    versions in float32 and bfloat16 at edge cases (S = 1, 2, 3; H not a
    multiple of the vector width; d 4, 11, 63; a peer that ships no rows; a
    shard with no halo edges) and at the bench shape (H ~ 50k rows per
-   pair, layers 64 -> 16 and 16 -> 8), the same bits on two runs; their
-   times beside the plain versions, the library exchange and one
-   ``transpose().contiguous()`` of the stacked sends; then ``Trainer.fit``
-   at the bench shape over the 4 shards: halo partition with the library
-   exchange, #6 and #7 in float32 and #6 with bfloat16 streams, and the
-   edge partition (``backend="pallas"``); losses within 1e-4 relative of
-   phase 5's single-device run of the same dtype (bfloat16: 1e-3), the
-   kernels' launch counters advanced on every step, ms/step and peak
-   memory; the halo f32 step with the library exchange timed again with
-   #1's and then #2's earlier route swapped in, in turns with the
-   tensor-core kernel, 10 steps each; and #1 and its row route per call on
-   shard 0's local and halo segments (host microseconds until a call
-   returns, card milliseconds);
+   pair, layers 64 -> 16 and 16 -> 8), #7 (``csrc/halo_kernels.cu``
+   ``fused_halo_tc``: #1's chunk kernel over the shards' rows on the
+   tensor cores, the CSR sum, the halo buffer's copy) also against its
+   dataflow (``fused_halo_aggregate_tiled_plain``) and its earlier route
+   (``fused_halo_aggregate_rows``), every halo buffer bit for bit, the
+   same bits on two runs; at the bench shape, both layers, #7's times
+   beside its earlier route's, the plain version's, the library exchange
+   plus #1 on each shard's local and halo plans, and its bound
+   (``fused_halo.fused_halo_cost``), #6's beside the library exchange and
+   one ``transpose().contiguous()`` of the stacked sends, and in float32
+   #7's signed error against float64 per shard (at most ``MAX_BIAS``);
+   then ``Trainer.fit`` at the bench shape over the 4 shards: halo
+   partition with the library exchange, #6 and #7 in float32, #6 and #7
+   with bfloat16 streams, and the edge partition (``backend="pallas"``);
+   losses within 1e-4 relative of phase 5's single-device run of the same
+   dtype (bfloat16: 5e-3), the kernels' launch counters advanced on every
+   step, ms/step and peak memory; the halo f32 step with the library
+   exchange timed again with #1's and then #2's earlier route swapped in,
+   and the halo #7 f32 step with #7's, in turns with the tensor-core
+   kernel, 10 steps each; and #1 and its row route per call on shard 0's
+   local and halo segments (host microseconds until a call returns, card
+   milliseconds);
 9. kernel #8 (the one-pass backward of the attribution microbench) against
    its plain versions, every variant (``base``, ``nodw``, ``nodx``,
    ``statrmw``): at phase 3's edge cases (63 -> 4 and 11, 11 -> 63; 128 ->
@@ -95,9 +104,10 @@ Phases, in order; any failure exits non-zero:
 Tolerances: float32 within rtol 1e-4 and atol 1e-4 * max|ref| (summation
 order differs), bfloat16 inputs within 2e-2 * max|ref|.
 
-The second-to-last line is a JSON object with one entry per kernel (#1's
-and #2's with ``previous_ms``, their earlier routes' times in the same
-run); the last line is ``{"ok": true, "device": {...}}``.
+The second-to-last line is a JSON object with one entry per kernel (#1's,
+#2's and #7's with ``previous_ms``, their earlier routes' times in the
+same run; #7's with the CUDA kernels it launches); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -487,35 +497,39 @@ def run_fit(graph, compute_dtype, epochs, launches, head="summation",
 
 def require_per_step(tag, steps, least):
     """Every step launched each kernel of ``least`` at least that often,
-    and the earlier routes of #1 and #2 (``span_forward_rows``,
-    ``span_backward_rows``) and #2's halves alone never."""
+    and the earlier routes of #1, #2 and #7 (``span_forward_rows``,
+    ``span_backward_rows``, ``fused_halo_aggregate_rows``) and #2's halves
+    alone never."""
     for i, st in enumerate(steps):
         for k, n in least.items():
             if st[k] < n:
                 fail(f"{tag}: step {i} launched {k} {st[k]} times, "
                      f"expected at least {n}")
         for k in ("span_forward_rows", "span_backward_rows",
-                  "span_backward_half"):
+                  "span_backward_half", "fused_halo_aggregate_rows"):
             if st[k]:
                 fail(f"{tag}: step {i} launched {k}")
 
 
 def route_swap(graph, launches, kernel, **fit_kw) -> dict:
     """Median ms/step of float32 ``Trainer.fit`` runs on ``graph`` with
-    ``kernel`` (``span_forward``, #1, or ``span_backward``, #2) on the
-    tensor cores and with its earlier route (``span_forward_rows``,
-    ``span_backward_rows``) swapped in wherever the conv binds it
-    (``rgcn_conv``; for #2 also ``fused_halo``), in the order tensor cores,
-    rows, rows, tensor cores (the swap is this script's: no main path calls
-    the earlier routes)."""
+    ``kernel`` (``span_forward``, #1; ``span_backward``, #2;
+    ``fused_halo_aggregate``, #7) on the tensor cores and with its earlier
+    route (``span_forward_rows``, ``span_backward_rows``,
+    ``fused_halo_aggregate_rows``) swapped in wherever the conv binds it
+    (``rgcn_conv``; for #2 also ``fused_halo``; #7 in ``fused_halo``), in
+    the order tensor cores, rows, rows, tensor cores (the swap is this
+    script's: no main path calls the earlier routes)."""
     from scaling_rgcn_training_tpu_torch.ops import rgcn_conv
     from scaling_rgcn_training_tpu_torch.ops import span_kernels as sk
     from scaling_rgcn_training_tpu_torch.parallel import fused_halo
 
-    modules = (rgcn_conv,) if kernel == "span_forward" else (rgcn_conv,
-                                                             fused_halo)
-    routes = {"tensor cores": getattr(sk, kernel),
-              "rows": getattr(sk, f"{kernel}_rows")}
+    owner, modules = {
+        "span_forward": (sk, (rgcn_conv,)),
+        "span_backward": (sk, (rgcn_conv, fused_halo)),
+        "fused_halo_aggregate": (fused_halo, (fused_halo,))}[kernel]
+    routes = {"tensor cores": getattr(owner, kernel),
+              "rows": getattr(owner, f"{kernel}_rows")}
     swap = {"tensor cores": [], "rows": []}
     for name in ("tensor cores", "rows", "rows", "tensor cores"):
         for mod in modules:
@@ -628,12 +642,18 @@ def halo_edge_case_graph(rng, s_n, n_nodes, e, slots):
 
 def check_halo_kernels(he, d_in, d_out, dtype, tag, timing=False) -> dict:
     """Kernels #6 and #7 against their plain versions on the placed halo
-    partition ``he``: #6 exact, #7 within the stated tolerance, its halo
-    buffer exact, both the same bits on two runs. With ``timing``: one
+    partition ``he``: #6 exact; #7 within the stated tolerance of its plain
+    version, of its dataflow in PyTorch (``fused_halo_aggregate_tiled_plain``)
+    and of its earlier route (``fused_halo_aggregate_rows``), every halo
+    buffer exact; both the same bits on two runs. With ``timing``: one
     exchange of the S sends and one layer forward of #7 over every shard,
-    beside their plain versions (and for #6 the library exchange and one
-    ``transpose().contiguous()`` of the stacked sends)."""
+    beside their plain versions (for #6 the library exchange and one
+    ``transpose().contiguous()`` of the stacked sends; for #7 its earlier
+    route, its call without the buffer, and the library exchange plus #1 on
+    each shard's local and halo plans: the same function), and for float32
+    #7's signed error against float64."""
     import torch
+    from scaling_rgcn_training_tpu_torch.ops import span_kernels as sk
     from scaling_rgcn_training_tpu_torch.parallel import fused_halo as fh
     from scaling_rgcn_training_tpu_torch.parallel import ring_halo as rh
 
@@ -654,21 +674,60 @@ def check_halo_kernels(he, d_in, d_out, dtype, tag, timing=False) -> dict:
             fail(f"{tag}: halo_exchange differs from its plain version")
         if not torch.equal(a, b):
             fail(f"{tag}: two halo_exchange runs differ")
+    def exchange_span():
+        # the same function by the library exchange, then #1 on each
+        # shard's local and halo segments
+        recvs = rh.halo_exchange_library(
+            [xs[s].index_select(0, sh.send_idx).view(s_n, h, d_in)
+             for s, sh in enumerate(he.shards)])
+        return [sk.span_forward(xs[s], w, sh.local.span)
+                + sk.span_forward(recvs[s].view(s_n * h, d_in), w,
+                                  sh.halo.span)
+                for s, sh in enumerate(he.shards)]
+
     res = {"exchange_err": 0.0, "fused_err": 0.0}
+    spans = exchange_span() if timing and not bf16 else None
     for sh in he.shards:
         agg, buf = fh.fused_halo_aggregate(xs, w, sh.fused)
         agg2, buf2 = fh.fused_halo_aggregate(xs, w, sh.fused)
+        rows, rows_buf = fh.fused_halo_aggregate_rows(xs, w, sh.fused)
         torch.cuda.synchronize()
         ref, ref_buf = fh.fused_halo_aggregate_plain(xs, w, sh.fused)
-        if not torch.equal(buf, ref_buf):
-            fail(f"{tag} shard {sh.fused.shard}: fused halo buffer differs")
+        tiled, tiled_buf = fh.fused_halo_aggregate_tiled_plain(xs, w, sh.fused)
+        for name, b in (("#7", buf), ("the earlier route's", rows_buf),
+                        ("the tiled plain's", tiled_buf)):
+            if not torch.equal(b, ref_buf):
+                fail(f"{tag} shard {sh.fused.shard}: {name} halo buffer "
+                     "differs")
         if not (torch.equal(agg, agg2) and torch.equal(buf, buf2)):
             fail(f"{tag}: two fused_halo_aggregate runs differ")
-        res["fused_err"] = max(res["fused_err"], check_close(
-            f"{tag} shard {sh.fused.shard} fused_halo_aggregate", agg, ref,
-            bf16))
+        name = f"{tag} shard {sh.fused.shard} fused_halo_aggregate"
+        res["fused_err"] = max(res["fused_err"],
+                               check_close(name, agg, ref, bf16),
+                               check_close(f"{name} vs tiled plain", agg,
+                                           tiled, bf16))
+        check_close(f"{name} (row route)", rows, ref, bf16)
+        if timing and not bf16:
+            ref64 = fh.fused_halo_aggregate_plain(
+                [t.double() for t in xs], w.double(), sh.fused, False)[0]
+            res.setdefault("bias", []).append(signed_error(agg, ref64))
+            res.setdefault("previous_bias", []).append(
+                signed_error(rows, ref64))
+            res.setdefault("span_bias", []).append(
+                signed_error(spans[sh.fused.shard], ref64))
+            del ref64
     print(f"  {tag} halo_exchange: same bits as the plain version and the "
           f"library exchange (S {s_n}, H {h}, d {d_in})", flush=True)
+    if "bias" in res:
+        print(f"  {tag} signed error against float64 per shard: "
+              f"fused_halo_aggregate {[f'{v:.2e}' for v in res['bias']]} "
+              f"(row route {[f'{v:.2e}' for v in res['previous_bias']]}, "
+              f"library exchange + span_forward "
+              f"{[f'{v:.2e}' for v in res['span_bias']]}); "
+              f"limit {MAX_BIAS:.0e}", flush=True)
+        if max(abs(v) for v in res["bias"]) > MAX_BIAS:
+            fail(f"{tag}: fused_halo_aggregate's sums are biased "
+                 f"({res['bias']})")
     if timing:
         stacked = torch.stack(sends)
         res["exchange"] = time_kernel(
@@ -681,36 +740,36 @@ def check_halo_kernels(he, d_in, d_out, dtype, tag, timing=False) -> dict:
         res["exchange"].update(bound(2 * nbytes(*sends), 0,
                                      dtype_name(dtype)))
 
-        def fused_all():
-            for sh in he.shards:
-                fh.fused_halo_aggregate(xs, w, sh.fused)
+        def over_shards(fn, **kw):
+            return lambda: [fn(xs, w, sh.fused, **kw) for sh in he.shards]
 
-        def plain_all():
-            for sh in he.shards:
-                fh.fused_halo_aggregate_plain(xs, w, sh.fused)
-
-        res["fused"] = time_kernel(fused_all, plain_all, reps=10,
-                                   plain_reps=2)
+        # order: plain, #7, earlier route, earlier route, #7, plain
+        r = res["fused"] = time_kernel(
+            over_shards(fh.fused_halo_aggregate),
+            over_shards(fh.fused_halo_aggregate_plain),
+            over_shards(fh.fused_halo_aggregate_rows), reps=10, plain_reps=2)
+        r["previous_ms"], r["library_ms"] = r["library_ms"], None
         # the validation forward's call: no halo buffer
-        res["fused"]["no_buffer_ms"] = cuda_time_ms(lambda: [
-            fh.fused_halo_aggregate(xs, w, sh.fused, want_buf=False)
-            for sh in he.shards], 10)
-        plans = [t for sh in he.shards for t in (
-            sh.fused.rowptr, sh.fused.src, sh.fused.rel, sh.fused.norm,
-            sh.fused.recv_idx)]
-        e = sum(int(sh.fused.src.numel()) for sh in he.shards)
-        out_bytes = s_n * (n_per * d_out * 4 + s_n * h * d_in
-                           * x.element_size())
-        res["fused"].update(bound(nbytes(x, w, *plans) + out_bytes,
-                                  2 * e * d_in * d_out, dtype_name(dtype)))
+        r["no_buffer_ms"] = cuda_time_ms(
+            over_shards(fh.fused_halo_aggregate, want_buf=False), 10)
+        exchange_span()
+        r["exchange_span_ms"] = cuda_time_ms(exchange_span, 10)
+        costs = [fh.fused_halo_cost(xs, w, sh.fused) for sh in he.shards]
+        r.update(bound(sum(c[0] for c in costs), sum(c[1] for c in costs),
+                       costs[0][2]))
         for key, name in (("exchange", "halo_exchange"),
                           ("fused", "fused_halo_aggregate")):
             r = res[key]
             print(f"  {tag} {name} times: {r['ms']:.4f} ms (plain "
                   f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
                   f"{r['bound_by']})", flush=True)
-        print(f"  {tag} fused_halo_aggregate without the halo buffer "
-              f"{res['fused']['no_buffer_ms']:.4f} ms", flush=True)
+        r = res["fused"]
+        print(f"  {tag} fused_halo_aggregate over {s_n} shards "
+              f"{r['ms']:.4f} ms: earlier route {r['previous_ms']:.4f}, "
+              f"without the halo buffer {r['no_buffer_ms']:.4f}, library "
+              f"exchange + span_forward on the local and halo plans "
+              f"{r['exchange_span_ms']:.4f}, plain {r['plain_ms']:.4f}, "
+              f"bound {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
         print(f"  {tag} library exchange {res['exchange']['library_exchange_ms']:.4f}"
               f" ms, transpose().contiguous() {res['exchange']['library_ms']:.4f}"
               " ms", flush=True)
@@ -757,7 +816,7 @@ def halo_phase(bench_src, bench_dst, bench_typ, splits, fits, launches,
             r = check_halo_kernels(
                 he, d_in, d_out, dtype,
                 f"bench {layer} {d_in}->{d_out} {dtype_name(dtype)}",
-                timing=layer == "layer1")
+                timing=True)
             errs["fused"] = max(errs["fused"], r["fused_err"])
             bench[(layer, dtype_name(dtype))] = r
 
@@ -769,7 +828,9 @@ def halo_phase(bench_src, bench_dst, bench_typ, splits, fits, launches,
             ("halo #7", "fused", None,
              {"fused_halo_aggregate": 16, "span_backward": 16}),
             ("halo #6 bf16", "1", "bfloat16",
-             {"halo_exchange": 6, "span_forward": 32, "span_backward": 16}))
+             {"halo_exchange": 6, "span_forward": 32, "span_backward": 16}),
+            ("halo #7 bf16", "fused", "bfloat16",
+             {"fused_halo_aggregate": 16, "span_backward": 16}))
     counts = {}
     try:
         for name, env, cd, least in runs:
@@ -788,12 +849,19 @@ def halo_phase(bench_src, bench_dst, bench_typ, splits, fits, launches,
             counts["halo library"]["fused_halo_aggregate"]:
         fail(f"library-exchange run launched {counts['halo library']}")
     # #1 and #2 against their earlier routes on the halo step (library
-    # exchange, f32), and #1 per call at the segments' sizes (shard 0)
+    # exchange, f32), #7 against its earlier route on the halo #7 step, and
+    # #1 per call at the segments' sizes (shard 0)
     halo_swap = {}
-    for kernel in ("span_forward", "span_backward"):
-        halo_swap[kernel] = s = route_swap(halo_graph, launches, kernel,
-                                           mesh=mesh, partition="halo")
-        print(f"  halo library f32 ms/step, {kernel} on the tensor cores "
+    for kernel in ("span_forward", "span_backward", "fused_halo_aggregate"):
+        mode = "#7" if kernel == "fused_halo_aggregate" else "library"
+        try:
+            if mode == "#7":
+                os.environ[EXCHANGE_ENV] = "fused"
+            halo_swap[kernel] = s = route_swap(halo_graph, launches, kernel,
+                                               mesh=mesh, partition="halo")
+        finally:
+            os.environ.pop(EXCHANGE_ENV, None)
+        print(f"  halo {mode} f32 ms/step, {kernel} on the tensor cores "
               f"{s['tensor cores']} vs its earlier route {s['rows']} "
               "(order: tensor cores, rows, rows, tensor cores)", flush=True)
     sh = he.shards[0]
@@ -1211,6 +1279,12 @@ def main() -> None:
             "max_abs_err": halo["errs"][key], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
+        if key == "fused":
+            # span_tc.cuh's chunk kernel over the shards' rows and CSR sum,
+            # then the halo buffer's copy (halo_kernels.cu fused_halo_tc)
+            kernels[-1].update(
+                kernels=["span_msg_kernel", "span_msg_sum_kernel",
+                         "halo_buf_kernel"], previous_ms=r["previous_ms"])
     kernels.append({
         "name": "span_backward_variant", "route": "cuda",
         "source": f"{PKG}/csrc/bwd_variants.cu",

@@ -22,26 +22,45 @@
 // (2-byte head and tail), else with the widest unit both allow; every
 // element is 2 or 4 bytes wide, so 2-byte units always fit.
 //
-// fused_halo_rows (kernel #7) replaces
+// fused_halo_tc (kernel #7) replaces
 //   scaling_rgcn_training_tpu/parallel/fused_halo.py:307 _fused_kernel
-// exchange, then local and halo relational aggregation in one kernel:
+// exchange, then local and halo relational aggregation:
 //   agg[n] = sum_{e: dst_e = n} norm_e * row(src_e) @ W[rel_e]
-// over one dst-sorted CSR of all of the shard's edges, local and halo, with
-// src_e the global (partition-padded) node id: row(i) is row i % n_per of
-// shard i / n_per, read straight from that shard's memory, so the halo
-// gather and the exchange both happen inside the row kernel
-// (span_rows.cuh, W staged in shared memory). The first relation pass's
-// epilogue also writes the received halo buffer, buf[p * H + j] = row
-// recv_idx[p, j] of shard p, which the backward reads. None of the TPU
-// kernel's machinery is carried over: no one-hot MXU products, no [8, 128]
-// code tiles or 128-edge chunk padding, no Python per-edge planner and no
-// padding blow-up gate; the plan is a plain CSR built in numpy. What
-// bounds it: as the span forward (#1), the per-edge row reads and
-// multiply-adds; the halo rows come from the peers' memory.
+// over all of the shard's edges, local and halo, with src_e the global
+// (partition-padded) node id: row(i) is row i % n_per of shard i / n_per,
+// read straight from that shard's memory, so the halo gather and the
+// exchange both happen inside the kernel; plus the received halo buffer
+// buf[p * H + j] = row recv_idx[p, j] of shard p, which the backward
+// reads. Three launches, no atomics, the same bits on every run:
+//   1. span_msg_kernel (span_tc.cuh), #1's chunk kernel over ShardSrc: per
+//      relation chunk of the shard's edges (the plan's chunks over the
+//      global src ids), the norm-scaled messages on the tensor cores into
+//      an [E, M] f32 scratch in relation order; a lane resolves its tile
+//      row's shard and address once a tile and the copying lanes read the
+//      row through the shuffled address, by cp.async where every shard's
+//      base allows the unit (else plain loads);
+//   2. span_msg_sum_kernel (span_tc.cuh): each dst row's messages summed
+//      in forward-CSR order through fwd_pos;
+//   3. with a buffer, halo_buf_kernel: the S * H rows copied in 16-byte
+//      units where every shard's base, the buffer and the row width allow
+//      (else 4 or 2 bytes), bit for bit.
+// float32 takes #1's split-TF32 products on the fixed-point grid with the
+// fourth product (span_fwd_tc.cu says why), bfloat16 one exact product.
+// None of the TPU kernel's machinery is carried over: no one-hot MXU
+// products, no [8, 128] code tiles or 128-edge chunk padding, no Python
+// per-edge planner and no padding blow-up gate. What bounds it on an
+// H100: as #1, the msg round trip and the gather of the rows (the halo
+// rows from the peers' memory), then the halo buffer's bytes (S * H rows
+// read and written).
+//
+// fused_halo_rows is the earlier route of #7 (span_rows.cuh's row kernel
+// over ShardRows on the CUDA cores, whose epilogue writes the buffer); it
+// stays callable as fused_halo_aggregate_rows and no main path calls it.
 
 #include <cstdint>
 
 #include "span_rows.cuh"
+#include "span_tc.cuh"
 
 namespace {
 
@@ -49,6 +68,9 @@ using span::kMaxShards;
 using span::PtrTable;
 
 constexpr int kPullThreads = 256;
+// >= kMaxShards: ShardRows::prepare copies the table one entry a thread
+constexpr int kBufThreads = 256;
+constexpr int kBufMaxBlocks = 1024;
 
 template <typename V>
 __device__ __forceinline__ void copy_units(const unsigned char* src,
@@ -109,6 +131,91 @@ cudaError_t launch_fused(const PtrTable& tab, int n_shards, int n_per,
                                 K, M, n_slots, s);
 }
 
+// Row source of span_msg_kernel over the S shards' rows (span_tc.cuh's
+// gather): a lane resolves its row's shard and address once a tile (an
+// integer division), and the copying lanes read through the shuffled
+// address. The table sits in shared memory (ShardRows::prepare).
+template <typename T>
+struct ShardSrc {
+  using Handle = const T*;
+  span::ShardRows<T> shards;
+  __device__ __forceinline__ void prepare() const { shards.prepare(); }
+  __device__ __forceinline__ Handle at(int i, int K) const {
+    return i >= 0 ? shards.row(i, K) : nullptr;
+  }
+  __device__ __forceinline__ static bool valid(Handle h) {
+    return h != nullptr;
+  }
+  __device__ __forceinline__ const T* addr(Handle h, bool valid, int k,
+                                           int) const {
+    return valid ? h + k : shards.shard(0);
+  }
+  __device__ __forceinline__ T load(Handle h, int k, int) const {
+    return h[k];
+  }
+};
+
+template <typename T>
+cudaError_t launch_fused_msg(const PtrTable& tab, int n_shards, int n_per,
+                             const void* w, const int* chunk_lo,
+                             const int* chunk_hi, const int* rel_chunk_ptr,
+                             const int* rel_src, const float* rel_norm,
+                             float* msg, int n_chunks, int K, int M,
+                             int n_slots, cudaStream_t s) {
+  // a cp.async unit must hold for every shard's rows
+  int unit = 16;
+  for (int k = 0; k < n_shards; ++k) {
+    const int u = copy_unit<T>(tab.p[k], K);
+    unit = u < unit ? u : unit;
+  }
+  const ShardSrc<T> rows{
+      span::ShardRows<T>{tab, n_per, n_shards, 0, nullptr, nullptr}};
+  return launch_msg<T>(rows, unit, w, chunk_lo, chunk_hi, rel_chunk_ptr,
+                       rel_src, rel_norm, msg, n_chunks, K, M, n_slots, s);
+}
+
+// buf[r] = row recv_idx[r] of shard r / halo for r < S * halo, in units
+// V: the rows as bytes (ShardRows over unsigned char, row_bytes wide).
+template <typename V>
+__global__ void __launch_bounds__(kBufThreads)
+halo_buf_kernel(span::ShardRows<unsigned char> rows, int row_bytes) {
+  rows.prepare();
+  __syncthreads();
+  const int per_row = row_bytes / (int)sizeof(V);
+  const long long n = (long long)rows.n_shards * rows.halo * per_row;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x; u < n;
+       u += stride) {
+    const int r = (int)(u / per_row);
+    const int c = (int)(u - (long long)r * per_row);
+    const V* from = reinterpret_cast<const V*>(
+        rows.shard(r / rows.halo) + (size_t)rows.recv_idx[r] * row_bytes);
+    V* to = reinterpret_cast<V*>(rows.buf + (size_t)r * row_bytes);
+    to[c] = from[c];
+  }
+}
+
+cudaError_t launch_buf(const PtrTable& tab, int n_shards, const int* recv_idx,
+                       void* buf, int halo, int row_bytes, cudaStream_t s) {
+  uintptr_t a = reinterpret_cast<uintptr_t>(buf) | (uintptr_t)row_bytes;
+  for (int k = 0; k < n_shards; ++k)
+    a |= reinterpret_cast<uintptr_t>(tab.p[k]);
+  const span::ShardRows<unsigned char> rows{
+      tab, 0, n_shards, halo, recv_idx, static_cast<unsigned char*>(buf)};
+  const int unit = a % 16 == 0 ? 16 : a % 4 == 0 ? 4 : 2;
+  const long long units = (long long)n_shards * halo * (row_bytes / unit);
+  long long blocks = (units + kBufThreads - 1) / kBufThreads;
+  if (blocks > kBufMaxBlocks) blocks = kBufMaxBlocks;
+  const dim3 grid((unsigned)blocks);
+  if (unit == 16)
+    halo_buf_kernel<uint4><<<grid, kBufThreads, 0, s>>>(rows, row_bytes);
+  else if (unit == 4)
+    halo_buf_kernel<unsigned int><<<grid, kBufThreads, 0, s>>>(rows, row_bytes);
+  else
+    halo_buf_kernel<unsigned short><<<grid, kBufThreads, 0, s>>>(rows, row_bytes);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -148,7 +255,46 @@ int halo_pull(const void* const* senders, int n_shards, void* out, int me,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 = float32, 1 = bfloat16. xtab[p] -> shard p's [n_per, K] rows;
+// Kernel #7. dtype: 0 = float32, 1 = bfloat16. xtab[p] -> shard p's
+// [n_per, K] rows; w holds n_slots relations of [K, M]; the chunks
+// (chunk_lo, chunk_hi, rel_chunk_ptr over the relation-ordered rel_src,
+// global node ids, and rel_norm) and the forward CSR (rowptr [n_rows + 1],
+// pos: each CSR edge's index in relation order) are the plan's; msg is an
+// [E, M] f32 scratch, out [n_rows, M] f32; buf [S * halo, K] or null, with
+// recv_idx [S * halo]. K, M <= 128 and K * M <= 4096 (the wrapper checks).
+// Returns the first error of the set-up calls or of a launch.
+int fused_halo_tc(int dtype, const void* const* xtab, int n_shards, int n_per,
+                  const void* w, const int* chunk_lo, const int* chunk_hi,
+                  const int* rel_chunk_ptr, const int* rel_src,
+                  const float* rel_norm, const int* rowptr, const int* pos,
+                  float* msg, float* out, int n_chunks, int n_rows, int K,
+                  int M, int n_slots, const int* recv_idx, void* buf,
+                  int halo, void* stream) {
+  if (n_shards < 1 || n_shards > kMaxShards) return cudaErrorInvalidValue;
+  PtrTable tab{};
+  for (int k = 0; k < n_shards; ++k) tab.p[k] = xtab[k];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+  if (n_chunks > 0)
+    err = dtype == 1
+        ? launch_fused_msg<__nv_bfloat16>(tab, n_shards, n_per, w, chunk_lo,
+                                          chunk_hi, rel_chunk_ptr, rel_src,
+                                          rel_norm, msg, n_chunks, K, M,
+                                          n_slots, s)
+        : launch_fused_msg<float>(tab, n_shards, n_per, w, chunk_lo,
+                                  chunk_hi, rel_chunk_ptr, rel_src, rel_norm,
+                                  msg, n_chunks, K, M, n_slots, s);
+  if (err == cudaSuccess && n_rows > 0)
+    err = dispatch_sum(msg, rowptr, pos, out, n_rows, M, s);
+  if (err == cudaSuccess && buf != nullptr && halo > 0)
+    err = launch_buf(tab, n_shards, recv_idx, buf, halo,
+                     K * (dtype == 1 ? 2 : 4), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The earlier route of #7: the row kernel over ShardRows. dtype: 0 =
+// float32, 1 = bfloat16. xtab[p] -> shard p's [n_per, K] rows;
 // the CSR (rowptr [n_rows + 1], src, rel, norm) is sorted by (dst, rel)
 // with src the global node id; out [n_rows, M] f32; buf [S * halo, K] or
 // null, with recv_idx [S * halo]. K, M <= 128 (the wrapper checks).

@@ -316,8 +316,10 @@ span_bwd_chunk_kernel(BwdArgs a, int unit_x, int unit_g) {
   const auto gather = [&](int s, const Edge& edge) {
     if (s * kMsgWarps + warp < n_tiles) {   // the same on every lane
       if constexpr (kDw)
-        gather_rows(tile_x(s, warp), x, edge.src, K, d.Kx, d.ldx, unit_x, lane);
-      gather_rows(tile_g(s, warp), gout, edge.dst, M, d.Mg, d.ldg, unit_g, lane);
+        gather_rows(tile_x(s, warp), DenseSrc<T>{x}, edge.src, K, d.Kx,
+                    d.ldx, unit_x, lane);
+      gather_rows(tile_g(s, warp), DenseSrc<T>{gout}, edge.dst, M, d.Mg,
+                  d.ldg, unit_g, lane);
     }
     cp_commit();
   };

@@ -16,7 +16,8 @@
 // [edges, K] x [K, M] product with a shared B operand.
 //
 // Two launches, no atomics, the same bits on every run:
-//   1. span_msg_kernel: one block of 4 warps per chunk stages W[r]^T in
+//   1. span_msg_kernel (span_tc.cuh, over a DenseSrc of x; #7 runs it over
+//      the shards' rows): one block of 4 warps per chunk stages W[r]^T in
 //      shared memory, zero-padded to [Np, Kp]; each warp takes 16 edges
 //      at a time, multiplies their rows x[rel_src[j]] by W[r] with
 //      mma.sync (m16n8k8 TF32 or m16n8k16 bf16), scales row j by
@@ -68,118 +69,16 @@
 
 namespace {
 
-// One block per chunk c of edges [chunk_lo[c], chunk_hi[c]) of one
-// relation: msg[j, :M] = rel_norm[j] * x[rel_src[j]] @ W[r], f32.
 template <typename T>
-__global__ void __launch_bounds__(kMsgThreads)
-span_msg_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                const int* __restrict__ chunk_lo,
-                const int* __restrict__ chunk_hi,
-                const int* __restrict__ rel_chunk_ptr,
-                const int* __restrict__ rel_src,
-                const float* __restrict__ rel_norm, float* __restrict__ msg,
-                int K, int M, int n_slots, int unit) {
-  constexpr bool kF32 = TileDims<T>::kSplit;
-  const TileDims<T> d(K, M);
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float col_top[kMaxM];
-  T* w_big = reinterpret_cast<T*>(smem);
-  T* w_small = w_big + d.w_elems;   // float32 only
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  unsigned char* bufs = smem + d.w_bytes + warp * 2 * d.x_bytes;
-
-  const int c = blockIdx.x;
-  const int lo = chunk_lo[c];
-  const int hi = chunk_hi[c];
-  const T* wr = w + (size_t)chunk_relation(rel_chunk_ptr, c, n_slots) * K * M;
-  if constexpr (kF32) {
-    for (int n = threadIdx.x; n < d.Np; n += blockDim.x) {
-      float top = 0.f;
-      if (n < M)
-        for (int k = 0; k < K; ++k) top = fmaxf(top, fabsf(wr[k * M + n]));
-      col_top[n] = top;
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < d.Np * d.Kp; i += blockDim.x) {
-    const int n = i / d.Kp;
-    const int k = i - n * d.Kp;
-    const T v = n < M && k < K ? wr[k * M + n] : zero<T>();
-    const size_t at = (size_t)n * d.ld + k;
-    if constexpr (kF32) {
-      const float b = Grid(col_top[n]).big(v);
-      w_big[at] = b;
-      w_small[at] = tf32_round(v - b);
-    } else {
-      w_big[at] = v;
-    }
-  }
-  __syncthreads();
-
-  const int g = lane >> 2;
-  // each warp owns the chunk's 16-edge tiles warp, warp + 4, ...: its own
-  // x rows in shared memory, so only W needs the block's barrier. Lane
-  // r < 16 loads edge r's source row and norm one tile ahead of the
-  // gather, which runs one tile ahead of the products.
-  const int n_tiles = (hi - lo + 15) >> 4;
-  const auto edge_src = [&](int tile) {
-    const int e = lo + tile * 16 + (lane & 15);
-    return tile < n_tiles && e < hi ? rel_src[e] : -1;
-  };
-  const auto edge_norm = [&](int tile) {
-    const int e = lo + tile * 16 + (lane & 15);
-    return tile < n_tiles && e < hi ? rel_norm[e] : 0.f;
-  };
-  int tile = warp;
-  if (tile < n_tiles)
-    gather_rows(reinterpret_cast<T*>(bufs), x, edge_src(tile), K, d.Kp, d.ld,
-                unit, lane);
-  cp_commit();
-  float my_norm = edge_norm(tile);
-  int src_next = edge_src(tile + kMsgWarps);
-  float norm_next = edge_norm(tile + kMsgWarps);
-  for (int it = 0; tile < n_tiles; ++it, tile += kMsgWarps) {
-    const T* xs = reinterpret_cast<const T*>(bufs + (it & 1) * d.x_bytes);
-    if (tile + kMsgWarps < n_tiles)
-      gather_rows(reinterpret_cast<T*>(bufs + ((it + 1) & 1) * d.x_bytes), x,
-                  src_next, K, d.Kp, d.ld, unit, lane);
-    cp_commit();
-    const int src_after = edge_src(tile + 2 * kMsgWarps);
-    const float norm_after = edge_norm(tile + 2 * kMsgWarps);
-    cp_wait<1>();   // all but the newest copies: this tile's rows
-    __syncwarp();
-    const int base = lo + tile * 16;
-    tile_times_staged(xs, d.ld, d.Kp, w_big, w_small, d.ld, d.Np, M, msg,
-                      (size_t)base, hi - base, __shfl_sync(kFull, my_norm, g),
-                      __shfl_sync(kFull, my_norm, g + 8), lane);
-    __syncwarp();
-    my_norm = norm_next;
-    src_next = src_after;
-    norm_next = norm_after;
-  }
-  cp_wait<0>();
-}
-
-template <typename T>
-cudaError_t launch_msg(const void* x, const void* w, const int* chunk_lo,
-                       const int* chunk_hi, const int* rel_chunk_ptr,
-                       const int* rel_src, const float* rel_norm, float* msg,
-                       int n_chunks, int K, int M, int n_slots,
-                       cudaStream_t stream) {
-  const size_t smem = TileDims<T>(K, M).smem();
-  auto kernel = span_msg_kernel<T>;
-  const int unit = copy_unit<T>(x, K);
-  // a host call each launch: only for the widths past the default 48 KiB
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<n_chunks, kMsgThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), chunk_lo, chunk_hi,
-      rel_chunk_ptr, rel_src, rel_norm, msg, K, M, n_slots, unit);
-  return cudaGetLastError();
+cudaError_t launch_dense(const void* x, const void* w, const int* chunk_lo,
+                         const int* chunk_hi, const int* rel_chunk_ptr,
+                         const int* rel_src, const float* rel_norm, float* msg,
+                         int n_chunks, int K, int M, int n_slots,
+                         cudaStream_t s) {
+  return launch_msg<T>(DenseSrc<T>{static_cast<const T*>(x)},
+                       copy_unit<T>(x, K), w, chunk_lo, chunk_hi,
+                       rel_chunk_ptr, rel_src, rel_norm, msg, n_chunks, K, M,
+                       n_slots, s);
 }
 
 }  // namespace
@@ -199,11 +98,12 @@ int span_fwd_tc(int dtype, const void* x, const void* w, const int* chunk_lo,
   cudaError_t err = cudaSuccess;
   if (n_chunks > 0)
     err = dtype == 1
-        ? launch_msg<__nv_bfloat16>(x, w, chunk_lo, chunk_hi, rel_chunk_ptr,
-                                    rel_src, rel_norm, msg, n_chunks, K, M,
-                                    n_slots, s)
-        : launch_msg<float>(x, w, chunk_lo, chunk_hi, rel_chunk_ptr, rel_src,
-                            rel_norm, msg, n_chunks, K, M, n_slots, s);
+        ? launch_dense<__nv_bfloat16>(x, w, chunk_lo, chunk_hi,
+                                      rel_chunk_ptr, rel_src, rel_norm, msg,
+                                      n_chunks, K, M, n_slots, s)
+        : launch_dense<float>(x, w, chunk_lo, chunk_hi, rel_chunk_ptr,
+                              rel_src, rel_norm, msg, n_chunks, K, M, n_slots,
+                              s);
   if (err == cudaSuccess && n_rows > 0)
     err = dispatch_sum(msg, rowptr, pos, out, n_rows, M, s);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -1,10 +1,12 @@
 // Device helpers of the span kernels on Hopper's tensor cores (sm_90a),
-// shared by span_fwd_tc.cu (kernel #1) and span_bwd_tc.cu (kernel #2):
-// the mma tile shapes, the split of float32 operands into a big part on a
-// fixed-point grid and a TF32 small part (span_fwd_tc.cu says why), the
-// mma.sync and cp.async wrappers in inline PTX, the warp's row gather, the
-// product of a warp's 16-row tile with a staged B operand, the fixed-order
-// CSR sum of per-edge messages and the chunk-ordered reduce of dW partials.
+// shared by span_fwd_tc.cu (kernel #1), span_bwd_tc.cu (kernel #2) and
+// halo_kernels.cu (kernel #7): the mma tile shapes, the split of float32
+// operands into a big part on a fixed-point grid and a TF32 small part
+// (span_fwd_tc.cu says why), the mma.sync and cp.async wrappers in inline
+// PTX, the warp's row gather over a row source, the product of a warp's
+// 16-row tile with a staged B operand, the chunk kernel of per-edge
+// messages (#1 and #7), the fixed-order CSR sum of per-edge messages and
+// the chunk-ordered reduce of dW partials.
 //
 // Fragments (PTX ISA, mma.m16n8k8 / m16n8k16): lane = 4 g + t holds rows g
 // and g + 8 of A, column g of B and of the sums, columns 2 t, 2 t + 1.
@@ -228,16 +230,53 @@ int copy_unit(const void* rows, int K) {
          : K % per4 == 0 && at % 4 == 0 ? 4 : 0;
 }
 
-// The warp's 16 rows of x into xs [16, ld], zero-padded to Kp columns
-// (lane r < 16 holds row r's source row src, -1 for none; Kp is a multiple
-// of the mma depth). unit: the bytes of one cp.async (copy_unit), or 0:
-// plain loads and stores, kGatherBatch loads in flight per lane. Copy
-// (element) c = lane + 32 i is row c / kc, unit c % kc of it; a lane walks
-// its copies by (32 / kc, 32 % kc) steps.
+// Row sources of the gather. Lane r < 16 resolves its tile row's source
+// once a tile (at(): a handle, invalid for src -1), and the lanes that copy
+// the row read it through the shuffled handle: addr() is the address of
+// element k of the row (any readable address for an invalid handle: a
+// cp.async of 0 bytes), load() the element itself. DenseSrc is row i of
+// one [n, K] matrix (#1, #2; its arithmetic is that of a plain pointer);
+// halo_kernels.cu's ShardSrc is row i of the S shards' rows, read where
+// each shard keeps it (#7). prepare() runs once a block before its first
+// barrier.
 template <typename T>
-__device__ __forceinline__ void gather_rows(T* xs, const T* __restrict__ x,
-                                            int src, int K, int Kp, int ld,
-                                            int unit, int lane) {
+struct DenseSrc {
+  using Handle = int;
+  const T* __restrict__ x;
+  __device__ __forceinline__ void prepare() const {}
+  __device__ __forceinline__ Handle at(int i, int) const { return i; }
+  __device__ __forceinline__ static bool valid(Handle h) { return h >= 0; }
+  __device__ __forceinline__ const T* addr(Handle h, bool valid, int k,
+                                           int K) const {
+    return x + (valid ? (size_t)h * K + k : 0);
+  }
+  __device__ __forceinline__ T load(Handle h, int k, int K) const {
+    return x[(size_t)h * K + k];
+  }
+};
+
+// lane `from`'s handle: a row index, or a row's address
+__device__ __forceinline__ int shfl_handle(int h, int from) {
+  return __shfl_sync(kFull, h, from);
+}
+template <typename T>
+__device__ __forceinline__ const T* shfl_handle(const T* h, int from) {
+  return reinterpret_cast<const T*>(__shfl_sync(
+      kFull, reinterpret_cast<unsigned long long>(h), from));
+}
+
+// The warp's 16 rows of a source into xs [16, ld], zero-padded to Kp
+// columns (lane r < 16 holds row r's source row src, -1 for none; Kp is a
+// multiple of the mma depth). unit: the bytes of one cp.async (copy_unit,
+// for every row the source may give), or 0: plain loads and stores,
+// kGatherBatch loads in flight per lane. Copy (element) c = lane + 32 i is
+// row c / kc, unit c % kc of it; a lane walks its copies by (32 / kc, 32 %
+// kc) steps.
+template <typename T, typename Src>
+__device__ __forceinline__ void gather_rows(T* xs, const Src& rows, int src,
+                                            int K, int Kp, int ld, int unit,
+                                            int lane) {
+  const typename Src::Handle mine = rows.at(src, K);
   const int v = unit > 0 ? unit / (int)sizeof(T) : 1;   // elements a copy
   const int kc = Kp / v;
   const int n_cp = 16 * kc;   // a multiple of 32
@@ -245,10 +284,10 @@ __device__ __forceinline__ void gather_rows(T* xs, const T* __restrict__ x,
   int rr = lane / kc, cu = lane % kc;
   if (unit > 0) {
     for (int c0 = 0; c0 < n_cp; c0 += 32) {
-      const int s = __shfl_sync(kFull, src, rr);
+      const auto s = shfl_handle(mine, rr);
       const int k = cu * v;
-      const bool valid = s >= 0 && k < K;
-      const T* from = x + (valid ? (size_t)s * K + k : 0);
+      const bool valid = Src::valid(s) && k < K;
+      const T* from = rows.addr(s, valid, k, K);
       T* to = xs + rr * ld + k;
       if (unit == 16) cp_async16(to, from, valid ? 16 : 0);
       else cp_async4(to, from, valid ? 4 : 0);
@@ -267,9 +306,9 @@ __device__ __forceinline__ void gather_rows(T* xs, const T* __restrict__ x,
 #pragma unroll
     for (int b = 0; b < kGatherBatch; ++b) {
       const bool in = c0 + 32 * b < n_cp;   // the same on every lane
-      const int s = __shfl_sync(kFull, src, in ? rr : 0);
+      const auto s = shfl_handle(mine, in ? rr : 0);
       at[b] = in ? rr * ld + cu : -1;
-      val[b] = in && s >= 0 && cu < K ? x[(size_t)s * K + cu] : zero<T>();
+      val[b] = in && Src::valid(s) && cu < K ? rows.load(s, cu, K) : zero<T>();
       rr += step_rows;
       cu += step_cols;
       if (cu >= kc) {
@@ -380,6 +419,127 @@ __device__ __forceinline__ int chunk_relation(const int* __restrict__ rel_chunk_
     if (rel_chunk_ptr[mid] <= c) r = mid; else r_end = mid;
   }
   return r;
+}
+
+// The chunk kernel of #1 (span_fwd_tc.cu says how it works) and #7
+// (halo_kernels.cu): one block per chunk c of edges [chunk_lo[c],
+// chunk_hi[c]) of one relation, msg[j, :M] = rel_norm[j] * row(rel_src[j])
+// @ W[r], f32, with row() from the source (DenseSrc, or #7's ShardSrc).
+template <typename T, typename Src>
+__global__ void __launch_bounds__(kMsgThreads)
+span_msg_kernel(Src rows, const T* __restrict__ w,
+                const int* __restrict__ chunk_lo,
+                const int* __restrict__ chunk_hi,
+                const int* __restrict__ rel_chunk_ptr,
+                const int* __restrict__ rel_src,
+                const float* __restrict__ rel_norm, float* __restrict__ msg,
+                int K, int M, int n_slots, int unit) {
+  constexpr bool kF32 = TileDims<T>::kSplit;
+  const TileDims<T> d(K, M);
+  extern __shared__ __align__(16) unsigned char msg_smem[];
+  __shared__ float col_top[kMaxM];
+  T* w_big = reinterpret_cast<T*>(msg_smem);
+  T* w_small = w_big + d.w_elems;   // float32 only
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  rows.prepare();   // before the block's barriers below
+  unsigned char* bufs = msg_smem + d.w_bytes + warp * 2 * d.x_bytes;
+
+  const int c = blockIdx.x;
+  const int lo = chunk_lo[c];
+  const int hi = chunk_hi[c];
+  const T* wr = w + (size_t)chunk_relation(rel_chunk_ptr, c, n_slots) * K * M;
+  if constexpr (kF32) {
+    for (int n = threadIdx.x; n < d.Np; n += blockDim.x) {
+      float top = 0.f;
+      if (n < M)
+        for (int k = 0; k < K; ++k) top = fmaxf(top, fabsf(wr[k * M + n]));
+      col_top[n] = top;
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < d.Np * d.Kp; i += blockDim.x) {
+    const int n = i / d.Kp;
+    const int k = i - n * d.Kp;
+    const T v = n < M && k < K ? wr[k * M + n] : zero<T>();
+    const size_t at = (size_t)n * d.ld + k;
+    if constexpr (kF32) {
+      const float b = Grid(col_top[n]).big(v);
+      w_big[at] = b;
+      w_small[at] = tf32_round(v - b);
+    } else {
+      w_big[at] = v;
+    }
+  }
+  __syncthreads();
+
+  const int g = lane >> 2;
+  // each warp owns the chunk's 16-edge tiles warp, warp + 4, ...: its own
+  // x rows in shared memory, so only W needs the block's barrier. Lane
+  // r < 16 loads edge r's source row and norm one tile ahead of the
+  // gather, which runs one tile ahead of the products.
+  const int n_tiles = (hi - lo + 15) >> 4;
+  const auto edge_src = [&](int tile) {
+    const int e = lo + tile * 16 + (lane & 15);
+    return tile < n_tiles && e < hi ? rel_src[e] : -1;
+  };
+  const auto edge_norm = [&](int tile) {
+    const int e = lo + tile * 16 + (lane & 15);
+    return tile < n_tiles && e < hi ? rel_norm[e] : 0.f;
+  };
+  int tile = warp;
+  if (tile < n_tiles)
+    gather_rows(reinterpret_cast<T*>(bufs), rows, edge_src(tile), K, d.Kp,
+                d.ld, unit, lane);
+  cp_commit();
+  float my_norm = edge_norm(tile);
+  int src_next = edge_src(tile + kMsgWarps);
+  float norm_next = edge_norm(tile + kMsgWarps);
+  for (int it = 0; tile < n_tiles; ++it, tile += kMsgWarps) {
+    const T* xs = reinterpret_cast<const T*>(bufs + (it & 1) * d.x_bytes);
+    if (tile + kMsgWarps < n_tiles)
+      gather_rows(reinterpret_cast<T*>(bufs + ((it + 1) & 1) * d.x_bytes),
+                  rows, src_next, K, d.Kp, d.ld, unit, lane);
+    cp_commit();
+    const int src_after = edge_src(tile + 2 * kMsgWarps);
+    const float norm_after = edge_norm(tile + 2 * kMsgWarps);
+    cp_wait<1>();   // all but the newest copies: this tile's rows
+    __syncwarp();
+    const int base = lo + tile * 16;
+    tile_times_staged(xs, d.ld, d.Kp, w_big, w_small, d.ld, d.Np, M, msg,
+                      (size_t)base, hi - base, __shfl_sync(kFull, my_norm, g),
+                      __shfl_sync(kFull, my_norm, g + 8), lane);
+    __syncwarp();
+    my_norm = norm_next;
+    src_next = src_after;
+    norm_next = norm_after;
+  }
+  cp_wait<0>();
+}
+
+// Static shared memory of span_msg_kernel, at most: col_top and a source's
+// table (ShardSrc: 64 pointers).
+constexpr size_t kMsgStaticSmem = 1024;
+
+// span_msg_kernel over n_chunks chunks; unit: the source's copy_unit.
+template <typename T, typename Src>
+cudaError_t launch_msg(const Src& rows, int unit, const void* w,
+                       const int* chunk_lo, const int* chunk_hi,
+                       const int* rel_chunk_ptr, const int* rel_src,
+                       const float* rel_norm, float* msg, int n_chunks, int K,
+                       int M, int n_slots, cudaStream_t stream) {
+  const size_t smem = TileDims<T>(K, M).smem();
+  auto kernel = span_msg_kernel<T, Src>;
+  // a host call each launch: only for the widths past the default 48 KiB
+  if (smem + kMsgStaticSmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<n_chunks, kMsgThreads, smem, stream>>>(
+      rows, static_cast<const T*>(w), chunk_lo, chunk_hi, rel_chunk_ptr,
+      rel_src, rel_norm, msg, K, M, n_slots, unit);
+  return cudaGetLastError();
 }
 
 // G lanes own one output row (32 / G rows per warp), OC columns per lane:

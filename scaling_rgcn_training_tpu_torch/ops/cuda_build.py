@@ -37,6 +37,7 @@ LAUNCHES: Dict[str, int] = {
     "span_backward_half": 0, "span_backward_rows": 0, "segment_sum": 0,
     "grouped_matmul": 0, "grouped_drhs": 0,
     "halo_exchange": 0, "fused_halo_aggregate": 0,
+    "fused_halo_aggregate_rows": 0,
     "span_backward_variant": 0}
 
 # ptxas report (registers, shared memory, spills) of each source built by

@@ -144,6 +144,29 @@ def check_edges(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
     return src, dst, rel, norm
 
 
+def relation_chunks(src: np.ndarray, rel: np.ndarray, num_src: int,
+                    num_slots: int):
+    """The relation order of the edges and its chunks, as numpy arrays:
+    ``r_order`` sorts the edges by ``(rel, src)``, ``rel_rank`` is each
+    edge's index in that order, ``rel_edge_ptr [slots + 1]`` (int64) and
+    ``rel_chunk_ptr [slots + 1]`` bound each relation's edges and chunks,
+    and chunk ``c`` holds edges ``[chunk_lo[c], chunk_hi[c])``, at most
+    ``DW_CHUNK`` of one relation."""
+    r_order = np.argsort(rel.astype(np.int64) * max(num_src, 1) + src,
+                         kind="stable")
+    rel_counts = np.bincount(rel, minlength=num_slots)
+    rel_edge_ptr = np.concatenate([[0], np.cumsum(rel_counts)]).astype(np.int64)
+    n_chunk = -(-rel_counts // DW_CHUNK)
+    rel_chunk_ptr = np.concatenate([[0], np.cumsum(n_chunk)]).astype(np.int32)
+    chunk_rel = np.repeat(np.arange(num_slots), n_chunk)
+    within = np.arange(chunk_rel.shape[0]) - rel_chunk_ptr[chunk_rel]
+    chunk_lo = rel_edge_ptr[chunk_rel] + within * DW_CHUNK
+    chunk_hi = np.minimum(chunk_lo + DW_CHUNK, rel_edge_ptr[chunk_rel + 1])
+    rel_rank = np.empty(r_order.shape[0], np.int64)
+    rel_rank[r_order] = np.arange(r_order.shape[0])
+    return r_order, rel_rank, rel_edge_ptr, rel_chunk_ptr, chunk_lo, chunk_hi
+
+
 def plan_span(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
               norm: np.ndarray, num_nodes: int, num_slots: int,
               device="cpu", num_src: Optional[int] = None) -> SpanPlan:
@@ -155,19 +178,8 @@ def plan_span(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
 
     f_order, f_rowptr = _csr(dst, rel, num_nodes, num_slots)
     b_order, b_rowptr = _csr(src, rel, num_src, num_slots)
-    r_order = np.argsort(rel.astype(np.int64) * max(num_src, 1) + src,
-                         kind="stable")
-    rel_counts = np.bincount(rel, minlength=num_slots)
-    rel_edge_ptr = np.concatenate([[0], np.cumsum(rel_counts)]).astype(np.int64)
-
-    n_chunk = -(-rel_counts // DW_CHUNK)
-    rel_chunk_ptr = np.concatenate([[0], np.cumsum(n_chunk)]).astype(np.int32)
-    chunk_rel = np.repeat(np.arange(num_slots), n_chunk)
-    within = np.arange(chunk_rel.shape[0]) - rel_chunk_ptr[chunk_rel]
-    chunk_lo = rel_edge_ptr[chunk_rel] + within * DW_CHUNK
-    chunk_hi = np.minimum(chunk_lo + DW_CHUNK, rel_edge_ptr[chunk_rel + 1])
-    rel_rank = np.empty(r_order.shape[0], np.int64)
-    rel_rank[r_order] = np.arange(r_order.shape[0])
+    r_order, rel_rank, rel_edge_ptr, rel_chunk_ptr, chunk_lo, chunk_hi = \
+        relation_chunks(src, rel, num_src, num_slots)
 
     t = lambda a, dtype=torch.int32: torch.as_tensor(
         np.ascontiguousarray(a)).to(dtype).to(device)

@@ -14,14 +14,21 @@ kernel also writes the received halo buffer ``buf [S * H, d]``,
 ``buf[p * H + j] = x_own_p[recv_idx[p, j]]`` (what the library exchange
 would deliver), which the backward reads.
 
-:func:`fused_halo_aggregate` launches ``fused_halo_rows``
-(``csrc/halo_kernels.cu``, the span row kernel over a table of the S
-shards' rows), which replaces the TPU kernel
-``scaling_rgcn_training_tpu/parallel/fused_halo.py:307`` ``_fused_kernel``;
-on the CPU it runs :func:`fused_halo_aggregate_plain`. The plan
-(:class:`FusedHaloPlan`) is one dst-sorted CSR built in numpy, with no
-padding: none of the TPU plan's tile packing, chunk padding, per-edge
-Python planner or blow-up gate is needed.
+:func:`fused_halo_aggregate` replaces the TPU kernel
+``scaling_rgcn_training_tpu/parallel/fused_halo.py:307`` ``_fused_kernel``
+with ``fused_halo_tc`` (``csrc/halo_kernels.cu``): #1's chunk kernel
+``span_msg_kernel`` over a row source of the S shards' rows (per relation
+chunk, the messages on the tensor cores into an ``[E, d_out]`` float32
+scratch), ``span_msg_sum_kernel`` (each dst row's messages in forward-CSR
+order) and, with the buffer, ``halo_buf_kernel``. On the CPU it runs
+:func:`fused_halo_aggregate_plain`. The plan (:class:`FusedHaloPlan`) is
+built in numpy with no padding: the dst-sorted CSR and #1's relation
+chunks over the global src ids (``span_kernels.relation_chunks``); none of
+the TPU plan's tile packing, chunk padding, per-edge Python planner or
+blow-up gate is needed. :func:`fused_halo_aggregate_rows` keeps the
+earlier route (the CUDA-core row kernel over the shards' rows), and
+:func:`fused_halo_aggregate_tiled_plain` is the kernel's dataflow in
+PyTorch; no main path calls either.
 
 :class:`FusedHaloApply` follows the JAX package's ``_fused_apply_bwd``:
 the span backward (#2) over each shard's local and halo plans, then the
@@ -40,7 +47,8 @@ import torch
 from scaling_rgcn_training_tpu_torch.ops import cuda_build
 from scaling_rgcn_training_tpu_torch.ops.cuda_build import LAUNCHES
 from scaling_rgcn_training_tpu_torch.ops.span_kernels import (
-    _acc_dtype, _csr, _cuda_dtype_code, _check_widths, span_backward)
+    _acc_dtype, _csr, _cuda_dtype_code, _check_widths, check_edges,
+    relation_chunks, span_backward, span_forward_tiled_plain)
 from scaling_rgcn_training_tpu_torch.parallel.ring_halo import (
     connect, halo_exchange_library, halo_kernels, on_cards, pointer_table,
     release_sources, wait_for_sources)
@@ -49,10 +57,21 @@ from scaling_rgcn_training_tpu_torch.parallel.ring_halo import (
 @dataclasses.dataclass(frozen=True)
 class FusedHaloPlan:
     """Shard ``shard``'s plan for kernel #7, int32/float32 tensors on its
-    device: the CSR by ``(dst, rel)`` of all its edges, ``rowptr
-    [n_per + 1]``, ``src`` (global node ids), ``rel``, ``norm``; and
-    ``recv_idx [S * H]``, the rows each peer ships to it (peer-major: the
-    JAX plan's ``send_idx[p, shard]``)."""
+    device, over all its edges with ``src`` the global node id:
+
+    - the CSR by ``(dst, rel)``: ``rowptr [n_per + 1]``, ``src``, ``rel``,
+      ``norm`` (the earlier route's and the plain version's), and
+      ``fwd_pos``, each CSR edge's index in the relation order below;
+    - #1's layout: the edges by ``(rel, src)``, ``rel_src``, ``rel_norm``,
+      cut into chunks ``[chunk_lo, chunk_hi)`` of at most ``DW_CHUNK``
+      edges of one relation, relation ``r`` owning chunks
+      ``rel_chunk_ptr[r]:rel_chunk_ptr[r+1]``;
+    - ``recv_idx [S * H]``, the rows each peer ships to it (peer-major:
+      the JAX plan's ``send_idx[p, shard]``).
+
+    ``num_nodes`` and ``fwd_rowptr`` name ``n_per`` and ``rowptr`` as a
+    :class:`~scaling_rgcn_training_tpu_torch.ops.span_kernels.SpanPlan`
+    does, so ``span_forward_tiled_plain`` reads the plan as it is."""
 
     shard: int
     num_shards: int
@@ -63,22 +82,49 @@ class FusedHaloPlan:
     src: torch.Tensor
     rel: torch.Tensor
     norm: torch.Tensor
+    fwd_pos: torch.Tensor
+    rel_src: torch.Tensor
+    rel_norm: torch.Tensor
+    chunk_lo: torch.Tensor
+    chunk_hi: torch.Tensor
+    rel_chunk_ptr: torch.Tensor
     recv_idx: torch.Tensor
+
+    @property
+    def num_nodes(self) -> int:
+        return self.n_per
+
+    @property
+    def fwd_rowptr(self) -> torch.Tensor:
+        return self.rowptr
+
+    @property
+    def num_chunks(self) -> int:
+        return int(self.chunk_lo.shape[0])
 
 
 def plan_fused_halo(shard: int, src: np.ndarray, dst: np.ndarray,
                     rel: np.ndarray, norm: np.ndarray, recv_idx: np.ndarray,
                     n_per: int, halo: int, num_shards: int, num_slots: int,
                     device="cpu") -> FusedHaloPlan:
-    """From the shard's edges: global ``src``, owner-local ``dst``."""
-    order, rowptr = _csr(np.asarray(dst, np.int32), rel, n_per, num_slots)
+    """From the shard's edges: global ``src`` (``< num_shards * n_per``),
+    owner-local ``dst``."""
+    num_src = num_shards * n_per
+    src, dst, rel, norm = check_edges(src, dst, rel, norm, n_per, num_slots,
+                                      num_src)
+    order, rowptr = _csr(dst, rel, n_per, num_slots)
+    r_order, rel_rank, _, rel_chunk_ptr, chunk_lo, chunk_hi = \
+        relation_chunks(src, rel, num_src, num_slots)
     t = lambda a, dtype=torch.int32: torch.as_tensor(
         np.ascontiguousarray(a)).to(dtype).to(device)
     return FusedHaloPlan(
         shard=int(shard), num_shards=int(num_shards), n_per=int(n_per),
         halo=int(halo), num_slots=int(num_slots), rowptr=t(rowptr),
         src=t(src[order]), rel=t(rel[order]),
-        norm=t(norm[order], torch.float32),
+        norm=t(norm[order], torch.float32), fwd_pos=t(rel_rank[order]),
+        rel_src=t(src[r_order]), rel_norm=t(norm[r_order], torch.float32),
+        chunk_lo=t(chunk_lo), chunk_hi=t(chunk_hi),
+        rel_chunk_ptr=t(rel_chunk_ptr),
         recv_idx=t(np.asarray(recv_idx).reshape(-1)))
 
 
@@ -129,42 +175,130 @@ def fused_halo_aggregate_plain(x_owns: Sequence[torch.Tensor],
     return out, buf
 
 
-def fused_halo_aggregate(x_owns: Sequence[torch.Tensor], w: torch.Tensor,
-                         plan: FusedHaloPlan, want_buf: bool = True
-                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Kernel #7 for shard ``plan.shard``: ``x_owns[p] [n_per, d_in]`` on
-    shard ``p``'s device, ``w [slots, d_in, d_out]`` on this shard's ->
-    ``agg [n_per, d_out]`` float32 and, with ``want_buf``, the halo buffer
-    ``[S * H, d_in]`` in ``w``'s dtype (else None)."""
+def fused_halo_aggregate_tiled_plain(
+        x_owns: Sequence[torch.Tensor], w: torch.Tensor, plan: FusedHaloPlan,
+        want_buf: bool = True
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Kernel #7 in its CUDA dataflow, for tests and chip_smoke.py: each
+    chunk's messages in relation order, then each dst row's sum through
+    ``fwd_pos`` (``span_forward_tiled_plain`` over the combined rows), and
+    the halo buffer as the plain version gives it."""
+    dev = w.device
+    out = span_forward_tiled_plain(torch.cat([x.to(dev) for x in x_owns]),
+                                   w, plan)
+    buf = _halo_buffer_plain(x_owns, plan, dev) if want_buf else None
+    return out, buf
+
+
+def _on_card(x_owns: Sequence[torch.Tensor], w: torch.Tensor,
+             plan: FusedHaloPlan, want_buf: bool, name: str, launch
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One call of a route of #7 for shard ``plan.shard``: the plain
+    version when the tensors lie on the CPU; on the card, after checking
+    the types, widths and this shard's device, ``launch(lib, out, buf,
+    stream)`` with ``out [n_per, d_out]`` float32 and ``buf`` (or None)
+    allocated, this shard's stream ordered after and before the other
+    cards' streams, and its error checked; counts one launch of ``name``."""
     _check(x_owns, w, plan)
     if not on_cards([*x_owns, w, plan.src]):
         return fused_halo_aggregate_plain(x_owns, w, plan, want_buf)
-    code = _cuda_dtype_code(*x_owns, w)
-    slots, d_in, d_out = w.shape
-    _check_widths(d_in, d_out)
+    _cuda_dtype_code(*x_owns, w)
+    _check_widths(w.shape[1], w.shape[2])
     dev = w.device
     if plan.src.device != dev or x_owns[plan.shard].device != dev:
         raise ValueError(f"shard {plan.shard}'s x_own, w and plan must lie on "
                          "one device")
     lib = halo_kernels()
     connect(lib, dev, x_owns)
-    out = torch.empty(plan.n_per, d_out, dtype=torch.float32, device=dev)
-    buf = torch.empty(plan.num_shards * plan.halo, d_in, dtype=w.dtype,
+    out = torch.empty(plan.n_per, w.shape[2], dtype=torch.float32, device=dev)
+    buf = torch.empty(plan.num_shards * plan.halo, w.shape[1], dtype=w.dtype,
                       device=dev) if want_buf else None
     stream = torch.cuda.current_stream(dev)
     with torch.cuda.device(dev):
         wait_for_sources(stream, x_owns)
-        err = lib.fused_halo_rows(
-            code, pointer_table(x_owns), plan.num_shards, plan.n_per,
-            w.data_ptr(), plan.rowptr.data_ptr(), plan.src.data_ptr(),
-            plan.rel.data_ptr(), plan.norm.data_ptr(), out.data_ptr(),
-            plan.n_per, d_in, d_out, slots, plan.recv_idx.data_ptr(),
-            None if buf is None else buf.data_ptr(), plan.halo,
-            stream.cuda_stream)
-        cuda_build.check_launch(lib, err, "fused_halo_aggregate")
+        err = launch(lib, out, buf, stream.cuda_stream)
+        cuda_build.check_launch(lib, err, name)
         release_sources(stream, x_owns)
-    LAUNCHES["fused_halo_aggregate"] += 1
+    LAUNCHES[name] += 1
     return out, buf
+
+
+def fused_halo_aggregate(x_owns: Sequence[torch.Tensor], w: torch.Tensor,
+                         plan: FusedHaloPlan, want_buf: bool = True
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Kernel #7 for shard ``plan.shard``: ``x_owns[p] [n_per, d_in]`` on
+    shard ``p``'s device, ``w [slots, d_in, d_out]`` on this shard's ->
+    ``agg [n_per, d_out]`` float32 and, with ``want_buf``, the halo buffer
+    ``[S * H, d_in]`` in ``w``'s dtype (else None). On the card the three
+    kernels of ``fused_halo_tc`` (``csrc/halo_kernels.cu``), with an
+    ``[E, d_out]`` float32 scratch of messages."""
+    slots, d_in, d_out = w.shape
+
+    def launch(lib, out, buf, stream):
+        msg = torch.empty(plan.fwd_pos.shape[0], d_out, dtype=torch.float32,
+                          device=out.device)
+        return lib.fused_halo_tc(
+            _cuda_dtype_code(w), pointer_table(x_owns), plan.num_shards,
+            plan.n_per, w.data_ptr(), plan.chunk_lo.data_ptr(),
+            plan.chunk_hi.data_ptr(), plan.rel_chunk_ptr.data_ptr(),
+            plan.rel_src.data_ptr(), plan.rel_norm.data_ptr(),
+            plan.rowptr.data_ptr(), plan.fwd_pos.data_ptr(), msg.data_ptr(),
+            out.data_ptr(), plan.num_chunks, plan.n_per, d_in, d_out, slots,
+            plan.recv_idx.data_ptr(),
+            None if buf is None else buf.data_ptr(), plan.halo, stream)
+
+    return _on_card(x_owns, w, plan, want_buf, "fused_halo_aggregate", launch)
+
+
+def fused_halo_aggregate_rows(x_owns: Sequence[torch.Tensor],
+                              w: torch.Tensor, plan: FusedHaloPlan,
+                              want_buf: bool = True
+                              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """:func:`fused_halo_aggregate` by the earlier route, ``fused_halo_rows``
+    (``csrc/span_rows.cuh``'s row kernel over the shards' rows: one warp
+    per dst row, scalar FMAs on the CUDA cores, the buffer in its
+    epilogue). No main path calls it: chip_smoke.py times it beside #7."""
+    slots, d_in, d_out = w.shape
+
+    def launch(lib, out, buf, stream):
+        return lib.fused_halo_rows(
+            _cuda_dtype_code(w), pointer_table(x_owns), plan.num_shards,
+            plan.n_per, w.data_ptr(), plan.rowptr.data_ptr(),
+            plan.src.data_ptr(), plan.rel.data_ptr(), plan.norm.data_ptr(),
+            out.data_ptr(), plan.n_per, d_in, d_out, slots,
+            plan.recv_idx.data_ptr(),
+            None if buf is None else buf.data_ptr(), plan.halo, stream)
+
+    return _on_card(x_owns, w, plan, want_buf, "fused_halo_aggregate_rows",
+                    launch)
+
+
+def fused_halo_cost(x_owns: Sequence[torch.Tensor], w: torch.Tensor,
+                    plan: FusedHaloPlan, want_buf: bool = True
+                    ) -> Tuple[int, int, str]:
+    """``(bytes, operations, unit)`` of :func:`fused_halo_aggregate`'s
+    function on these inputs, for its bound: bytes are every shard's
+    ``x_own``, ``w`` and the plan arrays its kernels read (the
+    relation-ordered edges, the chunks, the forward CSR's row pointer and
+    positions, and with the buffer ``recv_idx``), each once, the float32
+    ``agg`` once and the halo buffer written once. Operations: ``2 E d_in
+    d_out`` on the tensor cores, three times for float32 (3xTF32, ``unit``
+    ``"tf32"``), once for bfloat16. The ``msg`` round trip and the fourth
+    TF32 product are the design's own cost, not the function's."""
+    slots, d_in, d_out = w.shape
+    plans = [plan.rel_src, plan.rel_norm, plan.chunk_lo, plan.chunk_hi,
+             plan.rel_chunk_ptr, plan.rowptr, plan.fwd_pos]
+    if want_buf:
+        plans.append(plan.recv_idx)
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in (*x_owns, w, *plans))
+    n_bytes += 4 * plan.n_per * d_out
+    if want_buf:
+        n_bytes += plan.num_shards * plan.halo * d_in * w.element_size()
+    ops = 2 * plan.fwd_pos.numel() * d_in * d_out
+    if w.dtype == torch.bfloat16:
+        return n_bytes, ops, "bfloat16"
+    return n_bytes, 3 * ops, "tf32"
 
 
 class FusedHaloApply(torch.autograd.Function):

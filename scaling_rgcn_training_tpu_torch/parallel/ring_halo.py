@@ -50,6 +50,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fused_halo_rows.argtypes = [i, p, i, i, p, p, p, p, p, p, i, i, i, i,
                                     p, p, i, p]
     lib.fused_halo_rows.restype = i
+    lib.fused_halo_tc.argtypes = [i, p, i, i, *[p] * 10, i, i, i, i, i, p, p,
+                                  i, p]
+    lib.fused_halo_tc.restype = i
 
 
 def halo_kernels() -> ctypes.CDLL:

@@ -375,11 +375,18 @@ def test_cuda_halo_exchange_matches_plain(s_n, h, d, dtype, offset):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("s_n,d_in,d_out", [(1, 63, 4), (2, 4, 11),
-                                            (3, 11, 63), (4, 64, 16)])
-def test_cuda_fused_halo_matches_plain(s_n, d_in, d_out, dtype, monkeypatch):
-    """Kernel #7 against its plain version for every shard (the halo
-    buffer bit for bit), then the halo conv's values and gradients with
-    kernel #7 against the library exchange, on S virtual shards."""
+                                            (3, 11, 63), (4, 64, 16),
+                                            (2, 63, 4)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_fused_halo_matches_plain(s_n, d_in, d_out, dtype, offset,
+                                       monkeypatch):
+    """Kernel #7 against its plain version, its dataflow in PyTorch and its
+    earlier route for every shard (the halo buffer bit for bit), with the
+    shards' rows as views of one tensor: at ``n_per * d_in`` odd (2, 63,
+    4; 3, 11, 63) and from ``offset`` 1 on, bases that break the 16-byte
+    (bfloat16: the 4-byte) alignment; then the halo conv's values and
+    gradients with kernel #7 against the library exchange, on S virtual
+    shards."""
     from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import RGCNLayer
     from scaling_rgcn_training_tpu_torch.parallel import fused_halo as fh
     from scaling_rgcn_training_tpu_torch.parallel import halo as hp
@@ -394,18 +401,33 @@ def test_cuda_fused_halo_matches_plain(s_n, d_in, d_out, dtype, monkeypatch):
                                   mesh)
     dt = getattr(torch, dtype)
     x = torch.randn(s_n * he.n_per, d_in, device="cuda")
-    xs = list(x.to(dt).split(he.n_per))
+    flat = torch.empty(offset + x.numel(), dtype=dt, device="cuda")
+    flat[offset:] = x.to(dt).flatten()
+    xs = list(flat[offset:].view_as(x).split(he.n_per))
+    assert bool(xs[0].data_ptr() % 16) == bool(offset)
     w = (torch.randn(slots, d_in, d_out, device="cuda") * 0.2).to(dt)
-    before = cuda_build.LAUNCHES["fused_halo_aggregate"]
+    before = dict(cuda_build.LAUNCHES)
     for sh in he.shards:
         agg, buf = fh.fused_halo_aggregate(xs, w, sh.fused)
         agg2, buf2 = fh.fused_halo_aggregate(xs, w, sh.fused)
+        rows, rows_buf = fh.fused_halo_aggregate_rows(xs, w, sh.fused)
         torch.cuda.synchronize()
         assert torch.equal(agg, agg2) and torch.equal(buf, buf2)
         ref, ref_buf = fh.fused_halo_aggregate_plain(xs, w, sh.fused)
-        assert torch.equal(buf, ref_buf)
+        tiled, tiled_buf = fh.fused_halo_aggregate_tiled_plain(xs, w,
+                                                               sh.fused)
+        assert torch.equal(buf, ref_buf) and torch.equal(rows_buf, ref_buf)
+        assert torch.equal(tiled_buf, ref_buf)
         torch.testing.assert_close(agg, ref, **_tol(dtype, ref))
-    assert cuda_build.LAUNCHES["fused_halo_aggregate"] == before + 2 * s_n
+        torch.testing.assert_close(agg, tiled, **_tol(dtype, tiled))
+        torch.testing.assert_close(rows, ref, **_tol(dtype, ref))
+        no_buf, none = fh.fused_halo_aggregate(xs, w, sh.fused,
+                                               want_buf=False)
+        torch.cuda.synchronize()
+        assert none is None and torch.equal(no_buf, agg)
+    for key, n in (("fused_halo_aggregate", 3),
+                   ("fused_halo_aggregate_rows", 1)):
+        assert cuda_build.LAUNCHES[key] == before[key] + n * s_n
 
     layer = RGCNLayer((torch.randn(slots, d_in, d_out, device="cuda") * 0.2),
                       torch.randn(d_in, d_out, device="cuda") * 0.2,
