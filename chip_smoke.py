@@ -31,23 +31,32 @@ Phases, in order; any failure exits non-zero:
 4. the segment-sum, grouped-matmul and d_rhs kernels against their plain
    versions: edge cases (empty groups and rows, groups spanning tiles, row
    counts off the tiles, widths of every class the kernels dispatch on:
-   h 4 to 130, 63 -> 4 and 11, 16 -> 8, 8 -> 16, 24 -> 32, d_rhs at
-   256 x 64) and every product and sum of an edge-mode step at the bench
-   shape (#4 over 91 groups: 64 -> 16 and 16 -> 8, d_lhs 16 -> 64 and
-   8 -> 16; #5 64 x 16 and 16 x 8; #3 [4M, h] -> 200k rows for h 8, 16,
-   64); two runs give the same bits; kernel, plain and library times of
-   layer 1's (the library yardstick: one ``torch.segment_reduce``, one
-   ``torch.matmul`` per group);
+   h 4 to 130, 63 -> 4 and 11, 16 -> 8, 8 -> 16, 24 -> 32, 8 -> 130,
+   300 -> 11, 256 x 64) and every product and sum of an edge-mode step at
+   the bench shape (#4 over 91 groups: 64 -> 16 and 16 -> 8, d_lhs
+   16 -> 64 and 8 -> 16; #5 64 x 16 and 16 x 8; #3 [4M, h] -> 200k rows
+   for h 8, 16, 64); #4 and #5 (``csrc/grouped_kernels.cu``
+   ``gmm_tc_kernel``, ``drhs_tc_kernel``, on the tensor cores) also
+   against their earlier routes on the CUDA cores (``gmm_simt``,
+   ``gmm_drhs_simt``) everywhere and their dataflows (``gmm_tiled_plain``,
+   ``gmm_drhs_tiled_plain``) at the edge cases and layer 1; two runs give
+   the same bits; kernel, plain and library times of #3's layer-1 sums
+   (the library yardstick: one ``torch.segment_reduce``) and of every #4
+   and #5 product of the step, each beside its earlier route (in turns),
+   one ``torch.matmul`` per group and its bound (``gmm_cost``,
+   ``gmm_drhs_cost``), and in float32 their signed errors against float64
+   (each at most ``MAX_BIAS``);
 5. ``Trainer.fit`` of the baseline embedding model at the bench shape, 10
    epochs in float32 and 10 with bfloat16 edge streams, first with the
    fused conv (span kernels), then on the same graph built without the span
    plan with ``backend="pallas"`` (edge mode: kernels #3, #4, #5; its f32
    losses must match the fused run's); the fused f32 step is timed again
-   with #1's and then #2's earlier route swapped in, in turns with the
-   tensor-core kernel (the swap is this script's: no main path calls the
-   earlier routes); then ``aggr="attention"`` for 5 epochs: finite losses,
-   the kernels' launch counters advanced on every step (and the earlier
-   routes of #1 and #2 on none), ms/step and peak memory;
+   with #1's and then #2's earlier route swapped in, and the edge-mode f32
+   step with #4's and #5's, in turns with the tensor-core kernels (the
+   swap is this script's: no main path calls the earlier routes); then
+   ``aggr="attention"`` for 5 epochs: finite losses, the kernels' launch
+   counters advanced on every step (and the earlier routes of #1, #2, #4
+   and #5 on none), ms/step and peak memory;
 6. ``rgcn_conv`` in ``mode="auto"`` on a layer too wide for the span
    kernels (128 -> 64) at the bench N and E: it must take the edge mode
    and match the plain versions, forward and backward;
@@ -105,9 +114,9 @@ Tolerances: float32 within rtol 1e-4 and atol 1e-4 * max|ref| (summation
 order differs), bfloat16 inputs within 2e-2 * max|ref|.
 
 The second-to-last line is a JSON object with one entry per kernel (#1's,
-#2's and #7's with ``previous_ms``, their earlier routes' times in the
-same run; #7's with the CUDA kernels it launches); the last line is
-``{"ok": true, "device": {...}}``.
+#2's, #4's, #5's and #7's with ``previous_ms``, their earlier routes'
+times in the same run; #4's, #5's and #7's with the CUDA kernels they
+launch); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -375,53 +384,96 @@ def check_segment(vals, rowptr, tag, timing=False) -> dict:
     return res
 
 
-def check_grouped(lhs, rhs, gout, sizes, tag, timing=False) -> dict:
-    """Kernels #4 (gmm) and #5 (gmm_drhs, unless ``gout`` is None) against
-    their plain versions; optionally timed beside one ``torch.matmul`` per
-    group."""
+def check_grouped(lhs, rhs, gout, sizes, tag, timing=False,
+                  tiled=False) -> dict:
+    """Kernels #4 (gmm) and #5 (gmm_drhs, unless ``gout`` is None) on the
+    tensor cores against their plain versions and their earlier routes on
+    the CUDA cores (``gmm_simt``, ``gmm_drhs_simt``); with ``tiled`` also
+    against their dataflows (``gmm_tiled_plain``, ``gmm_drhs_tiled_plain``);
+    two runs give the same bits. With ``timing``: each beside its earlier
+    route (in turns), its plain version, one ``torch.matmul`` per group and
+    its bound (``gmm_cost``, ``gmm_drhs_cost``), and for float32 inputs the
+    signed error against float64 (at most ``MAX_BIAS``)."""
     import torch
     from scaling_rgcn_training_tpu_torch.ops import grouped_kernels as gk
 
     bf16 = lhs.dtype == torch.bfloat16
     out, out2 = gk.gmm(lhs, rhs, sizes), gk.gmm(lhs, rhs, sizes)
+    simt = gk.gmm_simt(lhs, rhs, sizes)
     torch.cuda.synchronize()
     if out.dtype != lhs.dtype:
         fail(f"{tag}: gmm gave {out.dtype} for {lhs.dtype}")
     res = {"gmm": {"err": check_close(f"{tag} grouped_matmul", out,
                                       gk.gmm_plain(lhs, rhs, sizes), bf16)}}
+    check_close(f"{tag} grouped_matmul vs its earlier route", out, simt, bf16)
+    if tiled:
+        res["gmm"]["err"] = max(res["gmm"]["err"], check_close(
+            f"{tag} grouped_matmul vs tiled plain", out,
+            gk.gmm_tiled_plain(lhs, rhs, sizes), bf16))
     if not torch.equal(out, out2):
         fail(f"{tag}: two grouped_matmul runs differ")
-    if gout is None:
+    if gout is not None:
+        drhs, drhs2 = gk.gmm_drhs(lhs, gout, sizes), gk.gmm_drhs(lhs, gout, sizes)
+        drhs_simt = gk.gmm_drhs_simt(lhs, gout, sizes)
+        torch.cuda.synchronize()
+        if drhs.dtype != torch.float32:
+            fail(f"{tag}: gmm_drhs gave {drhs.dtype}")
+        res["drhs"] = {"err": check_close(
+            f"{tag} grouped_drhs", drhs, gk.gmm_drhs_plain(lhs, gout, sizes),
+            bf16)}
+        check_close(f"{tag} grouped_drhs vs its earlier route", drhs,
+                    drhs_simt, bf16)
+        if tiled:
+            res["drhs"]["err"] = max(res["drhs"]["err"], check_close(
+                f"{tag} grouped_drhs vs tiled plain", drhs,
+                gk.gmm_drhs_tiled_plain(lhs, gout, sizes), bf16))
+        if not torch.equal(drhs, drhs2):
+            fail(f"{tag}: two grouped_drhs runs differ")
+    if not timing:
         return res
-    drhs, drhs2 = gk.gmm_drhs(lhs, gout, sizes), gk.gmm_drhs(lhs, gout, sizes)
-    torch.cuda.synchronize()
-    if drhs.dtype != torch.float32:
-        fail(f"{tag}: gmm_drhs gave {drhs.dtype}")
-    res["drhs"] = {"err": check_close(f"{tag} grouped_drhs", drhs,
-                                      gk.gmm_drhs_plain(lhs, gout, sizes), bf16)}
-    if not torch.equal(drhs, drhs2):
-        fail(f"{tag}: two grouped_drhs runs differ")
-    if timing:
-        offs = [0] + torch.cumsum(sizes, 0).tolist()
-        spans = [(g, a, b) for g, (a, b) in enumerate(zip(offs[:-1], offs[1:]))]
-        (m, k), n = lhs.shape, rhs.shape[2]
-        name = dtype_name(lhs.dtype)
-        res["gmm"].update(time_kernel(
-            lambda: gk.gmm(lhs, rhs, sizes),
-            lambda: gk.gmm_plain(lhs, rhs, sizes),
-            lambda: torch.cat([lhs[a:b] @ rhs[g] for g, a, b in spans])))
-        res["gmm"].update(bound(nbytes(lhs, rhs, sizes, out), 2 * m * k * n, name))
-        res["drhs"].update(time_kernel(
+    offs = [0] + torch.cumsum(sizes, 0).tolist()
+    spans = [(g, a, b) for g, (a, b) in enumerate(zip(offs[:-1], offs[1:]))]
+    calls = {"gmm": (lambda: gk.gmm(lhs, rhs, sizes),
+                     lambda: gk.gmm_simt(lhs, rhs, sizes),
+                     lambda: gk.gmm_plain(lhs, rhs, sizes),
+                     lambda: torch.cat([lhs[a:b] @ rhs[g] for g, a, b in spans]),
+                     gk.gmm_cost(lhs, rhs, sizes))}
+    if gout is not None:
+        calls["drhs"] = (
             lambda: gk.gmm_drhs(lhs, gout, sizes),
+            lambda: gk.gmm_drhs_simt(lhs, gout, sizes),
             lambda: gk.gmm_drhs_plain(lhs, gout, sizes),
-            lambda: torch.stack([lhs[a:b].T @ gout[a:b] for g, a, b in spans])))
-        res["drhs"].update(bound(nbytes(lhs, gout, sizes, drhs), 2 * m * k * n,
-                                 name))
-        for key in ("gmm", "drhs"):
-            r = res[key]
-            print(f"  {tag} {key} times: {r['ms']:.4f} ms (plain "
-                  f"{r['plain_ms']:.4f}, per-group matmul {r['library_ms']:.4f})",
-                  flush=True)
+            lambda: torch.stack([lhs[a:b].T @ gout[a:b] for g, a, b in spans]),
+            gk.gmm_drhs_cost(lhs, gout, sizes))
+    for key, (kernel, earlier, plain, library, cost) in calls.items():
+        # order: plain, kernel, earlier route, earlier route, kernel, plain
+        r = res[key]
+        r.update(time_kernel(kernel, plain, earlier))
+        r["previous_ms"] = r["library_ms"]
+        library()
+        r["library_ms"] = (cuda_time_ms(library, 20)
+                           + cuda_time_ms(library, 20)) / 2
+        r.update(bound(*cost))
+        print(f"  {tag} {key} times: {r['ms']:.4f} ms (earlier route "
+              f"{r['previous_ms']:.4f}, plain {r['plain_ms']:.4f}, per-group "
+              f"matmul {r['library_ms']:.4f}; bound {r['bound_ms']:.4f} ms "
+              f"{r['bound_by']})", flush=True)
+    if not bf16:
+        ref = gk.gmm_plain(lhs.double(), rhs.double(), sizes)
+        res["gmm"]["bias"] = signed_error(out, ref)
+        res["gmm"]["previous_bias"] = signed_error(simt, ref)
+        del ref
+        if gout is not None:
+            ref = gk.gmm_drhs_plain(lhs.double(), gout.double(), sizes)
+            res["drhs"]["bias"] = signed_error(drhs, ref)
+            res["drhs"]["previous_bias"] = signed_error(drhs_simt, ref)
+            del ref
+        for key, r in res.items():
+            print(f"  {tag} {key} signed error against float64: "
+                  f"{r['bias']:.2e} (earlier route {r['previous_bias']:.2e}); "
+                  f"limit {MAX_BIAS:.0e}", flush=True)
+            if abs(r["bias"]) > MAX_BIAS:
+                fail(f"{tag}: {key}'s sums are biased ({r['bias']:.2e})")
     return res
 
 
@@ -497,16 +549,17 @@ def run_fit(graph, compute_dtype, epochs, launches, head="summation",
 
 def require_per_step(tag, steps, least):
     """Every step launched each kernel of ``least`` at least that often,
-    and the earlier routes of #1, #2 and #7 (``span_forward_rows``,
-    ``span_backward_rows``, ``fused_halo_aggregate_rows``) and #2's halves
-    alone never."""
+    and the earlier routes of #1, #2, #4, #5 and #7 (``span_forward_rows``,
+    ``span_backward_rows``, ``gmm_simt``, ``gmm_drhs_simt``,
+    ``fused_halo_aggregate_rows``) and #2's halves alone never."""
     for i, st in enumerate(steps):
         for k, n in least.items():
             if st[k] < n:
                 fail(f"{tag}: step {i} launched {k} {st[k]} times, "
                      f"expected at least {n}")
         for k in ("span_forward_rows", "span_backward_rows",
-                  "span_backward_half", "fused_halo_aggregate_rows"):
+                  "span_backward_half", "fused_halo_aggregate_rows",
+                  "grouped_matmul_simt", "grouped_drhs_simt"):
             if st[k]:
                 fail(f"{tag}: step {i} launched {k}")
 
@@ -514,32 +567,41 @@ def require_per_step(tag, steps, least):
 def route_swap(graph, launches, kernel, **fit_kw) -> dict:
     """Median ms/step of float32 ``Trainer.fit`` runs on ``graph`` with
     ``kernel`` (``span_forward``, #1; ``span_backward``, #2;
-    ``fused_halo_aggregate``, #7) on the tensor cores and with its earlier
-    route (``span_forward_rows``, ``span_backward_rows``,
-    ``fused_halo_aggregate_rows``) swapped in wherever the conv binds it
-    (``rgcn_conv``; for #2 also ``fused_halo``; #7 in ``fused_halo``), in
-    the order tensor cores, rows, rows, tensor cores (the swap is this
+    ``fused_halo_aggregate``, #7; ``grouped``, #4 and #5 together) on the
+    tensor cores and with its earlier route (``span_forward_rows``,
+    ``span_backward_rows``, ``fused_halo_aggregate_rows``; ``gmm_simt`` and
+    ``gmm_drhs_simt``) swapped in wherever the code binds it (``rgcn_conv``;
+    for #2 also ``fused_halo``; #7 in ``fused_halo``; #4 and #5 in
+    ``grouped_kernels``, #5 also in ``rgcn_conv``), in the order tensor
+    cores, earlier route, earlier route, tensor cores (the swap is this
     script's: no main path calls the earlier routes)."""
+    from scaling_rgcn_training_tpu_torch.ops import grouped_kernels as gk
     from scaling_rgcn_training_tpu_torch.ops import rgcn_conv
     from scaling_rgcn_training_tpu_torch.ops import span_kernels as sk
     from scaling_rgcn_training_tpu_torch.parallel import fused_halo
 
-    owner, modules = {
-        "span_forward": (sk, (rgcn_conv,)),
-        "span_backward": (sk, (rgcn_conv, fused_halo)),
-        "fused_halo_aggregate": (fused_halo, (fused_halo,))}[kernel]
-    routes = {"tensor cores": getattr(owner, kernel),
-              "rows": getattr(owner, f"{kernel}_rows")}
-    swap = {"tensor cores": [], "rows": []}
-    for name in ("tensor cores", "rows", "rows", "tensor cores"):
-        for mod in modules:
-            setattr(mod, kernel, routes[name])
+    if kernel == "grouped":
+        binds = [(gk, "gmm", gk.gmm_simt), (gk, "gmm_drhs", gk.gmm_drhs_simt),
+                 (rgcn_conv, "gmm_drhs", gk.gmm_drhs_simt)]
+    else:
+        owner, modules = {
+            "span_forward": (sk, (rgcn_conv,)),
+            "span_backward": (sk, (rgcn_conv, fused_halo)),
+            "fused_halo_aggregate": (fused_halo, (fused_halo,))}[kernel]
+        binds = [(mod, kernel, getattr(owner, f"{kernel}_rows"))
+                 for mod in modules]
+    shipped = [getattr(mod, name) for mod, name, _ in binds]
+    swap = {"tensor cores": [], "earlier route": []}
+    for route in ("tensor cores", "earlier route", "earlier route",
+                  "tensor cores"):
+        for (mod, name, earlier), fn in zip(binds, shipped):
+            setattr(mod, name, fn if route == "tensor cores" else earlier)
         try:
-            swap[name].append(run_fit(graph, None, EPOCHS, launches,
-                                      **fit_kw)["step_ms"])
+            swap[route].append(run_fit(graph, None, EPOCHS, launches,
+                                       **fit_kw)["step_ms"])
         finally:
-            for mod in modules:
-                setattr(mod, kernel, routes["tensor cores"])
+            for (mod, name, _), fn in zip(binds, shipped):
+                setattr(mod, name, fn)
     return swap
 
 
@@ -862,8 +924,9 @@ def halo_phase(bench_src, bench_dst, bench_typ, splits, fits, launches,
         finally:
             os.environ.pop(EXCHANGE_ENV, None)
         print(f"  halo {mode} f32 ms/step, {kernel} on the tensor cores "
-              f"{s['tensor cores']} vs its earlier route {s['rows']} "
-              "(order: tensor cores, rows, rows, tensor cores)", flush=True)
+              f"{s['tensor cores']} vs its earlier route {s['earlier route']} "
+              "(order: tensor cores, earlier, earlier, tensor cores)",
+              flush=True)
     sh = he.shards[0]
     per_call = host_cost((("shard 0 local", sh.local.span),
                           ("shard 0 halo", sh.halo.span)))
@@ -1134,23 +1197,28 @@ def main() -> None:
         for h in (4, 8, 11, 16, 32, 64, 130):
             note({"seg": check_segment(t(len(keys), h), rowptr,
                                        f"small h {h} {name}")})
-        for k, n in ((63, 4), (16, 8), (8, 16), (63, 11), (24, 32), (256, 64)):
+        # every width class of the tensor-core kernels (column tiles past
+        # 64, depth chunks past GMM_DEPTH) and of the earlier routes
+        for k, n in ((63, 4), (16, 8), (8, 16), (63, 11), (24, 32), (256, 64),
+                     (8, 130), (300, 11)):
             note(check_grouped(t(m, k), t(len(sizes), k, n, s=0.2), t(m, n),
-                               sizes, f"small {k}->{n} {name}"))
-        # every product of an edge-mode step at the bench shape: layer 1
-        # (D -> HL) and layer 2 (HL -> C) with their dW, then their d_lhs
-        # (HL -> D, C -> HL); layer 1's are timed
+                               sizes, f"small {k}->{n} {name}", tiled=True))
+        # every product of an edge-mode step at the bench shape, each timed:
+        # layer 1 (D -> HL) and layer 2 (HL -> C) with their dW, then their
+        # d_lhs (HL -> D, C -> HL); layer 1's also against the dataflows
         for k, n in ((bs.D, bs.HL), (bs.HL, bs.C)):
             r = note(check_grouped(
                 t(bs.E, k), t(bs.SLOTS, k, n, s=0.2), t(bs.E, n),
-                edges.group_sizes, f"bench {k}->{n} {name}",
-                timing=k == bs.D))
-            if k == bs.D:
-                new_bench[("grouped_matmul", name)] = r["gmm"]
-                new_bench[("grouped_drhs", name)] = r["drhs"]
+                edges.group_sizes, f"bench {k}->{n} {name}", timing=True,
+                tiled=k == bs.D))
+            new_bench[("grouped_matmul", f"{k}->{n}", name)] = r["gmm"]
+            new_bench[("grouped_drhs", f"{k}x{n}", name)] = r["drhs"]
         for k, n in ((bs.HL, bs.D), (bs.C, bs.HL)):
-            note(check_grouped(t(bs.E, k), t(bs.SLOTS, k, n, s=0.2), None,
-                               edges.group_sizes, f"bench d_lhs {k}->{n} {name}"))
+            r = note(check_grouped(t(bs.E, k), t(bs.SLOTS, k, n, s=0.2), None,
+                                   edges.group_sizes,
+                                   f"bench d_lhs {k}->{n} {name}",
+                                   timing=True))
+            new_bench[("grouped_matmul", f"d_lhs {k}->{n}", name)] = r["gmm"]
         # every sum of the step: forward onto dst rows (h HL, C) and dx onto
         # src rows (h D, HL); layer 1's are timed
         for h, side, timed in ((bs.HL, "dst", True), (bs.C, "dst", False),
@@ -1161,7 +1229,7 @@ def main() -> None:
                 timing=timed)})["seg"]
             if timed:
                 new_bench[("segment_sum" if side == "dst" else "segment_sum dx",
-                           name)] = r
+                           f"[E, {h}]", name)] = r
 
     phase("5 trainer at the bench shape")
     from scaling_rgcn_training_tpu_torch.graphs.device import DeviceGraph
@@ -1181,8 +1249,9 @@ def main() -> None:
         swap[kernel] = s = route_swap(DeviceGraph(edges=edges, **splits),
                                       launches, kernel)
         print(f"  fused f32 ms/step, {kernel} on the tensor cores "
-              f"{s['tensor cores']} vs its earlier route {s['rows']} (order: "
-              "tensor cores, rows, rows, tensor cores)", flush=True)
+              f"{s['tensor cores']} vs its earlier route {s['earlier route']} "
+              "(order: tensor cores, earlier, earlier, tensor cores)",
+              flush=True)
 
     t0 = time.perf_counter()
     plain_edges = build_rel_edges(src, dst, typ, bs.N, bs.SLOTS, device=DEV,
@@ -1200,6 +1269,12 @@ def main() -> None:
     edge_launches = dict(launches)
     if edge_launches["span_forward"] or edge_launches["span_backward"]:
         fail(f"edge-mode trainer launched span kernels: {edge_launches}")
+    # the end-to-end effect of #4's and #5's redesigns
+    swap["grouped"] = s = route_swap(non_fused, launches, "grouped",
+                                     backend="pallas")
+    print(f"  edge-mode f32 ms/step, gmm and gmm_drhs on the tensor cores "
+          f"{s['tensor cores']} vs their earlier routes {s['earlier route']} "
+          "(order: tensor cores, earlier, earlier, tensor cores)", flush=True)
     fused_l, edge_l = (fits[(k, None)]["losses"] for k in ("fused", "edge"))
     if not np.allclose(edge_l, fused_l, rtol=1e-4, atol=0):
         fail(f"edge-mode f32 losses {edge_l} differ from fused {fused_l}")
@@ -1255,17 +1330,27 @@ def main() -> None:
             "ms": b[key]["ms"], "plain_ms": b[key]["plain_ms"],
             "bound_ms": b[key]["bound_ms"], "bound_by": b[key]["bound_by"],
             "library_ms": None, "previous_ms": b[key]["previous_ms"]})
-    for kname, src_file, replaces in (
-            ("segment_sum", "segment_kernels.cu", "segment_kernels.py:87"),
-            ("grouped_matmul", "grouped_kernels.cu", "pallas_kernels.py:56"),
-            ("grouped_drhs", "grouped_kernels.cu", "pallas_kernels.py:114")):
-        r = new_bench[(kname, "float32")]
+    for kname, shape, src_file, replaces in (
+            ("segment_sum", "[E, 16]", "segment_kernels.cu",
+             "segment_kernels.py:87"),
+            ("grouped_matmul", "64->16", "grouped_kernels.cu",
+             "pallas_kernels.py:56"),
+            ("grouped_drhs", "64x16", "grouped_kernels.cu",
+             "pallas_kernels.py:114")):
+        r = new_bench[(kname, shape, "float32")]
         kernels.append({
             "name": kname, "route": "cuda", "source": f"{PKG}/csrc/{src_file}",
             "replaces": JAX_PKG + "ops/" + replaces,
             "launches": edge_launches[kname], "max_abs_err": errs[kname],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if kname != "segment_sum":
+            # the tensor-core kernels it launches at the bench shape, and
+            # its earlier route's time (gmm_simt, gmm_drhs_simt) in this run
+            kernels[-1].update(
+                kernels=(["gmm_tc_kernel"] if kname == "grouped_matmul" else
+                         ["drhs_tc_kernel", "drhs_reduce_kernel"]),
+                previous_ms=r["previous_ms"])
     for kname, key, replaces, run in (
             ("halo_exchange", "exchange", "ring_halo.py:42", "halo #6"),
             ("fused_halo_aggregate", "fused", "fused_halo.py:307",
@@ -1298,7 +1383,7 @@ def main() -> None:
         "bench_shape_ms": {
             **{f"{k} {layer} {dt}": v[k] for (layer, dt), v in bench.items()
                for k in ("fwd", "bwd")},
-            **{f"{k} {dt}": v for (k, dt), v in new_bench.items()},
+            **{" ".join(key): v for key, v in new_bench.items()},
             **{f"{k} {layer} {dt}": v[k] for (layer, dt), v in
                halo["bench"].items() for k in ("exchange", "fused")
                if k in v}},
@@ -1306,7 +1391,9 @@ def main() -> None:
             "step_ms": f["step_ms"], "peak_mib": f["peak_mib"],
             "loss_first": f["losses"][0], "loss_last": f["losses"][-1],
             "launches_step0": f["steps"][0]} for (mode, cd), f in fits.items()},
-        "fused_f32_step_ms_by_route": swap,
+        "fused_f32_step_ms_by_route": {k: v for k, v in swap.items()
+                                       if k != "grouped"},
+        "edge_f32_step_ms_by_route": swap["grouped"],
         "halo_f32_step_ms_by_route": halo["swap"],
         "halo_span_forward_per_call": halo["per_call"],
         "launches": {"fused": fused_launches, "edge": edge_launches,

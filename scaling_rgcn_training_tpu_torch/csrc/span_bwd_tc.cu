@@ -116,127 +116,6 @@ struct BwdArgs {
   int K, M, n_slots;
 };
 
-// The A operand of dW over one 16-edge tile for the warp's rows k0 + g,
-// k0 + g + 8 (A[k][e] = xs[e][k]), as mma fragments: float32 in big and
-// small parts on each row's grid over the tile's 16 edges, two 8-edge
-// steps (A[g][8 h + t], A[g + 8][8 h + t], A[g][8 h + t + 4], A[g + 8][8 h
-// + t + 4]); bfloat16 one m16n8k16 fragment (A[g][2 t, 2 t + 1], A[g +
-// 8][2 t, 2 t + 1], A[g][2 t + 8, 2 t + 9], A[g + 8][2 t + 8, 2 t + 9]).
-template <typename T> struct DwA;
-template <> struct DwA<float> {
-  unsigned big[2][4], small[2][4];
-  __device__ __forceinline__ void load(const float* xs, int ldx, int k0,
-                                       int lane) {
-    const int g = lane >> 2, t = lane & 3;
-    const float* xa = xs + k0 + g;
-    float a[2][4];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int e = 8 * h + t;
-      a[h][0] = xa[e * ldx];
-      a[h][1] = xa[e * ldx + 8];
-      a[h][2] = xa[(e + 4) * ldx];
-      a[h][3] = xa[(e + 4) * ldx + 8];
-    }
-    float top = 0.f, top8 = 0.f;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      top = fmaxf(top, fmaxf(fabsf(a[h][0]), fabsf(a[h][2])));
-      top8 = fmaxf(top8, fmaxf(fabsf(a[h][1]), fabsf(a[h][3])));
-    }
-    const Grid grid(quad_max(top)), grid8(quad_max(top8));
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float v = (i & 1 ? grid8 : grid).big(a[h][i]);
-        big[h][i] = bits(v);
-        small[h][i] = bits(tf32_round(a[h][i] - v));
-      }
-  }
-};
-template <> struct DwA<__nv_bfloat16> {
-  unsigned frag[4];
-  __device__ __forceinline__ void load(const __nv_bfloat16* xs, int ldx,
-                                       int k0, int lane) {
-    const int g = lane >> 2, e = 2 * (lane & 3);
-    const __nv_bfloat16* xa = xs + k0 + g;
-    frag[0] = pack(xa[e * ldx], xa[(e + 1) * ldx]);
-    frag[1] = pack(xa[e * ldx + 8], xa[(e + 1) * ldx + 8]);
-    frag[2] = pack(xa[(e + 8) * ldx], xa[(e + 9) * ldx]);
-    frag[3] = pack(xa[(e + 8) * ldx + 8], xa[(e + 9) * ldx + 8]);
-  }
-};
-
-// run += A B over one 16-edge tile for the warp's 16 x 8 dW tile: A as
-// loaded, B[e][n] = gs[e][m0 + n] (B[e][g] = gb[e * ldg]). float32: B's
-// column g on its grid over the 16 edges; each 8-edge step's four products
-// into fresh sums (the big ones exact), the two steps added, then added to
-// run.
-__device__ __forceinline__ void dw_tile_product(float (&run)[4],
-                                                const DwA<float>& a,
-                                                const float* gs, int ldg,
-                                                int m0, int lane) {
-  const int t = lane & 3;
-  const float* gb = gs + m0 + (lane >> 2);
-  float b[2][2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    b[h][0] = gb[(8 * h + t) * ldg];
-    b[h][1] = gb[(8 * h + t + 4) * ldg];
-  }
-  const Grid grid(quad_max(fmaxf(fmaxf(fabsf(b[0][0]), fabsf(b[0][1])),
-                                 fmaxf(fabsf(b[1][0]), fabsf(b[1][1])))));
-  float big[4] = {}, small[4] = {};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    unsigned b_big[2], b_small[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const float v = grid.big(b[h][j]);
-      b_big[j] = bits(v);
-      b_small[j] = bits(tf32_round(b[h][j] - v));
-    }
-    float part[4], cross[4];
-    mma_tf32(part, a.big[h], b_big[0], b_big[1]);
-    mma_tf32(cross, a.small[h], b_big[0], b_big[1]);
-    mma_tf32_acc(cross, a.big[h], b_small[0], b_small[1]);
-    mma_tf32_acc(cross, a.small[h], b_small[0], b_small[1]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      big[i] += part[i];
-      small[i] += cross[i];
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) run[i] += big[i] + small[i];
-}
-
-// bfloat16: B[2 t, 2 t + 1][g], B[2 t + 8, 2 t + 9][g]; one exact product.
-__device__ __forceinline__ void dw_tile_product(
-    float (&run)[4], const DwA<__nv_bfloat16>& a, const __nv_bfloat16* gs,
-    int ldg, int m0, int lane) {
-  const int e = 2 * (lane & 3);
-  const __nv_bfloat16* gb = gs + m0 + (lane >> 2);
-  float part[4];
-  mma_bf16(part, a.frag, pack(gb[e * ldg], gb[(e + 1) * ldg]),
-           pack(gb[(e + 8) * ldg], gb[(e + 9) * ldg]));
-#pragma unroll
-  for (int i = 0; i < 4; ++i) run[i] += part[i];
-}
-
-// The warp's sums of dW tile (k0, m0) into part [K, M].
-__device__ __forceinline__ void store_dw_tile(float* __restrict__ part,
-                                              const float (&v)[4], int k0,
-                                              int m0, int K, int M, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + (i < 2 ? g : g + 8), m = m0 + 2 * t + (i & 1);
-    if (k < K && m < M) part[k * M + m] = v[i];
-  }
-}
-
 // One block per chunk c of edges [chunk_lo[c], chunk_hi[c]) of relation r.
 // kDx: msg[j, :K] = (rel_norm[j] g[rel_dst[j]]) @ W[r]^T; kDw: partial[c] =
 // sum_j x[rel_src[j]]^T (rel_norm[j] g[rel_dst[j]]). (One half alone is
@@ -324,16 +203,8 @@ span_bwd_chunk_kernel(BwdArgs a, int unit_x, int unit_g) {
     cp_commit();
   };
 
-  // dW tiles first .. first + n_own - 1 of this warp (row-major: tile o is
-  // rows 16 (o / Mn), columns 8 (o % Mn)), over the stage's tiles sub, sub
-  // + split, ...: consecutive tiles share their rows, so the warp splits
-  // each A fragment once for all of them.
-  const int split = d.n_dw >= kMsgWarps ? 1 : kMsgWarps / d.n_dw;
-  const int grp = warp / split, sub = warp % split;
-  const int per_warp = (d.n_dw + kMsgWarps / split - 1) / (kMsgWarps / split);
-  const int first = grp * per_warp;
-  const int n_own = max(min(per_warp, d.n_dw - first), 0);
-  float run[kTiles][4] = {};
+  // this warp's dW tiles (span_tc.cuh DwTiles)
+  DwTiles<kTiles> own(d.n_dw, d.Mn, warp);
 
   Edge cur = load_edge(0);
   gather(0, cur);
@@ -363,29 +234,15 @@ span_bwd_chunk_kernel(BwdArgs a, int unit_x, int unit_g) {
       if constexpr (kDx) {
         const int base = lo + tile * 16;
         tile_times_staged(gs, d.ldg, d.Mg, w_big, w_small, d.ldw, d.Kn, K,
-                          a.msg, (size_t)base, hi - base, 1.f, 1.f, lane);
+                          a.msg, K, (size_t)base, hi - base, 1.f, 1.f, lane);
       }
     }
     if constexpr (kDw) {
       __syncthreads();   // the stage's tiles, scaled, are in shared memory
-      for (int i = sub; i < kMsgWarps && s * kMsgWarps + i < n_tiles;
-           i += split) {
-        const T* xs = tile_x(s, i);
-        const T* gs = tile_g(s, i);
-        DwA<T> frag;
-        int rows = -1;
-#pragma unroll
-        for (int q = 0; q < kTiles; ++q) {
-          if (q >= n_own) break;
-          const int kt = (first + q) / d.Mn;
-          if (kt != rows) {
-            frag.load(xs, d.ldx, kt * 16, lane);
-            rows = kt;
-          }
-          dw_tile_product(run[q], frag, gs, d.ldg,
-                          (first + q - kt * d.Mn) * 8, lane);
-        }
-      }
+      own.template add<T>(
+          min(kMsgWarps, n_tiles - s * kMsgWarps),
+          [&](int i) { return tile_x(s, i); },
+          [&](int i) { return tile_g(s, i); }, d.ldx, d.ldg, lane);
     }
     __syncwarp();
     cur = next;
@@ -393,35 +250,9 @@ span_bwd_chunk_kernel(BwdArgs a, int unit_x, int unit_g) {
   }
   cp_wait<0>();
 
-  if constexpr (kDw) {
-    float* part = a.partial + (size_t)c * K * M;
-    if (split == 1) {
-#pragma unroll
-      for (int q = 0; q < kTiles; ++q) {
-        const int o = first + q;
-        if (q >= n_own) break;
-        store_dw_tile(part, run[q], o / d.Mn * 16, o % d.Mn * 8, K, M, lane);
-      }
-    } else {
-      // the split warps of tile grp (their one tile) add their sums in
-      // warp order
-      __syncthreads();   // every warp is done with the stage buffers
-      float* red = reinterpret_cast<float*>(stages);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) red[(warp * 4 + i) * 32 + lane] = run[0][i];
-      __syncthreads();
-      if (sub == 0) {
-        float sum[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          sum[i] = red[(warp * 4 + i) * 32 + lane];
-          for (int j = 1; j < split; ++j)
-            sum[i] += red[((warp + j) * 4 + i) * 32 + lane];
-        }
-        store_dw_tile(part, sum, grp / d.Mn * 16, grp % d.Mn * 8, K, M, lane);
-      }
-    }
-  }
+  if constexpr (kDw)
+    own.store(a.partial + (size_t)c * K * M, K, M, M,
+              reinterpret_cast<float*>(stages), warp, lane);
 }
 
 template <typename T, bool kDx, bool kDw, int kTiles>

@@ -1,12 +1,14 @@
-// Device helpers of the span kernels on Hopper's tensor cores (sm_90a),
-// shared by span_fwd_tc.cu (kernel #1), span_bwd_tc.cu (kernel #2) and
-// halo_kernels.cu (kernel #7): the mma tile shapes, the split of float32
-// operands into a big part on a fixed-point grid and a TF32 small part
-// (span_fwd_tc.cu says why), the mma.sync and cp.async wrappers in inline
-// PTX, the warp's row gather over a row source, the product of a warp's
-// 16-row tile with a staged B operand, the chunk kernel of per-edge
-// messages (#1 and #7), the fixed-order CSR sum of per-edge messages and
-// the chunk-ordered reduce of dW partials.
+// Device helpers of the kernels on Hopper's tensor cores (sm_90a), shared
+// by span_fwd_tc.cu (kernel #1), span_bwd_tc.cu (kernel #2),
+// halo_kernels.cu (kernel #7) and grouped_kernels.cu (kernels #4 and #5):
+// the mma tile shapes, the split of float32 operands into a big part on a
+// fixed-point grid and a TF32 small part (span_fwd_tc.cu says why), the
+// mma.sync and cp.async wrappers in inline PTX, the warp's row gather over
+// a row source, the product of a warp's 16-row tile with a staged B
+// operand (#1, #7, #2's dx, #4), the product x^T g with the rows as the
+// depth, summed in registers per warp (#2's dW, #5), the
+// chunk kernel of per-edge messages (#1 and #7), the fixed-order CSR sum
+// of per-edge messages and the chunk-ordered reduce of dW partials.
 //
 // Fragments (PTX ISA, mma.m16n8k8 / m16n8k16): lane = 4 g + t holds rows g
 // and g + 8 of A, column g of B and of the sums, columns 2 t, 2 t + 1.
@@ -322,18 +324,30 @@ __device__ __forceinline__ void gather_rows(T* xs, const Src& rows, int src,
   }
 }
 
+// Two consecutive values of a row in O, rounded to nearest even, as one
+// store (p aligned to two elements).
+__device__ __forceinline__ void store_pair(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float v0,
+                                           float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
 // The warp's 16-row tile times a staged B operand:
-//   out[(row0 + i) * N + n] = scale_i * sum_k A[i, k] B[k, n]
-// for rows i < n_rows and columns n < N, with A the rows of `as` (stride
-// lda, Kp columns, zero-padded to Kp) and B^T staged n-major as b_big
-// [Np, ldb] (and b_small for float32: the parts on each column's grid).
-// scale_g, scale_g8: the scales of rows g and g + 8. float32: each row's
-// grid over its Kp values, four products a multiply-add (span_fwd_tc.cu);
-// bfloat16: one exact product.
-template <typename T>
+//   out[(row0 + i) * ldo + n] = scale_i * sum_k A[i, k] B[k, n]
+// in O, for rows i < n_rows and columns n < N, with A the rows of `as`
+// (stride lda, Kp columns, zero-padded to Kp) and B^T staged n-major as
+// b_big [Np, ldb] (and b_small for float32: the parts on each column's
+// grid). scale_g, scale_g8: the scales of rows g and g + 8. float32: each
+// row's grid over its Kp values, four products a multiply-add
+// (span_fwd_tc.cu); bfloat16: one exact product. kPairs: a lane stores
+// its two columns of a row as one store where ldo is even (out aligned to
+// two elements); else one store a value.
+template <typename T, typename O = float, bool kPairs = false>
 __device__ __forceinline__ void tile_times_staged(
     const T* as, int lda, int Kp, const T* b_big, const T* b_small, int ldb,
-    int Np, int N, float* __restrict__ out, size_t row0, int n_rows,
+    int Np, int N, O* __restrict__ out, int ldo, size_t row0, int n_rows,
     float scale_g, float scale_g8, int lane) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   const int g = lane >> 2, t = lane & 3;
@@ -395,6 +409,28 @@ __device__ __forceinline__ void tile_times_staged(
       }
     }
     // rows g, g + 8 and columns 2 t, 2 t + 1 of each 8-column tile
+    if constexpr (kPairs) {
+      if (ldo % 2 == 0) {
+#pragma unroll
+        for (int j = 0; j < kNGroup; ++j) {
+          const int col = n0 + 8 * j + 2 * t;
+          if (n0 + 8 * j >= Np) break;
+#pragma unroll
+          for (int i = 0; i < 4; i += 2) {
+            const int row = i < 2 ? g : g + 8;
+            const float scale = i < 2 ? scale_g : scale_g8;
+            if (row >= n_rows || col >= N) continue;
+            O* p = out + (row0 + row) * ldo + col;
+            const float v0 = (acc[j][i] + small[j][i]) * scale;
+            if (col + 1 < N)
+              store_pair(p, v0, (acc[j][i + 1] + small[j][i + 1]) * scale);
+            else
+              *p = from_float<O>(v0);
+          }
+        }
+        continue;
+      }
+    }
 #pragma unroll
     for (int j = 0; j < kNGroup; ++j) {
       const int col = n0 + 8 * j + 2 * t;
@@ -403,12 +439,226 @@ __device__ __forceinline__ void tile_times_staged(
       for (int i = 0; i < 4; ++i) {
         const int row = i < 2 ? g : g + 8;
         if (row < n_rows && col + (i & 1) < N)
-          out[(row0 + row) * N + col + (i & 1)] =
-              (acc[j][i] + small[j][i]) * (i < 2 ? scale_g : scale_g8);
+          out[(row0 + row) * ldo + col + (i & 1)] = from_float<O>(
+              (acc[j][i] + small[j][i]) * (i < 2 ? scale_g : scale_g8));
       }
     }
   }
 }
+
+// -- x^T g with the rows as the depth (#2's dW, #5) -------------------------
+
+// The A operand of dW over one 16-edge tile for the warp's rows k0 + g,
+// k0 + g + 8 (A[k][e] = xs[e][k]), as mma fragments: float32 in big and
+// small parts on each row's grid over the tile's 16 edges, two 8-edge
+// steps (A[g][8 h + t], A[g + 8][8 h + t], A[g][8 h + t + 4], A[g + 8][8 h
+// + t + 4]); bfloat16 one m16n8k16 fragment (A[g][2 t, 2 t + 1], A[g +
+// 8][2 t, 2 t + 1], A[g][2 t + 8, 2 t + 9], A[g + 8][2 t + 8, 2 t + 9]).
+template <typename T> struct DwA;
+template <> struct DwA<float> {
+  unsigned big[2][4], small[2][4];
+  __device__ __forceinline__ void load(const float* xs, int ldx, int k0,
+                                       int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    const float* xa = xs + k0 + g;
+    float a[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = 8 * h + t;
+      a[h][0] = xa[e * ldx];
+      a[h][1] = xa[e * ldx + 8];
+      a[h][2] = xa[(e + 4) * ldx];
+      a[h][3] = xa[(e + 4) * ldx + 8];
+    }
+    float top = 0.f, top8 = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      top = fmaxf(top, fmaxf(fabsf(a[h][0]), fabsf(a[h][2])));
+      top8 = fmaxf(top8, fmaxf(fabsf(a[h][1]), fabsf(a[h][3])));
+    }
+    const Grid grid(quad_max(top)), grid8(quad_max(top8));
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float v = (i & 1 ? grid8 : grid).big(a[h][i]);
+        big[h][i] = bits(v);
+        small[h][i] = bits(tf32_round(a[h][i] - v));
+      }
+  }
+};
+template <> struct DwA<__nv_bfloat16> {
+  unsigned frag[4];
+  __device__ __forceinline__ void load(const __nv_bfloat16* xs, int ldx,
+                                       int k0, int lane) {
+    const int g = lane >> 2, e = 2 * (lane & 3);
+    const __nv_bfloat16* xa = xs + k0 + g;
+    frag[0] = pack(xa[e * ldx], xa[(e + 1) * ldx]);
+    frag[1] = pack(xa[e * ldx + 8], xa[(e + 1) * ldx + 8]);
+    frag[2] = pack(xa[(e + 8) * ldx], xa[(e + 9) * ldx]);
+    frag[3] = pack(xa[(e + 8) * ldx + 8], xa[(e + 9) * ldx + 8]);
+  }
+};
+
+// run += A B over one 16-edge tile for the warp's 16 x 8 dW tile: A as
+// loaded, B[e][n] = gs[e][m0 + n] (B[e][g] = gb[e * ldg]). float32: B's
+// column g on its grid over the 16 edges; each 8-edge step's four products
+// into fresh sums (the big ones exact), the two steps added, then added to
+// run.
+__device__ __forceinline__ void dw_tile_product(float (&run)[4],
+                                                const DwA<float>& a,
+                                                const float* gs, int ldg,
+                                                int m0, int lane) {
+  const int t = lane & 3;
+  const float* gb = gs + m0 + (lane >> 2);
+  float b[2][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    b[h][0] = gb[(8 * h + t) * ldg];
+    b[h][1] = gb[(8 * h + t + 4) * ldg];
+  }
+  const Grid grid(quad_max(fmaxf(fmaxf(fabsf(b[0][0]), fabsf(b[0][1])),
+                                 fmaxf(fabsf(b[1][0]), fabsf(b[1][1])))));
+  float big[4] = {}, small[4] = {};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    unsigned b_big[2], b_small[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float v = grid.big(b[h][j]);
+      b_big[j] = bits(v);
+      b_small[j] = bits(tf32_round(b[h][j] - v));
+    }
+    float part[4], cross[4];
+    mma_tf32(part, a.big[h], b_big[0], b_big[1]);
+    mma_tf32(cross, a.small[h], b_big[0], b_big[1]);
+    mma_tf32_acc(cross, a.big[h], b_small[0], b_small[1]);
+    mma_tf32_acc(cross, a.small[h], b_small[0], b_small[1]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      big[i] += part[i];
+      small[i] += cross[i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) run[i] += big[i] + small[i];
+}
+
+// bfloat16: B[2 t, 2 t + 1][g], B[2 t + 8, 2 t + 9][g]; one exact product.
+__device__ __forceinline__ void dw_tile_product(
+    float (&run)[4], const DwA<__nv_bfloat16>& a, const __nv_bfloat16* gs,
+    int ldg, int m0, int lane) {
+  const int e = 2 * (lane & 3);
+  const __nv_bfloat16* gb = gs + m0 + (lane >> 2);
+  float part[4];
+  mma_bf16(part, a.frag, pack(gb[e * ldg], gb[(e + 1) * ldg]),
+           pack(gb[(e + 8) * ldg], gb[(e + 9) * ldg]));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) run[i] += part[i];
+}
+
+// The warp's sums of dW tile (k0, m0) into part (row stride ld), rows
+// k < K, columns m < M.
+__device__ __forceinline__ void store_dw_tile(float* __restrict__ part,
+                                              const float (&v)[4], int k0,
+                                              int m0, int K, int M, int ld,
+                                              int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + (i < 2 ? g : g + 8), m = m0 + 2 * t + (i & 1);
+    if (k < K && m < M) part[k * ld + m] = v[i];
+  }
+}
+
+// The 16 x 8 tiles of a [K, M] product x^T g (the rows of x and g its
+// depth: #2's dW, #5's d_rhs) that the warps of a kMsgWarps-warp block sum
+// in registers. Tile o is rows 16 (o / Mn), columns 8 (o % Mn), Mn =
+// ceil(M / 8); a warp owns consecutive tiles, which share their rows, so it
+// splits each A fragment once for all of them. With fewer tiles (n_dw)
+// than warps, `split` warps share one, each over every split-th 16-row
+// tile of a stage, and add their sums in warp order at the end. kTiles:
+// the most tiles a warp owns.
+template <int kTiles>
+struct DwTiles {
+  int Mn, split, grp, sub, first, n_own;
+  float run[kTiles][4];
+
+  __device__ __forceinline__ DwTiles(int n_dw, int mn, int warp) : Mn(mn) {
+    split = n_dw >= kMsgWarps ? 1 : kMsgWarps / n_dw;
+    grp = warp / split;
+    sub = warp % split;
+    const int per_warp = (n_dw + kMsgWarps / split - 1) / (kMsgWarps / split);
+    first = grp * per_warp;
+    n_own = max(min(per_warp, n_dw - first), 0);
+    clear();
+  }
+
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int q = 0; q < kTiles; ++q)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) run[q][i] = 0.f;
+  }
+
+  // run += x^T g over a stage's 16-row tiles i = sub, sub + split, ... < n:
+  // x rows tile_x(i) [16, ldx] (Kx = 16 ceil(K / 16) columns), g rows
+  // tile_g(i) [16, ldg], zero rows and columns past the ends.
+  template <typename T, typename TileX, typename TileG>
+  __device__ __forceinline__ void add(int n, const TileX& tile_x,
+                                      const TileG& tile_g, int ldx, int ldg,
+                                      int lane) {
+    for (int i = sub; i < n; i += split) {
+      const T* xs = tile_x(i);
+      const T* gs = tile_g(i);
+      DwA<T> frag;
+      int rows = -1;
+#pragma unroll
+      for (int q = 0; q < kTiles; ++q) {
+        if (q >= n_own) break;
+        const int kt = (first + q) / Mn;
+        if (kt != rows) {
+          frag.load(xs, ldx, kt * 16, lane);
+          rows = kt;
+        }
+        dw_tile_product(run[q], frag, gs, ldg, (first + q - kt * Mn) * 8,
+                        lane);
+      }
+    }
+  }
+
+  // The sums into part (row stride ld), rows k < K, columns m < M. Split
+  // warps add theirs in warp order through red (kMsgWarps * 128 floats of
+  // shared memory that no warp reads any more), between block barriers.
+  __device__ __forceinline__ void store(float* __restrict__ part, int K,
+                                        int M, int ld, float* red, int warp,
+                                        int lane) const {
+    if (split == 1) {
+#pragma unroll
+      for (int q = 0; q < kTiles; ++q) {
+        const int o = first + q;
+        if (q >= n_own) break;
+        store_dw_tile(part, run[q], o / Mn * 16, o % Mn * 8, K, M, ld, lane);
+      }
+      return;
+    }
+    __syncthreads();   // every warp is done with red's memory
+#pragma unroll
+    for (int i = 0; i < 4; ++i) red[(warp * 4 + i) * 32 + lane] = run[0][i];
+    __syncthreads();
+    if (sub == 0) {
+      float sum[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sum[i] = red[(warp * 4 + i) * 32 + lane];
+        for (int j = 1; j < split; ++j)
+          sum[i] += red[((warp + j) * 4 + i) * 32 + lane];
+      }
+      store_dw_tile(part, sum, grp / Mn * 16, grp % Mn * 8, K, M, ld, lane);
+    }
+  }
+};
+
 
 // The relation r of chunk c: rel_chunk_ptr[r] <= c < rel_chunk_ptr[r + 1].
 __device__ __forceinline__ int chunk_relation(const int* __restrict__ rel_chunk_ptr,
@@ -506,7 +756,7 @@ span_msg_kernel(Src rows, const T* __restrict__ w,
     cp_wait<1>();   // all but the newest copies: this tile's rows
     __syncwarp();
     const int base = lo + tile * 16;
-    tile_times_staged(xs, d.ld, d.Kp, w_big, w_small, d.ld, d.Np, M, msg,
+    tile_times_staged(xs, d.ld, d.Kp, w_big, w_small, d.ld, d.Np, M, msg, M,
                       (size_t)base, hi - base, __shfl_sync(kFull, my_norm, g),
                       __shfl_sync(kFull, my_norm, g + 8), lane);
     __syncwarp();

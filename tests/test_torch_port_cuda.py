@@ -277,14 +277,18 @@ def test_cuda_segment_sum_matches_plain(h, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("k,n", [(63, 4), (16, 8), (8, 16), (63, 11),
                                  (24, 32), (64, 16), (16, 64), (256, 64),
-                                 (8, 130)])
+                                 (8, 130), (300, 11)])
 def test_cuda_grouped_kernels_match_plain(k, n, dtype):
-    """gmm and gmm_drhs with empty groups, groups spanning tiles and row
-    counts that are not multiples of a tile, at every width class of the
-    kernels' dispatch."""
+    """gmm and gmm_drhs (tensor cores) with empty groups at the start, the
+    middle and the end, groups spanning 16-row, 256-row and 1024-row tiles
+    and row counts that are not multiples of a tile, at every width class
+    of the kernels (column tiles past 64, depth chunks past
+    ``GMM_DEPTH``), against the plain versions, the tiled-plain dataflows
+    and the earlier routes (``gmm_simt``, ``gmm_drhs_simt``); two runs give
+    the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    sizes = torch.tensor([0, 1500, 3, 0, 2049, 1, 0, 777], device="cuda")
+    sizes = torch.tensor([0, 1500, 3, 0, 2049, 1, 0, 777, 0], device="cuda")
     m, g = int(sizes.sum()), sizes.shape[0]
     dt = getattr(torch, dtype)
     lhs = torch.randn(m, k, device="cuda").to(dt)
@@ -296,13 +300,112 @@ def test_cuda_grouped_kernels_match_plain(k, n, dtype):
     torch.cuda.synchronize()
     assert cuda_build.LAUNCHES["grouped_matmul"] == before["grouped_matmul"] + 2
     assert cuda_build.LAUNCHES["grouped_drhs"] == before["grouped_drhs"] + 2
+    for name in ("grouped_matmul_simt", "grouped_drhs_simt"):
+        assert cuda_build.LAUNCHES[name] == before[name]
     assert torch.equal(out, out2) and torch.equal(drhs, drhs2)
     assert out.dtype == dt and drhs.dtype == torch.float32
-    ref = gk.gmm_plain(lhs, rhs, sizes)
-    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype, ref.float()))
-    ref = gk.gmm_drhs_plain(lhs, gout, sizes)
-    torch.testing.assert_close(drhs, ref, **_tol(dtype, ref))
+    simt = gk.gmm_simt(lhs, rhs, sizes), gk.gmm_drhs_simt(lhs, gout, sizes)
+    assert cuda_build.LAUNCHES["grouped_matmul_simt"] == \
+        before["grouped_matmul_simt"] + 1
+    assert cuda_build.LAUNCHES["grouped_drhs_simt"] == \
+        before["grouped_drhs_simt"] + 1
+    for got, refs in (
+            (out, (gk.gmm_plain(lhs, rhs, sizes),
+                   gk.gmm_tiled_plain(lhs, rhs, sizes), simt[0])),
+            (drhs, (gk.gmm_drhs_plain(lhs, gout, sizes),
+                    gk.gmm_drhs_tiled_plain(lhs, gout, sizes), simt[1]))):
+        for ref in refs:
+            ref = ref.float()
+            torch.testing.assert_close(got.float(), ref, **_tol(dtype, ref))
     assert not drhs[sizes.cpu() == 0].any()
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_kernels_rows_past_the_groups():
+    """Rows past the last group (group sizes that sum to less than M) come
+    out 0 from gmm and take no part in gmm_drhs, on both routes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sizes = torch.tensor([300, 0, 41], device="cuda")
+    lhs = torch.randn(700, 24, device="cuda")
+    rhs = torch.randn(3, 24, 16, device="cuda")
+    gout = torch.randn(700, 16, device="cuda")
+    for mm, drhs in ((gk.gmm, gk.gmm_drhs), (gk.gmm_simt, gk.gmm_drhs_simt)):
+        out = mm(lhs, rhs, sizes)
+        assert not out[341:].any()
+        ref = gk.gmm_plain(lhs[:341], rhs, sizes)
+        torch.testing.assert_close(out[:341], ref, **_tol("float32", ref))
+        ref = gk.gmm_drhs_plain(lhs[:341], gout[:341], sizes)
+        got = drhs(lhs, gout, sizes)
+        torch.testing.assert_close(got, ref, **_tol("float32", ref))
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_f32_signed_error():
+    """The float32 routes' signed error against float64, relative to the
+    sum of |ref|, at one relation-sized group mix (64 -> 16 over 91 groups
+    of ~2,200 rows): within 1e-8 for both tensor-core kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sizes = torch.randint(1500, 3000, (91,), generator=gen, device="cuda")
+    m = int(sizes.sum())
+    lhs = torch.randn(m, 64, generator=gen, device="cuda")
+    rhs = torch.randn(91, 64, 16, generator=gen, device="cuda") * 0.2
+    gout = torch.randn(m, 16, generator=gen, device="cuda")
+
+    def signed(got, ref):
+        return float(((got.double() - ref) * ref.sign()).sum()
+                     / ref.abs().sum())
+
+    assert abs(signed(gk.gmm(lhs, rhs, sizes),
+                      gk.gmm_plain(lhs.double(), rhs.double(), sizes))) < 1e-8
+    assert abs(signed(gk.gmm_drhs(lhs, gout, sizes),
+                      gk.gmm_drhs_plain(lhs.double(), gout.double(),
+                                        sizes))) < 1e-8
+
+
+@pytest.mark.cuda
+def test_cuda_edge_mode_fit_never_takes_the_simt_routes():
+    """Trainer.fit in edge mode on the card (backend "pallas": gmm forward
+    and d_lhs, gmm_drhs) launches the tensor-core kernels on every step
+    and the earlier routes on none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scaling_rgcn_training_tpu_torch.graphs.device import DeviceGraph
+    from scaling_rgcn_training_tpu_torch.models.heads import HEADS
+    from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import (
+        auto_mode, build_rel_edges)
+    from scaling_rgcn_training_tpu_torch.train.losses import bce_loss
+    from scaling_rgcn_training_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(7)
+    # few edges for the nodes x relations: the traffic rule takes the edge
+    # mode for both layers (a prematmul layer would launch no gmm)
+    n, e, slots, emb, hl, c = 3000, 6000, 30, 16, 8, 4
+    src, dst, rel, _ = _graph(rng, n, e, slots)
+    labelled = rng.choice(n, 600, replace=False)
+    onehot = torch.eye(c)[torch.as_tensor(np.arange(600) % c)]
+    t = lambda a: torch.as_tensor(a).to("cuda")
+    edges = build_rel_edges(src, dst, rel, n, slots, device="cuda", span=False)
+    assert auto_mode(edges, emb, hl) == auto_mode(edges, hl, c) == "edge"
+    graph = DeviceGraph(
+        edges=edges, x_train=t(labelled[:400]), y_train=t(onehot[:400]),
+        x_val=t(labelled[400:]), y_val=t(onehot[400:]))
+    trainer = Trainer(None, hl, 4, emb, lr=0.01, weight_d=5e-5, seed=0,
+                      device="cuda", backend="pallas")
+    model = HEADS["summation"](trainer.gen, slots, hl, c, n, emb,
+                               device="cuda")
+    counts = []
+    cuda_build.reset_launch_counts()
+    trainer.fit(model, graph, bce_loss, "sigmoid", sum_graph=False,
+                verbose=False, on_epoch=lambda _: counts.append(
+                    dict(cuda_build.LAUNCHES)))
+    for prev, now in zip([dict.fromkeys(counts[0], 0)] + counts, counts):
+        step = {k: now[k] - prev[k] for k in now}
+        assert step["grouped_matmul"] >= 4 and step["grouped_drhs"] >= 2
+        assert step["grouped_matmul_simt"] == 0
+        assert step["grouped_drhs_simt"] == 0
 
 
 @pytest.mark.cuda
@@ -316,6 +419,17 @@ def test_cuda_empty_shapes_launch_nothing():
                       torch.ones(2, 4, 0, device="cuda"), sizes).numel()
     assert not gk.gmm_drhs(torch.ones(5, 0, device="cuda"),
                            torch.ones(5, 3, device="cuda"), sizes).numel()
+    assert not gk.gmm_simt(torch.ones(5, 4, device="cuda"),
+                           torch.ones(2, 4, 0, device="cuda"), sizes).numel()
+    assert not gk.gmm_drhs_simt(torch.ones(5, 0, device="cuda"),
+                                torch.ones(5, 3, device="cuda"), sizes).numel()
+    # no rows, and a product over no depth: zeros, nothing launched
+    for mm in (gk.gmm, gk.gmm_simt):
+        assert not mm(torch.ones(0, 4, device="cuda"),
+                      torch.ones(2, 4, 3, device="cuda"),
+                      torch.zeros(2, dtype=torch.int64, device="cuda")).numel()
+    assert not gk.gmm(torch.ones(5, 0, device="cuda"),
+                      torch.ones(2, 0, 3, device="cuda"), sizes).any()
     assert not sorted_segment_sum(
         torch.ones(0, 4, device="cuda"),
         torch.zeros(1, dtype=torch.int32, device="cuda")).numel()
