@@ -35,13 +35,20 @@ Phases, in order; any failure exits non-zero:
    300 -> 11, 256 x 64) and every product and sum of an edge-mode step at
    the bench shape (#4 over 91 groups: 64 -> 16 and 16 -> 8, d_lhs
    16 -> 64 and 8 -> 16; #5 64 x 16 and 16 x 8; #3 [4M, h] -> 200k rows
-   for h 8, 16, 64); #4 and #5 (``csrc/grouped_kernels.cu``
-   ``gmm_tc_kernel``, ``drhs_tc_kernel``, on the tensor cores) also
+   for h 8, 16, 64, through the edges' dst or src permutation, the forward
+   sums with ``norm``); #3 (``csrc/segment_kernels.cu``
+   ``segment_sum_kernel``, the gather and the scale inside) at every
+   width class with and without ``perm`` and ``scale`` and with values off
+   an aligned address, also against its earlier route
+   (``sorted_segment_sum_rows``) bit for bit; #4 and #5
+   (``csrc/grouped_kernels.cu`` ``gmm_tc_kernel``, ``drhs_tc_kernel``, on
+   the tensor cores) also
    against their earlier routes on the CUDA cores (``gmm_simt``,
    ``gmm_drhs_simt``) everywhere and their dataflows (``gmm_tiled_plain``,
    ``gmm_drhs_tiled_plain``) at the edge cases and layer 1; two runs give
-   the same bits; kernel, plain and library times of #3's layer-1 sums
-   (the library yardstick: one ``torch.segment_reduce``) and of every #4
+   the same bits; kernel, earlier-route, plain and library times of #3's
+   layer-1 sums, with their gathers and without (the library yardstick:
+   ``index_select``, then one ``torch.segment_reduce``) and of every #4
    and #5 product of the step, each beside its earlier route (in turns),
    one ``torch.matmul`` per group and its bound (``gmm_cost``,
    ``gmm_drhs_cost``), and in float32 their signed errors against float64
@@ -52,11 +59,12 @@ Phases, in order; any failure exits non-zero:
    plan with ``backend="pallas"`` (edge mode: kernels #3, #4, #5; its f32
    losses must match the fused run's); the fused f32 step is timed again
    with #1's and then #2's earlier route swapped in, and the edge-mode f32
-   step with #4's and #5's, in turns with the tensor-core kernels (the
-   swap is this script's: no main path calls the earlier routes); then
+   step with #4's and #5's, then with #3's (whose losses must keep their
+   bits: printed), in turns with the redesigned kernels (the swap is this
+   script's: no main path calls the earlier routes); then
    ``aggr="attention"`` for 5 epochs: finite losses, the kernels' launch
-   counters advanced on every step (and the earlier routes of #1, #2, #4
-   and #5 on none), ms/step and peak memory;
+   counters advanced on every step (and the earlier routes of #1, #2, #3,
+   #4 and #5 on none), ms/step and peak memory;
 6. ``rgcn_conv`` in ``mode="auto"`` on a layer too wide for the span
    kernels (128 -> 64) at the bench N and E: it must take the edge mode
    and match the plain versions, forward and backward;
@@ -114,9 +122,9 @@ Tolerances: float32 within rtol 1e-4 and atol 1e-4 * max|ref| (summation
 order differs), bfloat16 inputs within 2e-2 * max|ref|.
 
 The second-to-last line is a JSON object with one entry per kernel (#1's,
-#2's, #4's, #5's and #7's with ``previous_ms``, their earlier routes'
-times in the same run; #4's, #5's and #7's with the CUDA kernels they
-launch); the last line is ``{"ok": true, "device": {...}}``.
+#2's, #3's, #4's, #5's and #7's with ``previous_ms``, their earlier
+routes' times in the same run; #3's, #4's, #5's and #7's with the CUDA
+kernels they launch); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -355,32 +363,58 @@ def compare_span_kernels(sk, plan, d_in, d_out, dtype, rng, tag, timing=False,
     return res
 
 
-def check_segment(vals, rowptr, tag, timing=False) -> dict:
-    """Kernel #3 against its plain version; optionally timed beside
-    ``torch.segment_reduce``."""
+def check_segment(vals, rowptr, tag, perm=None, scale=None,
+                  timing=False) -> dict:
+    """Kernel #3 (``csrc/segment_kernels.cu`` ``segment_sum_kernel``: the
+    gather through ``perm`` and the ``scale`` inside) against its plain
+    version, and the bits of its earlier route (``sorted_segment_sum_rows``:
+    the multiply and ``index_select`` as passes, then
+    ``segment_sum_rows_kernel``) and of a second run. With ``timing``: in
+    turns with the earlier route, beside the plain version, the library
+    path (``index_select``, then one ``torch.segment_reduce``) and the
+    bound (``vals``, ``perm``, ``scale``, ``rowptr`` and ``out`` each read
+    or written once)."""
     import torch
     from scaling_rgcn_training_tpu_torch.ops.segment_kernels import (
-        sorted_segment_sum, sorted_segment_sum_plain)
+        sorted_segment_sum, sorted_segment_sum_plain, sorted_segment_sum_rows)
 
-    out = sorted_segment_sum(vals, rowptr)
-    again = sorted_segment_sum(vals, rowptr)
+    kw = {"perm": perm, "scale": scale}
+    out = sorted_segment_sum(vals, rowptr, **kw)
+    again = sorted_segment_sum(vals, rowptr, **kw)
+    rows = sorted_segment_sum_rows(vals, rowptr, **kw)
     torch.cuda.synchronize()
-    ref = sorted_segment_sum_plain(vals, rowptr)
+    ref = sorted_segment_sum_plain(vals, rowptr, **kw)
     res = {"err": check_close(f"{tag} segment_sum", out, ref,
                               vals.dtype == torch.bfloat16)}
     if not torch.equal(out, again):
         fail(f"{tag}: two segment_sum runs differ")
-    if timing:
-        offsets = rowptr.long()
-        res.update(time_kernel(
-            lambda: sorted_segment_sum(vals, rowptr),
-            lambda: sorted_segment_sum_plain(vals, rowptr),
-            lambda: torch.segment_reduce(vals, "sum", offsets=offsets)))
-        res.update(bound(nbytes(vals, rowptr, out), vals.numel(),
-                         dtype_name(vals.dtype)))
-        print(f"  {tag} segment_sum times: {res['ms']:.4f} ms (plain "
-              f"{res['plain_ms']:.4f}, segment_reduce {res['library_ms']:.4f})",
-              flush=True)
+    if not torch.equal(out, rows):
+        fail(f"{tag}: segment_sum differs from its earlier route's bits")
+    del rows, again, ref
+    if not timing:
+        return res
+    offsets = rowptr.long()
+
+    def library():
+        v = vals if scale is None else vals.float() * scale[:, None]
+        v = v if perm is None else v.index_select(0, perm)
+        return torch.segment_reduce(v, "sum", offsets=offsets)
+
+    # order: plain, kernel, earlier route, earlier route, kernel, plain
+    res.update(time_kernel(lambda: sorted_segment_sum(vals, rowptr, **kw),
+                           lambda: sorted_segment_sum_plain(vals, rowptr, **kw),
+                           lambda: sorted_segment_sum_rows(vals, rowptr, **kw)))
+    res["previous_ms"] = res["library_ms"]
+    library()
+    res["library_ms"] = (cuda_time_ms(library, 20)
+                         + cuda_time_ms(library, 20)) / 2
+    moved = [t for t in (vals, perm, scale, rowptr, out) if t is not None]
+    res.update(bound(nbytes(*moved),
+                     vals.numel() * (1 if scale is None else 2), "float32"))
+    print(f"  {tag} segment_sum times: {res['ms']:.4f} ms (earlier route "
+          f"{res['previous_ms']:.4f}, plain {res['plain_ms']:.4f}, "
+          f"index_select + segment_reduce {res['library_ms']:.4f}; bound "
+          f"{res['bound_ms']:.4f} ms {res['bound_by']})", flush=True)
     return res
 
 
@@ -549,8 +583,9 @@ def run_fit(graph, compute_dtype, epochs, launches, head="summation",
 
 def require_per_step(tag, steps, least):
     """Every step launched each kernel of ``least`` at least that often,
-    and the earlier routes of #1, #2, #4, #5 and #7 (``span_forward_rows``,
-    ``span_backward_rows``, ``gmm_simt``, ``gmm_drhs_simt``,
+    and the earlier routes of #1, #2, #3, #4, #5 and #7
+    (``span_forward_rows``, ``span_backward_rows``,
+    ``sorted_segment_sum_rows``, ``gmm_simt``, ``gmm_drhs_simt``,
     ``fused_halo_aggregate_rows``) and #2's halves alone never."""
     for i, st in enumerate(steps):
         for k, n in least.items():
@@ -559,30 +594,37 @@ def require_per_step(tag, steps, least):
                      f"expected at least {n}")
         for k in ("span_forward_rows", "span_backward_rows",
                   "span_backward_half", "fused_halo_aggregate_rows",
-                  "grouped_matmul_simt", "grouped_drhs_simt"):
+                  "grouped_matmul_simt", "grouped_drhs_simt",
+                  "segment_sum_rows"):
             if st[k]:
                 fail(f"{tag}: step {i} launched {k}")
 
 
 def route_swap(graph, launches, kernel, **fit_kw) -> dict:
-    """Median ms/step of float32 ``Trainer.fit`` runs on ``graph`` with
-    ``kernel`` (``span_forward``, #1; ``span_backward``, #2;
-    ``fused_halo_aggregate``, #7; ``grouped``, #4 and #5 together) on the
-    tensor cores and with its earlier route (``span_forward_rows``,
-    ``span_backward_rows``, ``fused_halo_aggregate_rows``; ``gmm_simt`` and
-    ``gmm_drhs_simt``) swapped in wherever the code binds it (``rgcn_conv``;
-    for #2 also ``fused_halo``; #7 in ``fused_halo``; #4 and #5 in
-    ``grouped_kernels``, #5 also in ``rgcn_conv``), in the order tensor
-    cores, earlier route, earlier route, tensor cores (the swap is this
-    script's: no main path calls the earlier routes)."""
+    """Median ms/step and losses of float32 ``Trainer.fit`` runs on
+    ``graph`` with ``kernel`` (``span_forward``, #1; ``span_backward``, #2;
+    ``fused_halo_aggregate``, #7; ``grouped``, #4 and #5 together;
+    ``segment_sum``, #3) as redesigned and with its earlier route
+    (``span_forward_rows``, ``span_backward_rows``,
+    ``fused_halo_aggregate_rows``; ``gmm_simt`` and ``gmm_drhs_simt``;
+    ``sorted_segment_sum_rows``) swapped in wherever the code binds it
+    (``rgcn_conv``; for #2 also ``fused_halo``; #7 in ``fused_halo``; #4
+    and #5 in ``grouped_kernels``, #5 also in ``rgcn_conv``; #3 in
+    ``rgcn_conv``), in the order redesigned, earlier route, earlier route,
+    redesigned (the swap is this script's: no main path calls the earlier
+    routes). ``same_losses``: every run's losses have the same bits."""
     from scaling_rgcn_training_tpu_torch.ops import grouped_kernels as gk
     from scaling_rgcn_training_tpu_torch.ops import rgcn_conv
+    from scaling_rgcn_training_tpu_torch.ops import segment_kernels as segk
     from scaling_rgcn_training_tpu_torch.ops import span_kernels as sk
     from scaling_rgcn_training_tpu_torch.parallel import fused_halo
 
     if kernel == "grouped":
         binds = [(gk, "gmm", gk.gmm_simt), (gk, "gmm_drhs", gk.gmm_drhs_simt),
                  (rgcn_conv, "gmm_drhs", gk.gmm_drhs_simt)]
+    elif kernel == "segment_sum":
+        binds = [(rgcn_conv, "sorted_segment_sum",
+                  segk.sorted_segment_sum_rows)]
     else:
         owner, modules = {
             "span_forward": (sk, (rgcn_conv,)),
@@ -591,17 +633,21 @@ def route_swap(graph, launches, kernel, **fit_kw) -> dict:
         binds = [(mod, kernel, getattr(owner, f"{kernel}_rows"))
                  for mod in modules]
     shipped = [getattr(mod, name) for mod, name, _ in binds]
-    swap = {"tensor cores": [], "earlier route": []}
-    for route in ("tensor cores", "earlier route", "earlier route",
-                  "tensor cores"):
+    swap = {"redesigned": [], "earlier route": []}
+    losses = []
+    for route in ("redesigned", "earlier route", "earlier route",
+                  "redesigned"):
         for (mod, name, earlier), fn in zip(binds, shipped):
-            setattr(mod, name, fn if route == "tensor cores" else earlier)
+            setattr(mod, name, fn if route == "redesigned" else earlier)
         try:
-            swap[route].append(run_fit(graph, None, EPOCHS, launches,
-                                       **fit_kw)["step_ms"])
+            fit = run_fit(graph, None, EPOCHS, launches, **fit_kw)
         finally:
             for (mod, name, _), fn in zip(binds, shipped):
                 setattr(mod, name, fn)
+        swap[route].append(fit["step_ms"])
+        losses.append(fit["losses"])
+    swap["same_losses"] = all(l == losses[0] for l in losses)
+    swap["losses"] = losses[0]
     return swap
 
 
@@ -924,8 +970,8 @@ def halo_phase(bench_src, bench_dst, bench_typ, splits, fits, launches,
         finally:
             os.environ.pop(EXCHANGE_ENV, None)
         print(f"  halo {mode} f32 ms/step, {kernel} on the tensor cores "
-              f"{s['tensor cores']} vs its earlier route {s['earlier route']} "
-              "(order: tensor cores, earlier, earlier, tensor cores)",
+              f"{s['redesigned']} vs its earlier route {s['earlier route']} "
+              "(order: redesigned, earlier, earlier, redesigned)",
               flush=True)
     sh = he.shards[0]
     per_call = host_cost((("shard 0 local", sh.local.span),
@@ -1193,10 +1239,22 @@ def main() -> None:
         name = dtype_name(dtype)
         t = lambda *shape, s=1.0: (torch.randn(
             shape, generator=gen, device=DEV) * s).to(dtype)
-        # every width class of the kernels' dispatch (csrc/*.cu)
+        # every width class of the kernels' dispatch (csrc/*.cu): #3 with
+        # and without the gather and the scale, and with the values one
+        # element off an aligned address (a narrower load width)
+        e_small = len(keys)
+        perm = torch.randperm(e_small, generator=gen, device=DEV).int()
+        scale = torch.rand(e_small, generator=gen, device=DEV) + 0.1
         for h in (4, 8, 11, 16, 32, 64, 130):
-            note({"seg": check_segment(t(len(keys), h), rowptr,
+            v = t(e_small * h + 1)
+            note({"seg": check_segment(v[:-1].view(e_small, h), rowptr,
                                        f"small h {h} {name}")})
+            note({"seg": check_segment(v[:-1].view(e_small, h), rowptr,
+                                       f"small h {h} {name} perm+scale",
+                                       perm=perm, scale=scale)})
+            note({"seg": check_segment(v[1:].view(e_small, h), rowptr,
+                                       f"small h {h} {name} perm+scale offset",
+                                       perm=perm, scale=scale)})
         # every width class of the tensor-core kernels (column tiles past
         # 64, depth chunks past GMM_DEPTH) and of the earlier routes
         for k, n in ((63, 4), (16, 8), (8, 16), (63, 11), (24, 32), (256, 64),
@@ -1219,17 +1277,30 @@ def main() -> None:
                                    f"bench d_lhs {k}->{n} {name}",
                                    timing=True))
             new_bench[("grouped_matmul", f"d_lhs {k}->{n}", name)] = r["gmm"]
-        # every sum of the step: forward onto dst rows (h HL, C) and dx onto
-        # src rows (h D, HL); layer 1's are timed
+        # every sum of an edge-mode step, on the edges' own permutations
+        # (computed as RelEdges computes them, and not cached on `edges`,
+        # so phase 5's fused runs do not hold them): the forward onto dst
+        # rows (h HL, C) with norm, dx onto src rows (h D, HL); layer 1's
+        # are timed, and so is each without the gather (values already in
+        # key order), the shape the kernel was timed at before it gathered
         for h, side, timed in ((bs.HL, "dst", True), (bs.C, "dst", False),
                                (bs.D, "src", True), (bs.HL, "src", False)):
             rp = edges.dst_rowptr if side == "dst" else edges.src_rowptr
+            perm = getattr(type(edges), f"{side}_perm").func(edges)
+            kw = {"perm": perm, "scale": edges.norm if side == "dst" else None}
+            vals = t(bs.E, h)
             r = note({"seg": check_segment(
-                t(bs.E, h), rp, f"bench [E, {h}] -> {side} rows {name}",
-                timing=timed)})["seg"]
+                vals, rp, f"bench [E, {h}] -> {side} rows {name} "
+                f"perm{'+scale' if side == 'dst' else ''}", timing=timed,
+                **kw)})["seg"]
             if timed:
-                new_bench[("segment_sum" if side == "dst" else "segment_sum dx",
-                           f"[E, {h}]", name)] = r
+                key = "segment_sum" if side == "dst" else "segment_sum dx"
+                new_bench[(key, f"[E, {h}]", name)] = r
+                new_bench[(key, f"[E, {h}] no perm", name)] = note(
+                    {"seg": check_segment(
+                        vals, rp, f"bench [E, {h}] -> {side} rows {name} "
+                        "no perm", timing=True)})["seg"]
+            del vals, perm, kw   # phase 5's peak memory holds none of them
 
     phase("5 trainer at the bench shape")
     from scaling_rgcn_training_tpu_torch.graphs.device import DeviceGraph
@@ -1249,8 +1320,8 @@ def main() -> None:
         swap[kernel] = s = route_swap(DeviceGraph(edges=edges, **splits),
                                       launches, kernel)
         print(f"  fused f32 ms/step, {kernel} on the tensor cores "
-              f"{s['tensor cores']} vs its earlier route {s['earlier route']} "
-              "(order: tensor cores, earlier, earlier, tensor cores)",
+              f"{s['redesigned']} vs its earlier route {s['earlier route']} "
+              "(order: redesigned, earlier, earlier, redesigned)",
               flush=True)
 
     t0 = time.perf_counter()
@@ -1273,8 +1344,18 @@ def main() -> None:
     swap["grouped"] = s = route_swap(non_fused, launches, "grouped",
                                      backend="pallas")
     print(f"  edge-mode f32 ms/step, gmm and gmm_drhs on the tensor cores "
-          f"{s['tensor cores']} vs their earlier routes {s['earlier route']} "
-          "(order: tensor cores, earlier, earlier, tensor cores)", flush=True)
+          f"{s['redesigned']} vs their earlier routes {s['earlier route']} "
+          "(order: redesigned, earlier, earlier, redesigned)", flush=True)
+    # the end-to-end effect of #3's redesign (the gather and the scale
+    # inside the kernel); its sums are the earlier route's, bit for bit
+    swap["segment_sum"] = s = route_swap(non_fused, launches, "segment_sum",
+                                         backend="pallas")
+    print(f"  edge-mode f32 ms/step, segment_sum with the gather inside "
+          f"{s['redesigned']} vs its earlier route {s['earlier route']} "
+          "(order: redesigned, earlier, earlier, redesigned); the same loss "
+          f"bits on both routes: {s['same_losses']}; as the first edge-mode "
+          f"run's: {s['losses'] == fits[('edge', None)]['losses']}",
+          flush=True)
     fused_l, edge_l = (fits[(k, None)]["losses"] for k in ("fused", "edge"))
     if not np.allclose(edge_l, fused_l, rtol=1e-4, atol=0):
         fail(f"edge-mode f32 losses {edge_l} differ from fused {fused_l}")
@@ -1344,13 +1425,16 @@ def main() -> None:
             "launches": edge_launches[kname], "max_abs_err": errs[kname],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-        if kname != "segment_sum":
-            # the tensor-core kernels it launches at the bench shape, and
-            # its earlier route's time (gmm_simt, gmm_drhs_simt) in this run
-            kernels[-1].update(
-                kernels=(["gmm_tc_kernel"] if kname == "grouped_matmul" else
-                         ["drhs_tc_kernel", "drhs_reduce_kernel"]),
-                previous_ms=r["previous_ms"])
+        # the CUDA kernels it launches at the bench shape, and its earlier
+        # route's time (sorted_segment_sum_rows, gmm_simt, gmm_drhs_simt)
+        # in this run; #3's figures are its main-path call, [E, 16] onto
+        # dst rows through dst_perm with norm
+        kernels[-1].update(
+            kernels={"segment_sum": ["segment_sum_kernel"],
+                     "grouped_matmul": ["gmm_tc_kernel"],
+                     "grouped_drhs": ["drhs_tc_kernel",
+                                      "drhs_reduce_kernel"]}[kname],
+            previous_ms=r["previous_ms"])
     for kname, key, replaces, run in (
             ("halo_exchange", "exchange", "ring_halo.py:42", "halo #6"),
             ("fused_halo_aggregate", "fused", "fused_halo.py:307",
@@ -1391,9 +1475,10 @@ def main() -> None:
             "step_ms": f["step_ms"], "peak_mib": f["peak_mib"],
             "loss_first": f["losses"][0], "loss_last": f["losses"][-1],
             "launches_step0": f["steps"][0]} for (mode, cd), f in fits.items()},
-        "fused_f32_step_ms_by_route": {k: v for k, v in swap.items()
-                                       if k != "grouped"},
-        "edge_f32_step_ms_by_route": swap["grouped"],
+        "fused_f32_step_ms_by_route": {
+            k: swap[k] for k in ("span_forward", "span_backward")},
+        "edge_f32_step_ms_by_route": {
+            k: swap[k] for k in ("grouped", "segment_sum")},
         "halo_f32_step_ms_by_route": halo["swap"],
         "halo_span_forward_per_call": halo["per_call"],
         "launches": {"fused": fused_launches, "edge": edge_launches,

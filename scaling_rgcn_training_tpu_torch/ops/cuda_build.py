@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: Dict[str, int] = {
     "span_forward": 0, "span_forward_rows": 0, "span_backward": 0,
     "span_backward_half": 0, "span_backward_rows": 0, "segment_sum": 0,
+    "segment_sum_rows": 0,
     "grouped_matmul": 0, "grouped_matmul_simt": 0, "grouped_drhs": 0,
     "grouped_drhs_simt": 0,
     "halo_exchange": 0, "fused_halo_aggregate": 0,

@@ -12,20 +12,21 @@ sum ``relational_aggregate`` has three dataflows, each a
 - ``fused``: the span kernels (``ops/span_kernels.py``) gather, transform
   and sum in one pass each way; they take layers up to their width limit;
 - ``edge``: gather ``x[src]``, one grouped matmul over the
-  relation-contiguous edges (``ops/grouped_matmul.py``), scale by ``norm``,
-  and sum onto ``dst`` with the sorted segment sum
-  (``ops/segment_kernels.py``);
+  relation-contiguous edges (``ops/grouped_matmul.py``), and sum onto
+  ``dst`` with the sorted segment sum (``ops/segment_kernels.py``), which
+  gathers the messages into dst order through ``dst_perm`` and scales them
+  by ``norm`` as it reads them;
 - ``prematmul``: ``Z = x @ W`` for every relation first, then gather
   ``Z[src, rel]`` and sum as ``edge`` does.
 
 The backward of ``edge`` and ``prematmul`` is the JAX package's large-N
 backward: ``g_msg = g_out[dst] * norm``, ``dx`` by the grouped matmul on
-``W^T`` and a src-sorted segment sum, ``dW`` by the grouped ``d_rhs``
-kernel. On the card both sums run through the segment-sum kernel and ``dW``
-through the ``d_rhs`` kernel whatever the backend; the backend picks the
-grouped matmul. ``mode="auto"`` picks ``fused`` where the edges carry the
-span plan and the span kernels take the widths, and otherwise the JAX
-package's traffic rule. ``aggr="attention"`` runs ``ops/sddmm.py``.
+``W^T`` and a segment sum onto src through ``src_perm``, ``dW`` by the
+grouped ``d_rhs`` kernel. On the card both sums run through the
+segment-sum kernel and ``dW`` through the ``d_rhs`` kernel whatever the
+backend; the backend picks the grouped matmul. ``mode="auto"`` picks
+``fused`` where the edges carry the span plan and the span kernels take the
+widths, and otherwise the JAX package's traffic rule. ``aggr="attention"`` runs ``ops/sddmm.py``.
 
 Weights keep the JAX layout ``weight [R, in, out]``, ``root [in, out]``,
 ``bias [out]``, so the two packages compare like with like.
@@ -226,11 +227,6 @@ def init_rgcn_layer(gen: torch.Generator, num_slots: int, in_dim: int,
     return layer.to(device)
 
 
-def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
-    """The aggregation sums (and returns) float32 for low-precision inputs."""
-    return torch.float64 if dtype == torch.float64 else torch.float32
-
-
 class _FusedAggregate(torch.autograd.Function):
     """``sum_e norm_e * (x[src_e] @ w[rel_e])`` onto dst by the span
     kernels, with the backward kernel as its gradient."""
@@ -257,7 +253,6 @@ class _EdgeAggregate(torch.autograd.Function):
     def forward(ctx, x, w, edges, mode, backend):
         ctx.save_for_backward(x, w)
         ctx.edges, ctx.backend = edges, backend
-        acc = _acc_dtype(x.dtype)
         if mode == "prematmul":
             # one flat matmul [N, d] @ [d, slots * h] -> [N * slots, h] in
             # src-major layout, so the gather key is src * slots + rel
@@ -269,11 +264,10 @@ class _EdgeAggregate(torch.autograd.Function):
             msg = grouped_matmul(x.index_select(0, edges.src), w,
                                  edges.group_sizes, backend=backend,
                                  static_offsets=edges.group_offsets)
-        # the norm scale promotes low-precision msg to f32: the narrow
-        # scatter side always sums (and returns) f32
-        msg = msg.to(acc) * edges.norm[:, None].to(acc)
-        return sorted_segment_sum(msg.index_select(0, edges.dst_perm),
-                                  edges.dst_rowptr)
+        # the segment sum gathers msg into dst order and scales it by norm
+        # as it reads it, and sums (and returns) f32 for low-precision msg
+        return sorted_segment_sum(msg, edges.dst_rowptr, perm=edges.dst_perm,
+                                  scale=edges.norm)
 
     @staticmethod
     def backward(ctx, g_out):
@@ -287,8 +281,11 @@ class _EdgeAggregate(torch.autograd.Function):
             dmsg = grouped_matmul(g_msg.to(w.dtype), w.transpose(1, 2),
                                   edges.group_sizes, backend=ctx.backend,
                                   static_offsets=edges.group_offsets)
-            dx = sorted_segment_sum(dmsg.index_select(0, edges.src_perm),
-                                    edges.src_rowptr).to(x.dtype)
+            dx = sorted_segment_sum(dmsg, edges.src_rowptr,
+                                    perm=edges.src_perm).to(x.dtype)
+            # free the [E, d_in] messages before dW gathers [E, d_in] rows
+            # of x: the two never live at once (the step's peak memory)
+            del dmsg
         if ctx.needs_input_grad[1]:
             dw = gmm_drhs(x.index_select(0, edges.src), g_msg,
                           edges.group_sizes).to(w.dtype)

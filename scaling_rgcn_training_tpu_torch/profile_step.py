@@ -15,8 +15,12 @@ virtual shards of the card, with the ``--exchange`` ``library``, ``kernel``
 over 4 transferred embeddings, frozen (``bench_shape.bench_trainer``).
 Prints the card, wall ms/step over the window, the device's busy ms/step
 (the sum of kernel times; one stream), its idle share, and the kernels by
-device time per step. ``--trace`` also writes a Chrome trace. Needs a CUDA
-device.
+device time per step. ``--shapes OPS`` also splits the operators whose
+names hold one of the comma-separated ``OPS`` (``index_select``: the row
+gathers) by their input shapes (``record_shapes``), with each group's
+device time and calls per step: a gather of ``[E, h]`` rows is a
+permutation of the edge stream, one of ``[N, h]`` rows a node table's.
+``--trace`` also writes a Chrome trace. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -32,6 +36,12 @@ import torch
 def _device_time(evt) -> float:
     t = getattr(evt, "self_device_time_total", None)
     return float(t if t is not None else evt.self_cuda_time_total)
+
+
+def _device_time_total(evt) -> float:
+    """An operator's device time with the kernels it launched."""
+    t = getattr(evt, "device_time_total", None)
+    return float(t if t is not None else evt.cuda_time_total)
 
 
 def main(argv=None) -> None:
@@ -51,6 +61,9 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--trace", type=str, default=None)
+    ap.add_argument("--shapes", type=str, default=None,
+                    help="comma-separated operator names to split by input "
+                    "shape, e.g. index_select")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -96,7 +109,8 @@ def main(argv=None) -> None:
         activities=[torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA],
         schedule=torch.profiler.schedule(wait=args.warmup - 1, warmup=1,
-                                         active=args.steps, repeat=1))
+                                         active=args.steps, repeat=1),
+        record_shapes=args.shapes is not None)
 
     def on_epoch(epoch):
         torch.cuda.synchronize()
@@ -121,8 +135,30 @@ def main(argv=None) -> None:
     for e in sorted(kernels, key=_device_time, reverse=True)[:args.top]:
         print(f"  {_device_time(e) / 1e3 / args.steps:8.3f} ms/step "
               f"{e.count / args.steps:6.1f}/step  {e.key[:150]}", flush=True)
+    if args.shapes:
+        _print_by_shape(prof, args.shapes.split(","), args.steps)
     if args.trace:
         prof.export_chrome_trace(args.trace)
+
+
+def _print_by_shape(prof, ops, steps: int) -> None:
+    """Device ms and calls per step of each operator named in ``ops``,
+    one line per distinct list of input shapes, largest first, then each
+    operator's total."""
+    rows = [e for e in prof.key_averages(group_by_input_shape=True)
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and any(op in e.key for op in ops)]
+    ms = lambda e: _device_time_total(e) / 1e3 / steps
+    totals = {}
+    for e in sorted(rows, key=ms, reverse=True):
+        t = totals.setdefault(e.key, [0.0, 0.0])
+        t[0] += ms(e)
+        t[1] += e.count / steps
+        print(f"  {ms(e):8.3f} ms/step {e.count / steps:6.1f}/step  {e.key} "
+              f"{e.input_shapes}", flush=True)
+    for key, (t_ms, calls) in totals.items():
+        print(f"  {t_ms:8.3f} ms/step {calls:6.1f}/step  {key} (all shapes)",
+              flush=True)
 
 
 if __name__ == "__main__":

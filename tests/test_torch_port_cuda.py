@@ -21,7 +21,8 @@ from scaling_rgcn_training_tpu_torch.ops import cuda_build
 from scaling_rgcn_training_tpu_torch.ops import grouped_kernels as gk
 from scaling_rgcn_training_tpu_torch.ops import span_kernels as sk
 from scaling_rgcn_training_tpu_torch.ops.segment_kernels import (
-    segment_rowptr, sorted_segment_sum, sorted_segment_sum_plain)
+    segment_rowptr, sorted_segment_sum, sorted_segment_sum_plain,
+    sorted_segment_sum_rows)
 
 
 def _graph(rng, n, e, slots):
@@ -271,6 +272,46 @@ def test_cuda_segment_sum_matches_plain(h, dtype):
     assert torch.equal(got, again) and got.dtype == torch.float32
     ref = sorted_segment_sum_plain(vals, rowptr)
     torch.testing.assert_close(got, ref, **_tol(dtype, ref))
+    assert torch.equal(got, sorted_segment_sum_rows(vals, rowptr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gather", ["perm", "scale", "perm+scale", "offset"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [4, 8, 11, 16, 32, 64, 130])
+def test_cuda_segment_sum_gather_matches_rows(h, dtype, gather):
+    """The gather through ``perm`` and the ``scale`` inside the kernel:
+    within tolerance of the plain version, and the bits of the earlier
+    route (the multiply and ``index_select`` as passes, then
+    ``segment_sum_rows_kernel``) and of a second run. ``offset``: perm and
+    scale with the values one element past an aligned address, so the
+    kernel takes a narrower load width."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(h + len(gather))
+    keys = np.sort(np.concatenate([rng.integers(0, 600, 3000) * 2,
+                                   np.full(700, 901)])).astype(np.int32)
+    e = len(keys)
+    rowptr = torch.tensor(segment_rowptr(keys, 1300)).cuda()
+    vals = torch.randn(e * h + 1, device="cuda").to(getattr(torch, dtype))
+    vals = (vals[1:] if gather == "offset" else vals[:-1]).view(e, h)
+    perm = torch.tensor(rng.permutation(e).astype(np.int32)).cuda()
+    scale = torch.tensor(rng.random(e).astype(np.float32) + 0.1).cuda()
+    kw = {"perm": None if gather == "scale" else perm,
+          "scale": None if gather == "perm" else scale}
+    before = dict(cuda_build.LAUNCHES)
+    got = sorted_segment_sum(vals, rowptr, **kw)
+    again = sorted_segment_sum(vals, rowptr, **kw)
+    rows = sorted_segment_sum_rows(vals, rowptr, **kw)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["segment_sum"] == before["segment_sum"] + 2
+    assert cuda_build.LAUNCHES["segment_sum_rows"] == \
+        before["segment_sum_rows"] + 1
+    assert torch.equal(got, again) and torch.equal(got, rows)
+    ref = sorted_segment_sum_plain(vals, rowptr, **kw)
+    torch.testing.assert_close(got, ref, **_tol(dtype, ref))
+    empty = torch.tensor(np.setdiff1d(np.arange(1300), keys)).cuda()
+    assert not got[empty].any()
 
 
 @pytest.mark.cuda
@@ -368,8 +409,9 @@ def test_cuda_grouped_f32_signed_error():
 @pytest.mark.cuda
 def test_cuda_edge_mode_fit_never_takes_the_simt_routes():
     """Trainer.fit in edge mode on the card (backend "pallas": gmm forward
-    and d_lhs, gmm_drhs) launches the tensor-core kernels on every step
-    and the earlier routes on none."""
+    and d_lhs, gmm_drhs, the segment sums with their gathers) launches
+    the redesigned kernels on every step and the earlier routes on
+    none."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from scaling_rgcn_training_tpu_torch.graphs.device import DeviceGraph
@@ -404,8 +446,10 @@ def test_cuda_edge_mode_fit_never_takes_the_simt_routes():
     for prev, now in zip([dict.fromkeys(counts[0], 0)] + counts, counts):
         step = {k: now[k] - prev[k] for k in now}
         assert step["grouped_matmul"] >= 4 and step["grouped_drhs"] >= 2
+        assert step["segment_sum"] >= 4
         assert step["grouped_matmul_simt"] == 0
         assert step["grouped_drhs_simt"] == 0
+        assert step["segment_sum_rows"] == 0
 
 
 @pytest.mark.cuda
@@ -430,9 +474,13 @@ def test_cuda_empty_shapes_launch_nothing():
                       torch.zeros(2, dtype=torch.int64, device="cuda")).numel()
     assert not gk.gmm(torch.ones(5, 0, device="cuda"),
                       torch.ones(2, 0, 3, device="cuda"), sizes).any()
-    assert not sorted_segment_sum(
-        torch.ones(0, 4, device="cuda"),
-        torch.zeros(1, dtype=torch.int32, device="cuda")).numel()
+    for seg in (sorted_segment_sum, sorted_segment_sum_rows):
+        assert not seg(torch.ones(0, 4, device="cuda"),
+                       torch.zeros(1, dtype=torch.int32, device="cuda")).numel()
+        assert not seg(torch.ones(3, 4, device="cuda"),
+                       torch.zeros(1, dtype=torch.int32, device="cuda"),
+                       perm=torch.zeros(0, dtype=torch.int32, device="cuda"),
+                       scale=torch.ones(3, device="cuda")).numel()
     assert cuda_build.LAUNCHES == before
 
 
