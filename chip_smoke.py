@@ -89,6 +89,11 @@ Phases, in order; any failure exits non-zero:
    (``fused_halo.fused_halo_cost``), #6's beside the library exchange and
    one ``transpose().contiguous()`` of the stacked sends, and in float32
    #7's signed error against float64 per shard (at most ``MAX_BIAS``);
+   at every case the send gather's transpose (#3 over each shard's CSR of
+   ``send_idx``, the call of both halo backwards) on cotangents that are
+   zero in the padding slots against its plain version and ``index_add``
+   in float64, the same bits on two runs, and at the bench shape its time
+   beside its plain version's and one f32 ``index_add_`` a shard;
    then ``Trainer.fit`` at the bench shape over the 4 shards: halo
    partition with the library exchange, #6 and #7 in float32, #6 and #7
    with bfloat16 streams, and the edge partition (``backend="pallas"``);
@@ -116,7 +121,30 @@ Phases, in order; any failure exits non-zero:
    4 transferred embeddings (d 64; the attention head has 4 heads of 16),
    the embedding frozen, 10 epochs in float32: finite losses, 4
    span_forward and 2 span_backward launches a step, ms/step and peak
-   memory.
+   memory;
+11. checkpoint, resume, plan cache, summary writers and the native
+   parser: the bench shape's ``build_rel_edges`` (span plan) and 4-shard
+   halo partition built cold into the plan cache and loaded warm (every
+   field of the warm plan equal to the cold one's; seconds and MB); then
+   float32 ``Trainer.fit`` runs that checkpoint every ``k`` epochs, are
+   stopped by their ``on_epoch`` hook after ``k`` and are resumed by a
+   Trainer of another seed, whose losses must have the bits of the
+   unbroken runs of phases 5 and 8: fused on the warm plan (#1, #2;
+   k = 4 of 10), edge mode (#3, #4, #5; 4 of 10) and halo #7 on the warm
+   4-shard plan (#7, #2; 2 of 5), each launching its kernels, with the
+   checkpoint's write and read ms and MB; the CLI on phase 7's graph with
+   ``-ckpt_dir D`` (the summary pre-training's ``transfer_SYNTH_0.npz``
+   only), then ``-ckpt_every 2`` for 4 epochs and for 6 (the second
+   resumes the fit at epoch 4), whose metric series, final state and test
+   metrics must equal an unbroken 6-epoch run's from a copy of the same
+   transfer file, ``-sum dummy`` and ``-sum bisim`` on
+   summaries written with the port's code (the bisimulation from a
+   FLUID-format folder of the graph's 1- and 2-forward bisimulation
+   classes, ``graphs/synthetic.py`` ``write_bisim_output``) and ``-e_viz
+   true -plan_cache P`` (a finite ``[N, 63]`` ``.npy``, entries in P);
+   and the native and Python parses of a 200,000-entity graph at degree 8
+   (the same graph; their seconds), which fails if the native parser did
+   not run.
 
 Tolerances: float32 within rtol 1e-4 and atol 1e-4 * max|ref| (summation
 order differs), bfloat16 inputs within 2e-2 * max|ref|.
@@ -131,6 +159,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -152,6 +181,10 @@ WARMUP = 3
 MAX_BIAS = 1e-8
 JAX_PKG = "scaling_rgcn_training_tpu/"
 DEV = "cuda"
+# entities of the CLI's synthetic graph (phases 7 and 11) and of phase 11's
+# parse of the native parser against the Python one
+CLI_ENTITIES = 20_000
+PARSE_ENTITIES = 200_000
 
 
 def fail(msg: str) -> None:
@@ -759,9 +792,16 @@ def check_halo_kernels(he, d_in, d_out, dtype, tag, timing=False) -> dict:
     ``transpose().contiguous()`` of the stacked sends; for #7 its earlier
     route, its call without the buffer, and the library exchange plus #1 on
     each shard's local and halo plans: the same function), and for float32
-    #7's signed error against float64."""
+    #7's signed error against float64. Then the send gather's transpose
+    (#3 over each shard's CSR of ``send_idx``, both halo backwards' call)
+    on cotangents that are zero in the padding slots, against its plain
+    version, ``index_add`` over ``send_idx`` in float64 and a second run's
+    bits; with ``timing`` its time beside the plain version's and one f32
+    ``index_add_`` a shard."""
     import torch
     from scaling_rgcn_training_tpu_torch.ops import span_kernels as sk
+    from scaling_rgcn_training_tpu_torch.ops.segment_kernels import (
+        sorted_segment_sum_plain)
     from scaling_rgcn_training_tpu_torch.parallel import fused_halo as fh
     from scaling_rgcn_training_tpu_torch.parallel import ring_halo as rh
 
@@ -782,6 +822,25 @@ def check_halo_kernels(he, d_in, d_out, dtype, tag, timing=False) -> dict:
             fail(f"{tag}: halo_exchange differs from its plain version")
         if not torch.equal(a, b):
             fail(f"{tag}: two halo_exchange runs differ")
+    g_sends = []
+    for sh in he.shards:
+        used = torch.zeros(s_n * h, dtype=torch.bool, device=DEV)
+        used[sh.send_perm.long()] = True
+        g_send = (torch.randn(s_n * h, d_in, generator=gen, device=DEV)
+                  * used[:, None]).to(dtype)
+        got, again = (rh.send_transpose(g_send, sh),
+                      rh.send_transpose(g_send, sh))
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"{tag}: two send_transpose runs differ")
+        name = f"{tag} shard {sh.fused.shard} send_transpose"
+        check_close(name, got, sorted_segment_sum_plain(
+            g_send, sh.send_rowptr, sh.send_perm), bf16)
+        ref64 = torch.zeros(n_per, d_in, dtype=torch.float64,
+                            device=DEV).index_add_(0, sh.send_idx,
+                                                   g_send.double())
+        check_close(f"{name} vs index_add in float64", got, ref64, bf16)
+        g_sends.append(g_send)
     def exchange_span():
         # the same function by the library exchange, then #1 on each
         # shard's local and halo segments
@@ -881,6 +940,17 @@ def check_halo_kernels(he, d_in, d_out, dtype, tag, timing=False) -> dict:
         print(f"  {tag} library exchange {res['exchange']['library_exchange_ms']:.4f}"
               f" ms, transpose().contiguous() {res['exchange']['library_ms']:.4f}"
               " ms", flush=True)
+        g32 = [g.float() for g in g_sends]
+        r = res["send_transpose"] = time_kernel(
+            lambda: [rh.send_transpose(g, sh)
+                     for g, sh in zip(g_sends, he.shards)],
+            lambda: [sorted_segment_sum_plain(g, sh.send_rowptr, sh.send_perm)
+                     for g, sh in zip(g_sends, he.shards)],
+            lambda: [torch.zeros(n_per, d_in, device=DEV).index_add_(
+                0, sh.send_idx, g) for g, sh in zip(g32, he.shards)])
+        print(f"  {tag} send_transpose over {s_n} shards {r['ms']:.4f} ms "
+              f"(plain {r['plain_ms']:.4f}, f32 index_add_ "
+              f"{r['library_ms']:.4f})", flush=True)
     return res
 
 
@@ -929,16 +999,21 @@ def halo_phase(bench_src, bench_dst, bench_typ, splits, fits, launches,
             bench[(layer, dtype_name(dtype))] = r
 
     halo_graph = DeviceGraph(edges=he, **splits)
+    # segment_sum: the send gathers' transposes, 4 shards x 2 layers
     runs = (("halo library", None, None,
-             {"span_forward": 32, "span_backward": 16}),
+             {"span_forward": 32, "span_backward": 16, "segment_sum": 8}),
             ("halo #6", "1", None,
-             {"halo_exchange": 6, "span_forward": 32, "span_backward": 16}),
+             {"halo_exchange": 6, "span_forward": 32, "span_backward": 16,
+              "segment_sum": 8}),
             ("halo #7", "fused", None,
-             {"fused_halo_aggregate": 16, "span_backward": 16}),
+             {"fused_halo_aggregate": 16, "span_backward": 16,
+              "segment_sum": 8}),
             ("halo #6 bf16", "1", "bfloat16",
-             {"halo_exchange": 6, "span_forward": 32, "span_backward": 16}),
+             {"halo_exchange": 6, "span_forward": 32, "span_backward": 16,
+              "segment_sum": 8}),
             ("halo #7 bf16", "fused", "bfloat16",
-             {"fused_halo_aggregate": 16, "span_backward": 16}))
+             {"fused_halo_aggregate": 16, "span_backward": 16,
+              "segment_sum": 8}))
     counts = {}
     try:
         for name, env, cd, least in runs:
@@ -1004,7 +1079,7 @@ def halo_phase(bench_src, bench_dst, bench_typ, splits, fits, launches,
               f"fused run's (max rel diff {rel:.2e}, limit {rtol:.0e})",
               flush=True)
     return {"bench": bench, "errs": errs, "counts": counts,
-            "swap": halo_swap, "per_call": per_call}
+            "swap": halo_swap, "per_call": per_call, "mesh": mesh}
 
 
 def check_bwd_variants(plan, d_in, d_out, dtype, rng, tag, variants=None,
@@ -1110,18 +1185,21 @@ def bwd_variant_phase(small, wide, bench_plan, rng, launches, reset) -> dict:
             "launches": counts["span_backward_variant"]}
 
 
-def run_cli(extra, tag, exps=("summation",)):
+def run_cli(extra, tag, exps=("summation",), root=None, results="results"):
     """The CLI on the card; ``exps`` is its ``-exp`` (none: every head)
-    and the experiments its report must hold."""
+    and the experiments its report must hold. ``root``: the directory of
+    its data and of ``results`` (a new one by default). Returns its
+    standard output and its report."""
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
                                      prefix="smoke_cli_") as tmp:
+        root = root or tmp
         exp = ["-exp", exps[0]] if len(exps) == 1 else []
         cmd = [sys.executable, "-m", f"{PKG}.main", "-dataset", "SYNTH",
                *exp, "-epochs", "5", "-i", "1",
-               "-synth_entities", "20000", "-synth_degree", "8",
-               "-device", DEV, "-data_root", os.path.join(tmp, "data"),
-               "-results_root", os.path.join(tmp, "results"), *extra]
+               "-synth_entities", str(CLI_ENTITIES), "-synth_degree", "8",
+               "-device", DEV, "-data_root", os.path.join(root, "data"),
+               "-results_root", os.path.join(root, results), *extra]
         env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
                    + os.environ.get("PYTHONPATH", ""))
         t0 = time.perf_counter()
@@ -1133,17 +1211,315 @@ def run_cli(extra, tag, exps=("summation",)):
             print(res.stderr[-4000:], file=sys.stderr)
             fail(f"CLI {tag} exited {res.returncode}")
         reports = [os.path.join(d, f)
-                   for d, _, fs in os.walk(os.path.join(tmp, "results"))
+                   for d, _, fs in os.walk(os.path.join(root, results))
                    for f in fs if f.endswith(".json")]
         report = [r for r in reports if os.path.basename(r).startswith("report_")]
         if not report:
             fail(f"CLI {tag} wrote no results JSON ({reports})")
         with open(report[0]) as fh:
-            missing = set(exps) - set(json.load(fh))
+            report = json.load(fh)
+        missing = set(exps) - set(report)
         if missing:
             fail(f"CLI {tag}: the report holds no {sorted(missing)}")
         print(f"  CLI {tag} ok in {time.perf_counter() - t0:.1f} s: "
               f"{sorted(os.path.basename(r) for r in reports)}", flush=True)
+        return res.stdout, report
+
+
+class Interrupt(Exception):
+    """Raised by phase 11's ``on_epoch`` hook to stop a fit."""
+
+
+def same_plan(a, b, tag, path="plan") -> None:
+    """Fail unless two plans hold the same dataclasses, ints and tuples,
+    and tensors and arrays of the same dtype, shape and values."""
+    import dataclasses
+
+    import torch
+
+    if type(a) is not type(b):
+        fail(f"{tag}: {path} is {type(a).__name__} and {type(b).__name__}")
+    if dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            same_plan(getattr(a, f.name), getattr(b, f.name), tag,
+                      f"{path}.{f.name}")
+    elif isinstance(a, torch.Tensor):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            fail(f"{tag}: {path} differs")
+    elif isinstance(a, np.ndarray):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            fail(f"{tag}: {path} differs")
+    elif isinstance(a, tuple):
+        if len(a) != len(b):
+            fail(f"{tag}: {path} has {len(a)} and {len(b)} entries")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_plan(x, y, tag, f"{path}[{i}]")
+    elif a != b:
+        fail(f"{tag}: {path} is {a!r} and {b!r}")
+
+
+def resume_check(tag, graph, epochs, every, unbroken, launches, reset,
+                 least, **fit_kw) -> dict:
+    """Phase 11: a float32 ``Trainer.fit`` of the bench shape that
+    checkpoints every ``every`` epochs and is stopped by its ``on_epoch``
+    hook after ``every`` epochs, then resumed by a Trainer of another
+    seed; its losses must have the bits of ``unbroken`` (the same fit
+    without checkpoints, phase 5 or 8). Both runs must launch every
+    kernel of ``least``. Returns the ms of each write and read of the
+    checkpoint and its MB on disk."""
+    import torch
+    from scaling_rgcn_training_tpu_torch.bench_shape import bench_trainer
+    from scaling_rgcn_training_tpu_torch.train.losses import bce_loss
+    from scaling_rgcn_training_tpu_torch.train.trainer import Trainer
+
+    ms = {"write": [], "read": []}
+    stopped = []
+
+    def timed(fn, key):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            ms[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    def stop(epoch):
+        if epoch + 1 == every:
+            raise Interrupt
+
+    shipped = Trainer._save_fit, Trainer._restore_fit
+    Trainer._save_fit = timed(shipped[0], "write")
+    Trainer._restore_fit = timed(shipped[1], "read")
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                     prefix="smoke_ckpt_") as tmp:
+        path = os.path.join(tmp, "fit.npz")
+        try:
+            for seed, hook in ((0, stop), (1, None)):
+                trainer, model = bench_trainer(epochs, DEV, seed=seed,
+                                               **fit_kw)
+                trainer.ckpt_every = every
+                reset()
+                try:
+                    losses = trainer.fit(model, graph, bce_loss, "sigmoid",
+                                         sum_graph=False, verbose=False,
+                                         on_epoch=hook, ckpt_path=path)[2]
+                except Interrupt:
+                    stopped = ms["write"][-1:]
+                run = "interrupted" if hook else "resumed"
+                for k in least:
+                    if not launches[k]:
+                        fail(f"{tag} resume: the {run} run launched no {k}")
+        finally:
+            Trainer._save_fit, Trainer._restore_fit = shipped
+        mb = sum(os.path.getsize(os.path.join(tmp, f))
+                 for f in os.listdir(tmp)) / 1e6
+    if not stopped or len(ms["read"]) != 1:
+        fail(f"{tag} resume: wrote {ms['write']}, read {ms['read']}")
+    if losses != unbroken:
+        fail(f"{tag} resume: losses {losses} are not the unbroken run's "
+             f"{unbroken}")
+    print(f"  {tag} resume: stopped after {every} of {epochs} epochs, "
+          f"resumed by a Trainer of another seed: the unbroken run's loss "
+          f"bits; checkpoint {mb:.1f} MB, write {ms['write']} ms, read "
+          f"{ms['read']} ms", flush=True)
+    return {"mb": mb, "write_ms": ms["write"], "read_ms": ms["read"]}
+
+
+def plan_cache_check(src, dst, typ, mesh):
+    """Phase 11: each bench-shape plan built cold into the plan cache and
+    loaded warm; every field of the warm plan must equal the cold one's.
+    Returns the seconds of each and the entry's MB, and the warm plans."""
+    import torch
+    from scaling_rgcn_training_tpu_torch import bench_shape as bs
+    from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import build_rel_edges
+    from scaling_rgcn_training_tpu_torch.parallel.halo import (
+        device_put_halo_edges, halo_partition_edges)
+
+    out, warm = {}, {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                     prefix="smoke_plans_") as tmp:
+        builds = {
+            "build_rel_edges (span plan)": lambda: build_rel_edges(
+                src, dst, typ, bs.N, bs.SLOTS, device=DEV, cache_dir=tmp),
+            f"halo partition ({HALO_SHARDS} shards)": lambda:
+                device_put_halo_edges(halo_partition_edges(
+                    src, dst, typ, bs.N, bs.SLOTS, HALO_SHARDS,
+                    cache_dir=tmp), mesh)}
+        for tag, build in builds.items():
+            before = set(os.listdir(tmp))
+            plans, secs = [], []
+            for _ in ("cold", "warm"):
+                t0 = time.perf_counter()
+                plans.append(build())
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            (entry,) = set(os.listdir(tmp)) - before
+            same_plan(plans[1], plans[0], f"plan cache {tag}")
+            mb = os.path.getsize(os.path.join(tmp, entry)) / 1e6
+            print(f"  plan cache {tag}: cold {secs[0]:.2f} s, warm "
+                  f"{secs[1]:.2f} s, {mb:.1f} MB on disk, the warm plan "
+                  "equals the cold one field by field", flush=True)
+            out[tag] = {"cold_s": secs[0], "warm_s": secs[1], "mb": mb}
+            warm[tag] = plans[1]
+            del plans
+    return out, warm
+
+
+def cli_checkpoint_phase() -> dict:
+    """Phase 11's CLI runs on the SYNTH graph of phase 7: ``-ckpt_dir D``
+    alone (it writes the summary pre-training's ``transfer_SYNTH_0.npz``
+    and no fit checkpoint), then ``-ckpt_dir D -ckpt_every 2`` for 4
+    epochs and for 6 (both resume the summary pre-training; the second
+    resumes the fine-tuning at epoch 4), against an unbroken 6-epoch run
+    from the same transfer file (copied into a fresh ``-ckpt_dir``): the
+    same metric series, the same final parameters bit for bit and the same
+    test metrics; then ``-sum dummy`` and ``-sum bisim`` on summaries this
+    function writes with the port's summary writers, and ``-e_viz true
+    -plan_cache P``."""
+    from scaling_rgcn_training_tpu_torch.graphs.graph import Graph
+    from scaling_rgcn_training_tpu_torch.graphs.summarize.bisim import (
+        create_bisim_map_nt)
+    from scaling_rgcn_training_tpu_torch.graphs.summarize.dummy import (
+        create_dummy_sum_map)
+    from scaling_rgcn_training_tpu_torch.graphs.synthetic import (
+        ensure_synthetic_dataset, write_bisim_output)
+    from scaling_rgcn_training_tpu_torch.utils.checkpoint import (
+        load_checkpoint)
+
+    out = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                     prefix="smoke_cli_ckpt_") as tmp:
+        # the CLI's own SYNTH graph (-synth_entities, -synth_degree 8)
+        ds = ensure_synthetic_dataset(os.path.join(tmp, "data"),
+                                      num_entities=CLI_ENTITIES,
+                                      avg_degree=8.0)
+        org = os.path.join(ds, "SYNTH_complete.nt")
+        create_dummy_sum_map(org, os.path.join(ds, "dummy", "sum"),
+                             os.path.join(ds, "dummy", "map"), "SYNTH",
+                             n_sum_nodes=1000, seed=0)
+        fluid = write_bisim_output(org, os.path.join(tmp, "bisimOutput"),
+                                   os.path.join(ds, "bisim", "sum"), "SYNTH")
+        os.makedirs(os.path.join(ds, "bisim", "map"))
+        maps = create_bisim_map_nt(fluid, os.path.join(ds, "bisim", "map",
+                                                       "SYNTH_map_"),
+                                   "SYNTH", org)
+        print(f"  wrote dummy summaries and the bisimulation maps {maps}",
+              flush=True)
+
+        ckpt, whole = os.path.join(tmp, "ck"), os.path.join(tmp, "ck_whole")
+        cli_ckpt = lambda d, epochs, tag, every=("-ckpt_every", "2"): run_cli(
+            ["-ckpt_dir", d, *every, "-epochs", str(epochs)],
+            " ".join(["-ckpt_dir", *every, "-epochs", str(epochs)])
+            + f" ({tag})",
+            root=tmp, results=f"results_{tag}")
+        cli_ckpt(ckpt, 4, "transfer", every=())
+        transfer = os.path.join(ckpt, "transfer_SYNTH_0.npz")
+        if not os.path.exists(transfer) or any(
+                f.startswith("fit_") for f in os.listdir(ckpt)):
+            fail(f"-ckpt_dir without -ckpt_every wrote {os.listdir(ckpt)}")
+        os.makedirs(whole)
+        shutil.copy(transfer, whole)
+        stopped = cli_ckpt(ckpt, 4, "stopped")
+        resumed = cli_ckpt(ckpt, 6, "resumed")
+        unbroken = cli_ckpt(whole, 6, "unbroken")
+        for stdout, name, d in ((stopped[0], "stopped", ckpt),
+                                (resumed[0], "resumed", ckpt),
+                                (unbroken[0], "unbroken", whole)):
+            if "Resuming summary pre-training from " \
+                    f"{os.path.join(d, 'transfer_SYNTH_0.npz')}" not in stdout:
+                fail(f"the {name} -ckpt_dir run did not resume the summary "
+                     f"pre-training from {d}")
+        if "Resumed fit from" not in resumed[0] or \
+                "at epoch 4" not in resumed[0]:
+            fail("the resumed -ckpt_dir run did not resume its fit at "
+                 "epoch 4")
+        if "Resumed fit from" in stopped[0] + unbroken[0]:
+            fail("the stopped or the unbroken -ckpt_dir run resumed a fit")
+        (a_arr, a_meta), (b_arr, b_meta) = (
+            load_checkpoint(os.path.join(d, "fit_SYNTH_summation_0.npz"))
+            for d in (ckpt, whole))
+        if a_meta["series"] != b_meta["series"] or \
+                len(a_meta["series"]["loss"]) != 6:
+            fail(f"resumed CLI run's series {a_meta['series']} differ from "
+                 f"the unbroken run's {b_meta['series']}")
+        if sorted(a_arr) != sorted(b_arr) or not all(
+                np.array_equal(a_arr[k], b_arr[k]) for k in a_arr):
+            fail("resumed CLI run's final state differs from the unbroken "
+                 "run's")
+        tests = {k: v for k, v in resumed[1].items() if k.startswith("Test")}
+        if not tests or tests != {k: unbroken[1][k] for k in tests}:
+            fail(f"resumed CLI run's test metrics {tests} differ from the "
+                 "unbroken run's")
+        print(f"  the -ckpt_dir run stopped at epoch 4 resumed from "
+              f"{transfer} and its fit checkpoint: 6 epochs' series "
+              f"{a_meta['series']['loss']}, final state ({len(a_arr)} "
+              f"arrays) and test metrics {tests} equal the unbroken run's; "
+              f"{ckpt} holds {sorted(os.listdir(ckpt))}", flush=True)
+        out["ckpt_files"] = sorted(os.listdir(ckpt))
+        for kind in ("dummy", "bisim"):
+            run_cli(["-sum", kind], f"-sum {kind}", root=tmp,
+                    results=f"results_{kind}")
+        plans = os.path.join(tmp, "plans")
+        run_cli(["-e_viz", "true", "-plan_cache", plans],
+                "-e_viz true -plan_cache", root=tmp, results="results_viz")
+        emb = np.load(os.path.join(tmp, "results_viz", "embeddings",
+                                   "SYNTH_attr_embedding.npy"))
+        graph = Graph("SYNTH")
+        if graph.init_from_native(org) is None:
+            fail("the native parser did not run")
+        if emb.shape != (graph.num_nodes, 63) or not np.isfinite(emb).all():
+            fail(f"-e_viz saved {emb.shape}, expected "
+                 f"({graph.num_nodes}, 63) finite")
+        out["plan_entries"] = sorted(os.listdir(plans))
+        if not out["plan_entries"]:
+            fail(f"-plan_cache {plans} holds no entry")
+        print(f"  -e_viz saved a finite {emb.shape} embedding; the plan "
+              f"cache holds {out['plan_entries']}", flush=True)
+    return out
+
+
+def native_parse_check() -> dict:
+    """Phase 11: the native and the Python parse of a synthetic graph of
+    ``PARSE_ENTITIES`` entities at degree 8 give the same graph; their
+    seconds."""
+    from scaling_rgcn_training_tpu_torch.graphs import _native, nt
+    from scaling_rgcn_training_tpu_torch.graphs.graph import Graph
+    from scaling_rgcn_training_tpu_torch.graphs.synthetic import (
+        generate_synthetic_nt)
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                     prefix="smoke_nt_") as tmp:
+        path = generate_synthetic_nt(os.path.join(tmp, "big.nt"),
+                                     num_entities=PARSE_ENTITIES,
+                                     avg_degree=8.0)
+        t0 = time.perf_counter()
+        if _native.get_lib() is None:
+            fail("the native parser did not build (no g++)")
+        build_s = time.perf_counter() - t0
+        parses = _native.PARSES
+        native, py = Graph("native"), Graph("python")
+        t0 = time.perf_counter()
+        native.init_from_native(path)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        py.init_graph(nt.read_lines(path))
+        python_s = time.perf_counter() - t0
+    if _native.PARSES != parses + 1:
+        fail("the native parser did not run")
+    for k in ("nodes", "relations", "num_edges"):
+        if getattr(native, k) != getattr(py, k):
+            fail(f"native and Python parses differ in {k}")
+    for k in ("edge_src", "edge_dst", "edge_type"):
+        if not np.array_equal(getattr(native, k), getattr(py, k)):
+            fail(f"native and Python parses differ in {k}")
+    print(f"  native parse of {native.num_nodes} nodes, "
+          f"{len(native.edge_src)} edges: {native_s:.2f} s (library ready "
+          f"in {build_s:.2f} s), Python {python_s:.2f} s; the same graph",
+          flush=True)
+    return {"nodes": native.num_nodes, "edges": int(len(native.edge_src)),
+            "native_s": native_s, "python_s": python_s, "build_s": build_s}
 
 
 def main() -> None:
@@ -1397,6 +1773,37 @@ def main() -> None:
                          {"span_forward": 4, "span_backward": 2})
         head_launches[f"{head} head"] = dict(launches)
 
+    phase("11 checkpoint, resume, plan cache, summary writers and the "
+          "native parser")
+    from scaling_rgcn_training_tpu_torch.parallel.halo import EXCHANGE_ENV
+
+    # the plans at the bench shape cold and warm; the fused and halo #7
+    # resumes below train on the warm (cached) plans
+    ckpt = {"resume": {}}
+    ckpt["plan_cache"], warm = plan_cache_check(src, dst, typ, halo["mesh"])
+    ckpt["resume"]["fused"] = resume_check(
+        "fused f32", DeviceGraph(edges=warm["build_rel_edges (span plan)"],
+                                 **splits), EPOCHS, 4,
+        fits[("fused", None)]["losses"], launches, reset,
+        ("span_forward", "span_backward"))
+    ckpt["resume"]["edge"] = resume_check(
+        "edge-mode f32", non_fused, EPOCHS, 4, fits[("edge", None)]["losses"],
+        launches, reset, ("grouped_matmul", "segment_sum", "grouped_drhs"),
+        backend="pallas")
+    os.environ[EXCHANGE_ENV] = "fused"
+    try:
+        ckpt["resume"]["halo #7"] = resume_check(
+            f"halo #7 f32 ({HALO_SHARDS} shards)", DeviceGraph(
+                edges=warm[f"halo partition ({HALO_SHARDS} shards)"],
+                **splits), HALO_EPOCHS, 2, fits[("halo #7", None)]["losses"],
+            launches, reset, ("fused_halo_aggregate", "span_backward"),
+            mesh=halo["mesh"], partition="halo")
+    finally:
+        os.environ.pop(EXCHANGE_ENV, None)
+    del warm
+    ckpt["cli"] = cli_checkpoint_phase()
+    ckpt["native_parse"] = native_parse_check()
+
     kernels = []
     b = bench[("layer1", "float32")]
     for kname, key, src_file, replaces in (
@@ -1484,7 +1891,7 @@ def main() -> None:
         "launches": {"fused": fused_launches, "edge": edge_launches,
                      "attention": att_launches, **halo["counts"],
                      **head_launches},
-        "bwd_variants": bwd["rows"]}),
+        "bwd_variants": bwd["rows"], "checkpoint": ckpt}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

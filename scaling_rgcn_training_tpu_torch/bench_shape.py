@@ -50,8 +50,9 @@ def bench_splits(device) -> Dict[str, torch.Tensor]:
 
 
 def bench_trainer(epochs: int, device, compute_dtype=None,
-                  head: str = "summation", **trainer_kw):
-    """``(Trainer, model)`` of the bench shape from the seed-0 parameters;
+                  head: str = "summation", seed: int = 0, **trainer_kw):
+    """``(Trainer, model)`` of the bench shape from the parameters of
+    ``seed`` (the Trainer's);
     ``trainer_kw`` (``backend``, ``aggr``, ``mesh``, ``partition``) go to
     the Trainer. ``head`` ``"mlp"`` or ``"attention"`` takes ``NUM_SUMS``
     transferred embeddings (U[0, 1) draws in the transfer's shapes:
@@ -62,7 +63,7 @@ def bench_trainer(epochs: int, device, compute_dtype=None,
     from scaling_rgcn_training_tpu_torch.models.heads import HEADS
     from scaling_rgcn_training_tpu_torch.train.trainer import Trainer
 
-    trainer = Trainer(None, HL, epochs, D, lr=0.01, weight_d=5e-5, seed=0,
+    trainer = Trainer(None, HL, epochs, D, lr=0.01, weight_d=5e-5, seed=seed,
                       device=device, compute_dtype=compute_dtype, **trainer_kw)
     model = HEADS[head](trainer.gen, SLOTS, HL, C, N, D, num_sums=NUM_SUMS,
                         device=device)

@@ -70,14 +70,26 @@ class Dataset:
 
     # -- assembly ----------------------------------------------------------
 
-    def init_dataset(self, verbose: bool = True) -> "Dataset":
+    def init_dataset(self, verbose: bool = True,
+                     use_native: bool = True) -> "Dataset":
+        """Parse the graphs (with the C++ parser, ``graphs/_native.py``,
+        unless ``use_native`` is false or ``g++`` is missing; the same
+        result either way) and attach the training arrays."""
         name = self.org_path.split("/")[-1]
         self.orgGraph = Graph(name)
-        org_triples = nt.read_triples(self.org_path)
-        classes = proc.get_classes(org_triples)
-        org2type_dict = proc.nodes2type_mapping(org_triples, classes)
-        self.orgGraph.init_from_triples(
-            org_triples, nt.count_unique_lines(self.org_path))
+        type_pairs = self.orgGraph.init_from_native(self.org_path) \
+            if use_native else None
+        if type_pairs is not None:
+            # native path: vocab and edges built in C++, labels from the
+            # extracted rdf:type pairs
+            classes = proc.get_classes_from_pairs(type_pairs)
+            org2type_dict = proc.nodes2type_from_pairs(type_pairs, classes)
+        else:
+            org_triples = nt.read_triples(self.org_path)
+            classes = proc.get_classes(org_triples)
+            org2type_dict = proc.nodes2type_mapping(org_triples, classes)
+            self.orgGraph.init_from_triples(
+                org_triples, nt.count_unique_lines(self.org_path))
         self.enum_classes = {c: i for i, c in enumerate(classes)}
         self.num_classes = len(classes)
         self.orgGraph.org2type_dict = {k: set(v) for k, v in org2type_dict.items()}
@@ -87,8 +99,10 @@ class Dataset:
             for sum_f, map_f in zip(sum_files, map_files):
                 sg = Graph(sum_f, org2type_dict={k: set(v) for k, v in org2type_dict.items()})
                 sum_file = os.path.join(self.sum_path, sum_f)
-                sg.init_from_triples(
-                    nt.read_triples(sum_file), nt.count_unique_lines(sum_file))
+                if not use_native or sg.init_from_native(sum_file) is None:
+                    sg.init_from_triples(
+                        nt.read_triples(sum_file),
+                        nt.count_unique_lines(sum_file))
                 m_triples = nt.read_triples(os.path.join(self.map_path, map_f))
                 sg.orgNode2sumNode_dict, sg.sumNode2orgNode_dict = proc.get_node_mappings_dict(m_triples)
                 self.sumGraphs.append(sg)

@@ -39,7 +39,8 @@ class DeviceGraph:
 
 def build_device_graph(graph: Graph, device, mesh=None,
                        partition: Optional[str] = None,
-                       reorder: bool = False) -> DeviceGraph:
+                       reorder: bool = False,
+                       plan_cache: Optional[str] = None) -> DeviceGraph:
     """Lower a host ``Graph`` (with training arrays attached) to ``device``.
 
     With ``mesh`` (``parallel/mesh.py``) and ``partition`` (``"edge"`` or
@@ -48,7 +49,8 @@ def build_device_graph(graph: Graph, device, mesh=None,
     unchanged. ``reorder`` (halo only): relabel nodes by label-propagation
     clustering (``parallel/reorder.py``) before partitioning, which shrinks
     the halo exchange on community-structured graphs; ``node_perm`` keeps
-    the relabeling."""
+    the relabeling. ``plan_cache``: a directory where the edge plans are
+    kept and reused (``utils/plancache.py``)."""
     idx = lambda a: None if a is None else torch.as_tensor(
         np.asarray(a), dtype=torch.int64).to(device)
     lab = lambda a: None if a is None else torch.as_tensor(
@@ -71,20 +73,23 @@ def build_device_graph(graph: Graph, device, mesh=None,
 
             edges = device_put_sharded_edges(shard_rel_edges(
                 src, dst, graph.edge_type, graph.num_nodes,
-                graph.num_relation_slots, mesh.size), mesh)
+                graph.num_relation_slots, mesh.size, cache_dir=plan_cache),
+                mesh)
         elif partition == "halo":
             from scaling_rgcn_training_tpu_torch.parallel.halo import (
                 device_put_halo_edges, halo_partition_edges)
 
             edges = device_put_halo_edges(halo_partition_edges(
                 src, dst, graph.edge_type, graph.num_nodes,
-                graph.num_relation_slots, mesh.size), mesh)
+                graph.num_relation_slots, mesh.size, cache_dir=plan_cache),
+                mesh)
         else:
             raise ValueError(f"unknown partition {partition!r}")
     else:
         edges = build_rel_edges(graph.edge_src, graph.edge_dst,
                                 graph.edge_type, graph.num_nodes,
-                                graph.num_relation_slots, device=device)
+                                graph.num_relation_slots, device=device,
+                                cache_dir=plan_cache)
     return DeviceGraph(
         edges=edges,
         x_train=idx(remap(graph.x_train)), y_train=lab(graph.y_train),

@@ -2,8 +2,9 @@
 
 Reproduces the reference ``Graph`` semantics (graphs/graph.py:8-69) with
 edges as flat numpy int32 arrays instead of a PyG ``Data(edge_index,
-edge_type)`` object (a copy of the JAX package's pure-Python parser path;
-the C++ parser binding is not ported yet).
+edge_type)`` object: a copy of the JAX package's pure-Python parser path,
+and :meth:`Graph.init_from_native` over the C++ parser
+(``graphs/_native.py``), which builds the same graph.
 
 Semantics preserved from the reference:
 - node vocab = sorted union of subjects and objects over *all* triples,
@@ -109,6 +110,26 @@ class Graph:
         self.node_to_enum = {node: i for i, node in enumerate(self.nodes)}
         self.relations = {rel: i for i, rel in enumerate(sorted(predicates))}
         self._build_edges(triples)
+
+    def init_from_native(self, path: str):
+        """Build vocab + edges with the C++ parser (``native/ntgraph.cpp``).
+
+        Returns the rdf:type ``(subject, object)`` pairs, or None when the
+        native library is unavailable (the caller then parses in Python).
+        Same graph as :meth:`init_graph`."""
+        from scaling_rgcn_training_tpu_torch.graphs import _native
+
+        res = _native.parse_graph(path)
+        if res is None:
+            return None
+        nodes, rels, src, dst, typ, n_uniq, type_pairs = res
+        self.nodes = nodes
+        self.num_nodes = len(nodes)
+        self.node_to_enum = {n: i for i, n in enumerate(nodes)}
+        self.relations = {r: i for i, r in enumerate(rels)}
+        self.num_edges = n_uniq
+        self.edge_src, self.edge_dst, self.edge_type = src, dst, typ
+        return type_pairs
 
     def _build_edges(self, triples: Sequence[Tuple[str, str, str]]) -> None:
         """Doubled (forward 2r / inverse 2r+1) edge arrays (graphs/graph.py:56-63)."""

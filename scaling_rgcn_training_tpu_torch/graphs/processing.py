@@ -43,6 +43,27 @@ def nodes2type_mapping(
     return node2types
 
 
+def get_classes_from_pairs(type_pairs: Iterable[Tuple[str, str]]) -> List[str]:
+    """get_classes over native-extracted rdf:type (subject, object) pairs."""
+    class_count: Dict[str, int] = defaultdict(int)
+    for s, o in type_pairs:
+        if s.split("#")[0] != nt.SWRC_NAMESPACE:
+            class_count[o] += 1
+    return sorted(class_count.keys())
+
+
+def nodes2type_from_pairs(
+    type_pairs: Iterable[Tuple[str, str]], classes: Sequence[str]
+) -> Dict[str, Set[str]]:
+    """nodes2type_mapping over native-extracted rdf:type pairs."""
+    class_set = set(classes)
+    node2types: Dict[str, Set[str]] = defaultdict(set)
+    for s, o in type_pairs:
+        if s.split("#")[0] != nt.SWRC_NAMESPACE and o in class_set:
+            node2types[s].add(o)
+    return node2types
+
+
 def get_node_mappings_dict(
     triples: Iterable[Tuple[str, str, str]]
 ) -> Tuple[Dict[str, str], Dict[str, List[str]]]:

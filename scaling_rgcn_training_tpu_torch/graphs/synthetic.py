@@ -16,13 +16,16 @@ throughput work runs on synthetic graphs with the same shape of signal:
 - deterministic under seed; scales to AM-size (millions of triples).
 
 Output is a ``*_complete.nt`` file consumable by the standard pipeline
-(attribute summarizer included).
+(attribute summarizer included). :func:`write_bisim_output` stands in for
+the external FLUID pipeline: the (k)-forward bisimulation classes of a
+graph in FLUID's CSV layout, for ``graphs/summarize/bisim.py``, and their
+quotient graphs as summary ``.nt`` files.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -120,3 +123,74 @@ def ensure_synthetic_dataset(
 
             create_sum_map(org, sum_dir, map_dir, name)
     return ds_dir
+
+
+def _fluid_name(node: str) -> str:
+    """A parsed node as FLUID writes it: URIs without their brackets,
+    a literal's datatype without them (``graphs/summarize/bisim.py``
+    ``reformat`` puts them back)."""
+    if node.startswith("<") and node.endswith(">"):
+        return node[1:-1]
+    return node.replace("^^<", "^^").rstrip(">")
+
+
+def bisim_classes(triples: Sequence, ks: Sequence[int]) -> Dict[int, Dict[str, int]]:
+    """(k)-forward bisimulation of the graph's nodes for each ``k`` of
+    ``ks``, over the triples other than rdf:type: in round ``k`` a node's
+    class is its class of round ``k - 1`` with the set of its
+    ``(predicate, class of the object)`` pairs (round 0: one class).
+    Returns ``{k: {node: class id}}``."""
+    from scaling_rgcn_training_tpu_torch.graphs import nt
+
+    nodes = sorted({t[0] for t in triples} | {t[2] for t in triples})
+    index = {n: i for i, n in enumerate(nodes)}
+    preds = {p: i for i, p in enumerate(sorted({t[1] for t in triples}))}
+    kept = [t for t in triples if t[1] not in nt.TYPE_PREDICATES]
+    src = np.array([index[s] for s, _, _ in kept], np.int64)
+    pred = np.array([preds[p] for _, p, _ in kept], np.int64)
+    dst = np.array([index[o] for _, _, o in kept], np.int64)
+    cls = np.zeros(len(nodes), np.int64)
+    out = {}
+    for k in range(1, max(ks) + 1):
+        pairs = np.unique(np.stack([src, pred * len(nodes) + cls[dst]], 1),
+                          axis=0)
+        sig: List[list] = [[int(c)] for c in cls]
+        for s_, code in pairs:
+            sig[s_].append(int(code))
+        ids: Dict[tuple, int] = {}
+        cls = np.array([ids.setdefault(tuple(x), len(ids)) for x in sig],
+                       np.int64)
+        if k in ks:
+            out[k] = {n: int(cls[i]) for i, n in enumerate(nodes)}
+    return out
+
+
+def write_bisim_output(org_path: str, out_dir: str, sum_dir: str,
+                       dataset: str, ks: Sequence[int] = (1, 2)) -> str:
+    """For each ``k``: FLUID's CSV files ``{out_dir}/bisim_{k}/``
+    ``orgNode_to_orgHash.csv`` and ``sumNode_to_orgHash.csv`` (one hash
+    and one summary node per class), and the quotient graph
+    ``{sum_dir}/{dataset}_sum_{k}.nt`` (each triple other than rdf:type
+    between its nodes' summary nodes). Returns ``out_dir``, the input of
+    ``graphs/summarize/bisim.py`` ``create_bisim_map_nt``."""
+    from scaling_rgcn_training_tpu_torch.graphs import nt
+
+    triples = nt.read_triples(org_path)
+    classes = bisim_classes(triples, ks)
+    os.makedirs(sum_dir, exist_ok=True)
+    for k, cls in classes.items():
+        folder = os.path.join(out_dir, f"bisim_{k}")
+        os.makedirs(folder, exist_ok=True)
+        with open(os.path.join(folder, "orgNode_to_orgHash.csv"), "w") as fh:
+            fh.write("orgNode,orgHash\n")
+            for node, c in cls.items():
+                fh.write(f"{_fluid_name(node)},h{k}x{c}\n")
+        with open(os.path.join(folder, "sumNode_to_orgHash.csv"), "w") as fh:
+            fh.write("sumNode,orgHash\n")
+            for c in sorted(set(cls.values())):
+                fh.write(f"b{k}x{c},h{k}x{c}\n")
+        with open(os.path.join(sum_dir, f"{dataset}_sum_{k}.nt"), "w") as fh:
+            for s_, p, o in triples:
+                if p not in nt.TYPE_PREDICATES:
+                    fh.write(f"<b{k}x{cls[s_]}> {p} <b{k}x{cls[o]}> .\n")
+    return out_dir

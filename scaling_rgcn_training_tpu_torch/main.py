@@ -7,12 +7,18 @@ head), and fine-tune on the full original graph, reporting per-epoch
 metrics and test-set results over ``-i`` iterations. With no ``-exp`` it
 runs summation, MLP and attention.
 
-Every flag of the JAX CLI is accepted. A flag that selects a path not yet
-ported raises ``NotImplementedError`` naming its ``ROADMAP.md`` item. The
-CLI never falls back to the CPU: ``-device cuda`` without a CUDA device is
-an error. ``-devices S`` trains over a mesh of S shards (``-partition``,
-``-reorder``): with ``-device cuda``, S cards (fewer is an error); with
-``-device cpu``, S virtual shards on the CPU.
+Every flag of the JAX CLI works. The CLI never falls back to the CPU:
+``-device cuda`` without a CUDA device is an error. ``-devices S`` trains
+over a mesh of S shards (``-partition``, ``-reorder``): with ``-device
+cuda``, S cards (fewer is an error); with ``-device cpu``, S virtual
+shards on the CPU. ``-ckpt_dir D`` keeps the summary pre-training of
+iteration j in ``D/transfer_{dataset}_{j}.npz`` and resumes from it; with
+``-ckpt_every K`` the fine-tuning also checkpoints every K epochs and
+resumes where a crashed run stopped. ``-plan_cache P`` (by default
+``D/plans`` with ``-ckpt_dir``) keeps the host-built edge plans. ``-e_viz``
+saves the summation head's starting embedding (``utils/viz.py``).
+``-sum dummy`` and ``-sum bisim`` read summaries made by
+``graphs/summarize/dummy.py`` and ``bisim.py``.
 """
 
 from __future__ import annotations
@@ -29,8 +35,7 @@ from scaling_rgcn_training_tpu_torch.train.trainer import Trainer, count_trainab
 from scaling_rgcn_training_tpu_torch.utils import timing
 from scaling_rgcn_training_tpu_torch.utils.checks import do_checks
 from scaling_rgcn_training_tpu_torch.utils.results import Results
-
-_ROADMAP = "ROADMAP.md queue 1"
+from scaling_rgcn_training_tpu_torch.utils.viz import save_and_viz_embedding
 
 
 def strtobool(x: str) -> bool:
@@ -40,21 +45,6 @@ def strtobool(x: str) -> bool:
     if v in ("n", "no", "f", "false", "off", "0"):
         return False
     raise ValueError(f"invalid truth value {x!r}")
-
-
-def check_ported(configs: Dict[str, Any]) -> None:
-    """Raise for every flag whose path the port does not have yet."""
-    unported = []
-    if configs.get("ckpt_dir") or configs.get("ckpt_every"):
-        unported.append("-ckpt_dir / -ckpt_every (checkpointing)")
-    if configs.get("plan_cache"):
-        unported.append("-plan_cache (the plan cache)")
-    if configs.get("e_viz"):
-        unported.append("-e_viz (utils/viz.py)")
-    if unported:
-        raise NotImplementedError(
-            "not ported to PyTorch yet, see " + _ROADMAP + ": "
-            + "; ".join(unported))
 
 
 def resolve_device(name: str) -> torch.device:
@@ -90,7 +80,6 @@ def resolve_paths(configs: Dict[str, Any]) -> Dict[str, str]:
 def run_experiments(configs: Dict[str, Any], org_path: str, sum_path: str,
                     map_path: str) -> Results:
     """Iteration loop (reference main.py:23-70)."""
-    check_ported(configs)
     device = resolve_device(configs["device"])
     configs, sum_files = do_checks(configs, sum_path, map_path)
     results = Results()
@@ -122,9 +111,22 @@ def run_experiments(configs: Dict[str, Any], org_path: str, sum_path: str,
             aggr=configs.get("aggr") or "mean",
             devices=configs.get("devices"),
             partition=configs.get("partition") or "halo",
-            reorder=bool(configs.get("reorder")))
+            reorder=bool(configs.get("reorder")),
+            ckpt_dir=configs.get("ckpt_dir"),
+            ckpt_every=configs.get("ckpt_every") or 0,
+            plan_cache=configs.get("plan_cache") or (
+                os.path.join(configs["ckpt_dir"], "plans")
+                if configs.get("ckpt_dir") else None))
+        trainer.ckpt_tag = j
         if needs_summaries:
-            trainer.train_summaries(configs)
+            ckpt = configs.get("ckpt_dir")
+            path = ckpt and os.path.join(
+                ckpt, f"transfer_{configs['dataset']}_{j}.npz")
+            if path and os.path.exists(path):
+                timing.log(f"Resuming summary pre-training from {path}")
+                trainer.load_summaries(path)
+            else:
+                trainer.train_summaries(configs, save_path=path)
         for exp in experiment_names:
             results.add_key(exp)
             timing.log(f"Start {exp} Experiment")
@@ -139,6 +141,9 @@ def run_experiments(configs: Dict[str, Any], org_path: str, sum_path: str,
                 res["model"], res["frozen"],
                 data.sumGraphs if exp != "baseline" else None)
             print(f"number of trainable parameters for {exp.upper()} model: {n}")
+            if exp != "baseline" and configs.get("e_viz") and head == "summation":
+                out = save_and_viz_embedding(configs, res["embedding"])
+                print(f"embedding saved to {out}")
 
     configs["sum files"] = sum_files
     out = results.process_results(
@@ -167,16 +172,23 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-e_freeze", type=strtobool, default=True)
     parser.add_argument("-w_trans", type=strtobool, default=True)
     parser.add_argument("-w_grad", type=strtobool, default=True)
-    parser.add_argument("-e_viz", type=strtobool, default=False)
+    parser.add_argument("-e_viz", type=strtobool, default=False,
+                        help="save the summation head's starting embedding "
+                             "(.npy; a t-SNE PDF where matplotlib and "
+                             "scikit-learn import)")
     parser.add_argument("-create_attr_sum", type=strtobool, default=False)
     # extras of the JAX CLI
     parser.add_argument("-data_root", type=str, default=None)
     parser.add_argument("-ckpt_dir", type=str, default=None,
-                        help="not ported yet")
+                        help="save/resume summary pre-training state here")
     parser.add_argument("-ckpt_every", type=int, default=0,
-                        help="not ported yet")
+                        help="checkpoint the fine-tune loop every K epochs "
+                             "(with -ckpt_dir); crashed runs resume exactly")
     parser.add_argument("-plan_cache", type=str, default=None,
-                        help="not ported yet")
+                        help="cache host-built edge plans here (defaults to "
+                             "<ckpt_dir>/plans when -ckpt_dir is set); a "
+                             "repeat run over the same graph skips the "
+                             "plan build")
     parser.add_argument("-results_root", type=str, default="./results")
     parser.add_argument("-seed", type=int, default=0)
     parser.add_argument("-backend", type=str, default=None,
@@ -216,7 +228,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     timing.enable_program_banner()
     configs = vars(build_parser().parse_args(argv))
-    check_ported(configs)
     resolve_device(configs["device"])
     paths = resolve_paths(configs)
     run_experiments(configs, paths["org"], paths["sum"], paths["map"])

@@ -174,7 +174,7 @@ def _t(a) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float32))
 
 
-def _layer_from_numpy(leaves: Sequence[Optional[np.ndarray]]) -> RGCNLayer:
+def layer_from_numpy(leaves: Sequence[Optional[np.ndarray]]) -> RGCNLayer:
     weight, root, bias, *rest = leaves
     comp = rest[0] if rest else None
     return RGCNLayer(_t(weight), _t(root), _t(bias),
@@ -187,8 +187,8 @@ def emb_model_from_numpy(embedding: np.ndarray,
                          device="cpu") -> EmbModel:
     """The port's model from the JAX ``EmbModelParams`` leaves as numpy:
     ``rgcn1``/``rgcn2`` are ``(weight, root, bias[, comp])``."""
-    return EmbModel(_t(embedding), _layer_from_numpy(rgcn1),
-                    _layer_from_numpy(rgcn2)).to(device)
+    return EmbModel(_t(embedding), layer_from_numpy(rgcn1),
+                    layer_from_numpy(rgcn2)).to(device)
 
 
 def mlp_model_from_numpy(embedding: np.ndarray, lin1_w: np.ndarray,
@@ -199,8 +199,8 @@ def mlp_model_from_numpy(embedding: np.ndarray, lin1_w: np.ndarray,
                          device="cpu") -> MLPModel:
     """The port's MLP model from the JAX ``MLPModelParams`` leaves."""
     return MLPModel(_t(embedding), _t(lin1_w), _t(lin1_b), _t(lin2_w),
-                    _t(lin2_b), _layer_from_numpy(rgcn1),
-                    _layer_from_numpy(rgcn2)).to(device)
+                    _t(lin2_b), layer_from_numpy(rgcn1),
+                    layer_from_numpy(rgcn2)).to(device)
 
 
 def att_model_from_numpy(embedding: np.ndarray,
@@ -211,8 +211,8 @@ def att_model_from_numpy(embedding: np.ndarray,
     """The port's attention model from the JAX ``ATTModelParams`` leaves:
     ``att`` is ``(in_proj_w, in_proj_b, out_proj_w, out_proj_b)``."""
     return ATTModel(_t(embedding), MHA(*(_t(a) for a in att)),
-                    _layer_from_numpy(rgcn1),
-                    _layer_from_numpy(rgcn2)).to(device)
+                    layer_from_numpy(rgcn1),
+                    layer_from_numpy(rgcn2)).to(device)
 
 
 HEADS = {

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from scaling_rgcn_training_tpu_torch.ops import span_kernels
 from scaling_rgcn_training_tpu_torch.ops.grouped_kernels import gmm_drhs
 from scaling_rgcn_training_tpu_torch.ops.grouped_matmul import grouped_matmul
 from scaling_rgcn_training_tpu_torch.ops.sddmm import attention_aggregate
@@ -49,6 +50,8 @@ from scaling_rgcn_training_tpu_torch.ops.segment_kernels import (
     segment_rowptr, sorted_segment_sum)
 from scaling_rgcn_training_tpu_torch.ops.span_kernels import (
     SpanPlan, check_edges, fused_ok, plan_span, span_backward, span_forward)
+from scaling_rgcn_training_tpu_torch.utils.plancache import get_or_build
+from scaling_rgcn_training_tpu_torch.utils.plantree import to_device
 
 # the [N * slots, d_out] table of prematmul stays below this (the JAX
 # package's default; not measured on the H100 yet)
@@ -111,28 +114,28 @@ class RelEdges:
 
 def plan_edges(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
                norm: np.ndarray, num_nodes: int, num_slots: int,
-               span: bool = True, device="cpu",
+               span: bool = True,
                num_src: Optional[int] = None) -> RelEdges:
     """:class:`RelEdges` from per-edge ``(src, dst, rel, norm)``
     (``dst < num_nodes``, ``src < num_src``, by default ``num_nodes``);
     with ``span`` the span kernels' plan, whose relation-ordered edges and
-    row pointers it shares."""
+    row pointers it shares. Built on the CPU."""
     num_src = num_nodes if num_src is None else num_src
     src, dst, rel, norm = check_edges(src, dst, rel, norm, num_nodes,
                                       num_slots, num_src)
     sizes = np.bincount(rel, minlength=num_slots)
     offsets = tuple(int(v) for v in np.concatenate([[0], np.cumsum(sizes)]))
-    group_sizes = torch.as_tensor(sizes, dtype=torch.int64).to(device)
+    group_sizes = torch.as_tensor(sizes, dtype=torch.int64)
     if span:
         plan = plan_span(src, dst, rel, norm, num_nodes, num_slots,
-                         device=device, num_src=num_src)
+                         num_src=num_src)
         return RelEdges(
             num_nodes=int(num_nodes), num_slots=int(num_slots),
             num_src=int(num_src), src=plan.rel_src, dst=plan.rel_dst,
             norm=plan.rel_norm, group_sizes=group_sizes, group_offsets=offsets,
             dst_rowptr=plan.fwd_rowptr, src_rowptr=plan.bwd_rowptr, span=plan)
     order = np.lexsort((src, rel))   # (rel, src), as the span plan's rel_*
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(device)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a))
     return RelEdges(
         num_nodes=int(num_nodes), num_slots=int(num_slots),
         num_src=int(num_src), src=t(src[order]), dst=t(dst[order]),
@@ -143,18 +146,30 @@ def plan_edges(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
 
 def build_rel_edges(edge_src: np.ndarray, edge_dst: np.ndarray,
                     edge_type: np.ndarray, num_nodes: int, num_slots: int,
-                    device="cpu", span: bool = True) -> RelEdges:
+                    device="cpu", span: bool = True,
+                    cache_dir: Optional[str] = None) -> RelEdges:
     """Host-side edge build, once per graph: the mean coefficient
     ``norm_e = 1 / deg_r(dst_e)`` (in-degree of ``dst_e`` over edges of
-    ``e``'s relation) and the edge layouts (:func:`plan_edges`)."""
+    ``e``'s relation) and the edge layouts (:func:`plan_edges`), built on
+    the CPU and moved to ``device``. ``cache_dir``: keep and reuse the
+    plan on disk (``utils/plancache.py``)."""
     src = np.asarray(edge_src, np.int32)
     dst = np.asarray(edge_dst, np.int32)
     typ = np.asarray(edge_type, np.int32)
-    keys = typ.astype(np.int64) * num_nodes + dst.astype(np.int64)
-    _, inv, counts = np.unique(keys, return_inverse=True, return_counts=True)
-    norm = (1.0 / counts[inv.reshape(-1)]).astype(np.float32)
-    return plan_edges(src, dst, typ, norm, num_nodes, num_slots, span=span,
-                      device=device)
+
+    def build() -> RelEdges:
+        keys = typ.astype(np.int64) * num_nodes + dst.astype(np.int64)
+        _, inv, counts = np.unique(keys, return_inverse=True,
+                                   return_counts=True)
+        norm = (1.0 / counts[inv.reshape(-1)]).astype(np.float32)
+        return plan_edges(src, dst, typ, norm, num_nodes, num_slots,
+                          span=span)
+
+    edges = get_or_build(
+        cache_dir, "reledges", (src, dst, typ),
+        (int(num_nodes), int(num_slots), bool(span), span_kernels.DW_CHUNK),
+        build, (RelEdges, SpanPlan))
+    return to_device(edges, device)
 
 
 class RGCNLayer(nn.Module):

@@ -48,6 +48,7 @@ import torch
 
 from scaling_rgcn_training_tpu_torch.ops import cuda_build
 from scaling_rgcn_training_tpu_torch.ops.cuda_build import LAUNCHES
+from scaling_rgcn_training_tpu_torch.utils.plantree import to_device
 
 # edges of one relation per dW block (partial sums reduced in order)
 DW_CHUNK = 1024
@@ -169,9 +170,10 @@ def relation_chunks(src: np.ndarray, rel: np.ndarray, num_src: int,
 
 def plan_span(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
               norm: np.ndarray, num_nodes: int, num_slots: int,
-              device="cpu", num_src: Optional[int] = None) -> SpanPlan:
+              device=None, num_src: Optional[int] = None) -> SpanPlan:
     """Build the three edge layouts from per-edge ``(src, dst, rel, norm)``
-    (``dst < num_nodes``, ``src < num_src``, by default ``num_nodes``)."""
+    (``dst < num_nodes``, ``src < num_src``, by default ``num_nodes``), on
+    the CPU; with ``device``, moved there."""
     num_src = num_nodes if num_src is None else num_src
     src, dst, rel, norm = check_edges(src, dst, rel, norm, num_nodes,
                                       num_slots, num_src)
@@ -182,8 +184,8 @@ def plan_span(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
         relation_chunks(src, rel, num_src, num_slots)
 
     t = lambda a, dtype=torch.int32: torch.as_tensor(
-        np.ascontiguousarray(a)).to(dtype).to(device)
-    return SpanPlan(
+        np.ascontiguousarray(a)).to(dtype)
+    plan = SpanPlan(
         num_nodes=int(num_nodes), num_slots=int(num_slots),
         num_src=int(num_src), fwd_rowptr=t(f_rowptr), fwd_src=t(src[f_order]),
         fwd_rel=t(rel[f_order]), fwd_norm=t(norm[f_order], torch.float32),
@@ -196,6 +198,7 @@ def plan_span(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
         chunk_lo=t(chunk_lo), chunk_hi=t(chunk_hi),
         rel_chunk_ptr=t(rel_chunk_ptr),
         rel_edge_ptr=tuple(int(v) for v in rel_edge_ptr))
+    return plan if device is None else to_device(plan, device)
 
 
 # -- plain PyTorch versions (PyG RGCNConv's per-relation loop) ---------------

@@ -51,7 +51,7 @@ from scaling_rgcn_training_tpu_torch.ops.span_kernels import (
     relation_chunks, span_backward, span_forward_tiled_plain)
 from scaling_rgcn_training_tpu_torch.parallel.ring_halo import (
     connect, halo_exchange_library, halo_kernels, on_cards, pointer_table,
-    release_sources, wait_for_sources)
+    release_sources, send_transpose, wait_for_sources)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,10 +105,10 @@ class FusedHaloPlan:
 
 def plan_fused_halo(shard: int, src: np.ndarray, dst: np.ndarray,
                     rel: np.ndarray, norm: np.ndarray, recv_idx: np.ndarray,
-                    n_per: int, halo: int, num_shards: int, num_slots: int,
-                    device="cpu") -> FusedHaloPlan:
+                    n_per: int, halo: int, num_shards: int,
+                    num_slots: int) -> FusedHaloPlan:
     """From the shard's edges: global ``src`` (``< num_shards * n_per``),
-    owner-local ``dst``."""
+    owner-local ``dst``; built on the CPU."""
     num_src = num_shards * n_per
     src, dst, rel, norm = check_edges(src, dst, rel, norm, n_per, num_slots,
                                       num_src)
@@ -116,7 +116,7 @@ def plan_fused_halo(shard: int, src: np.ndarray, dst: np.ndarray,
     r_order, rel_rank, _, rel_chunk_ptr, chunk_lo, chunk_hi = \
         relation_chunks(src, rel, num_src, num_slots)
     t = lambda a, dtype=torch.int32: torch.as_tensor(
-        np.ascontiguousarray(a)).to(dtype).to(device)
+        np.ascontiguousarray(a)).to(dtype)
     return FusedHaloPlan(
         shard=int(shard), num_shards=int(num_shards), n_per=int(n_per),
         halo=int(halo), num_slots=int(num_slots), rowptr=t(rowptr),
@@ -341,9 +341,8 @@ class FusedHaloApply(torch.autograd.Function):
         # transpose: the rows each shard shipped get their cotangents back
         dsends = halo_exchange_library(dbufs)
         for p, sh in enumerate(shards):
-            dxs[p] = dxs[p].index_add(0, sh.send_idx,
-                                      dsends[p].reshape(s_n * halo, -1)
-                                      .to(dxs[p].dtype))
+            dxs[p] = dxs[p] + send_transpose(
+                dsends[p].reshape(s_n * halo, -1), sh).to(dxs[p].dtype)
         return (None, None, *[d.to(x.dtype) for d, x in zip(dxs, x_owns)],
                 *dws)
 

@@ -11,12 +11,14 @@ ships. The per-(relation, dst) mean coefficients are computed globally
 before partitioning (dst ownership keeps each group on one shard).
 
 The host build (:func:`halo_partition_edges`) gives the JAX build's arrays,
-``lsrc .. hgs`` and ``send_idx`` (padded as there), field by field.
-:func:`device_put_halo_edges` adds each shard's device plans on its mesh
-device: the port's span plans (``ops/span_kernels.py``, each with its
-forward and backward layouts) of the local segment and of the halo
-segment, which reads the received buffer, and kernel #7's plan. None of
-the TPU's chunked plans is built.
+``lsrc .. hgs`` and ``send_idx`` (padded as there), field by field, and
+each shard's plans on the CPU: the port's span plans
+(``ops/span_kernels.py``, each with its forward and backward layouts) of
+the local segment and of the halo segment, which reads the received
+buffer, and kernel #7's plan. None of the TPU's chunked plans is built.
+With ``cache_dir`` the whole partition goes through the plan cache
+(``utils/plancache.py``). :func:`device_put_halo_edges` moves each
+shard's plans to its mesh device.
 
 :func:`halo_aggregate` takes node-major ``x [S * n_per, d]`` on the mesh's
 first device, slices it into the shards' ``x_own`` (views on one card) and
@@ -47,13 +49,18 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from scaling_rgcn_training_tpu_torch.ops import span_kernels
 from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import (
     RelEdges, RGCNLayer, materialize_weight, plan_edges, relational_aggregate)
-from scaling_rgcn_training_tpu_torch.ops.span_kernels import fused_ok
+from scaling_rgcn_training_tpu_torch.ops.segment_kernels import segment_rowptr
+from scaling_rgcn_training_tpu_torch.ops.span_kernels import SpanPlan, fused_ok
 from scaling_rgcn_training_tpu_torch.parallel.fused_halo import (
     FusedHaloPlan, fused_halo_apply, plan_fused_halo)
 from scaling_rgcn_training_tpu_torch.parallel.mesh import Mesh
-from scaling_rgcn_training_tpu_torch.parallel.ring_halo import HaloExchange
+from scaling_rgcn_training_tpu_torch.parallel.ring_halo import (
+    HaloExchange, send_transpose)
+from scaling_rgcn_training_tpu_torch.utils.plancache import get_or_build
+from scaling_rgcn_training_tpu_torch.utils.plantree import to_device
 
 EXCHANGE_ENV = "RGCN_HALO_PALLAS_A2A"
 
@@ -63,13 +70,37 @@ class HaloShard:
     """One shard's plans, on its device: ``local`` (src, dst in
     ``[0, n_per)``), ``halo`` (dst in ``[0, n_per)``, src in the received
     ``[S * H]`` buffer), ``send_idx [S * H]`` (int64, the rows it ships,
-    reader-major: the JAX plan's ``send_idx[s]``) and ``fused`` (kernel
-    #7's plan)."""
+    reader-major: the JAX plan's ``send_idx[s]``), ``fused`` (kernel
+    #7's plan), and the CSR of ``send_idx`` for the send gather's
+    transpose: ``send_perm`` (int32, the slots of ``send_idx`` that a
+    reader's halo edges read, sorted by their row; the padding slots,
+    whose cotangents are zero, are left out) and ``send_rowptr [n_per +
+    1]`` (int32). A row shipped to several readers gets their cotangents
+    summed in that fixed order by the segment sum (#3), so the backward
+    gives the same bits on every run (the atomic ``index_add`` does
+    not)."""
 
     local: RelEdges
     halo: RelEdges
     send_idx: torch.Tensor
     fused: FusedHaloPlan
+    send_perm: torch.Tensor
+    send_rowptr: torch.Tensor
+
+
+class SendGather(torch.autograd.Function):
+    """``x_own[send_idx]``, the rows a shard ships, whose backward sums
+    each row's cotangents through the plan's CSR
+    (``ring_halo.send_transpose``)."""
+
+    @staticmethod
+    def forward(ctx, x_own, shard):
+        ctx.shard = shard
+        return x_own.index_select(0, shard.send_idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        return send_transpose(g, ctx.shard).to(g.dtype), None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,8 +110,8 @@ class HaloShardedEdges:
     ``lnorm`` ``[S, E_loc]`` and ``lgs [S, slots]``, the halo segment
     ``hsrc``/``hdst``/``hnorm`` ``[S, E_halo]`` and ``hgs``, each
     (relation, dst)-sorted and padded with ``norm = 0`` rows in the last
-    relation slot; ``send_idx [S, S, H]``. ``shards``: the device plans
-    (:func:`device_put_halo_edges`), empty until placed on a mesh."""
+    relation slot; ``send_idx [S, S, H]``. ``shards``: each shard's plans,
+    on the CPU until :func:`device_put_halo_edges` places them."""
 
     lsrc: np.ndarray
     ldst: np.ndarray
@@ -118,12 +149,27 @@ def halo_partition_edges(edge_src: np.ndarray, edge_dst: np.ndarray,
                          edge_type: np.ndarray, num_nodes: int,
                          num_slots: int, num_shards: int,
                          pad_to_multiple: int = 512,
-                         halo_multiple: int = 8) -> HaloShardedEdges:
+                         halo_multiple: int = 8,
+                         cache_dir: Optional[str] = None) -> HaloShardedEdges:
     """Host-side, once per graph: the dst-owner partition and the halo
-    exchange plan, as the JAX package's ``_halo_partition_edges_host``."""
-    edge_src = np.asarray(edge_src, np.int32)
-    edge_dst = np.asarray(edge_dst, np.int32)
-    edge_type = np.asarray(edge_type, np.int32)
+    exchange plan, as the JAX package's ``_halo_partition_edges_host``,
+    with each shard's plans on the CPU. ``cache_dir``: keep and reuse the
+    partition on disk (``utils/plancache.py``)."""
+    arrays = tuple(np.asarray(a, np.int32)
+                   for a in (edge_src, edge_dst, edge_type))
+    return get_or_build(
+        cache_dir, "haloedges", arrays,
+        (int(num_nodes), int(num_slots), int(num_shards),
+         int(pad_to_multiple), int(halo_multiple), span_kernels.DW_CHUNK),
+        lambda: _halo_partition_edges_host(
+            *arrays, num_nodes, num_slots, num_shards, pad_to_multiple,
+            halo_multiple),
+        (HaloShardedEdges, HaloShard, RelEdges, SpanPlan, FusedHaloPlan))
+
+
+def _halo_partition_edges_host(edge_src, edge_dst, edge_type, num_nodes,
+                               num_slots, num_shards, pad_to_multiple,
+                               halo_multiple) -> HaloShardedEdges:
     s_n = num_shards
     n_per = -(-num_nodes // s_n)
 
@@ -185,11 +231,12 @@ def halo_partition_edges(edge_src: np.ndarray, edge_dst: np.ndarray,
         h_dst = (dst_s[rem] - s * n_per).astype(np.int32)
         hsrc[s], hdst[s], hnorm[s], hgs[s] = _sorted_padded_segment(
             loc, h_dst, typ_s[rem], norm_s[rem], num_slots, e_halo)
-    return HaloShardedEdges(
+    edges = HaloShardedEdges(
         lsrc=lsrc, ldst=ldst, lnorm=lnorm, lgs=lgs, hsrc=hsrc, hdst=hdst,
         hnorm=hnorm, hgs=hgs, send_idx=send_idx, num_nodes=int(num_nodes),
         n_per=int(n_per), halo=int(h), num_shards=int(s_n),
         num_slots=int(num_slots))
+    return dataclasses.replace(edges, shards=_shard_plans(edges))
 
 
 def _segment_typ(gs: np.ndarray, length: int) -> np.ndarray:
@@ -197,16 +244,18 @@ def _segment_typ(gs: np.ndarray, length: int) -> np.ndarray:
     return np.repeat(np.arange(len(gs), dtype=np.int32), gs)[:length]
 
 
-def device_put_halo_edges(edges: HaloShardedEdges,
-                          mesh: Mesh) -> HaloShardedEdges:
-    """Build each shard's device plans on its mesh device (padding rows,
-    ``norm = 0``, left out)."""
+def _shard_plans(edges: HaloShardedEdges) -> Tuple[HaloShard, ...]:
+    """Each shard's plans on the CPU (padding rows, ``norm = 0``, left
+    out)."""
     s_n, n_per, h = edges.num_shards, edges.n_per, edges.halo
-    if mesh.size != s_n:
-        raise ValueError(f"plan has {s_n} shards, mesh {mesh.size} devices")
     slots = edges.num_slots
+    # read[p, s * H + j]: reader s's halo edges read row j of what p ships
+    read = np.zeros((s_n, s_n * h), bool)
+    for s in range(s_n):
+        loc = np.unique(edges.hsrc[s][edges.hnorm[s] > 0])
+        read[loc // h, s * h + loc % h] = True
     shards = []
-    for s, dev in enumerate(mesh.devices):
+    for s in range(s_n):
         l_real = edges.lnorm[s] > 0
         h_real = edges.hnorm[s] > 0
         l_typ = _segment_typ(edges.lgs[s], edges.lsrc.shape[1])[l_real]
@@ -218,19 +267,33 @@ def device_put_halo_edges(edges: HaloShardedEdges,
         # kernel #7 reads a halo edge's row where its owner keeps it
         peer = h_loc // h
         h_glob = peer * n_per + edges.send_idx[peer, s, h_loc % h]
+        send = edges.send_idx[s].reshape(-1)
+        used = np.flatnonzero(read[s])
+        send_perm = used[np.argsort(send[used], kind="stable")]
         shards.append(HaloShard(
-            local=plan_edges(l_src, l_dst, l_typ, l_norm, n_per, slots,
-                             device=dev),
+            local=plan_edges(l_src, l_dst, l_typ, l_norm, n_per, slots),
             halo=plan_edges(h_loc, h_dst, h_typ, h_norm, n_per, slots,
-                            device=dev, num_src=s_n * h),
-            send_idx=torch.as_tensor(edges.send_idx[s].reshape(-1),
-                                     dtype=torch.int64).to(dev),
+                            num_src=s_n * h),
+            send_idx=torch.as_tensor(send, dtype=torch.int64),
+            send_perm=torch.as_tensor(send_perm, dtype=torch.int32),
+            send_rowptr=torch.as_tensor(segment_rowptr(send[send_perm],
+                                                       n_per)),
             fused=plan_fused_halo(
                 s, np.concatenate([l_src + s * n_per, h_glob]),
                 np.concatenate([l_dst, h_dst]), np.concatenate([l_typ, h_typ]),
                 np.concatenate([l_norm, h_norm]), edges.send_idx[:, s],
-                n_per, h, s_n, slots, device=dev)))
-    return dataclasses.replace(edges, shards=tuple(shards))
+                n_per, h, s_n, slots)))
+    return tuple(shards)
+
+
+def device_put_halo_edges(edges: HaloShardedEdges,
+                          mesh: Mesh) -> HaloShardedEdges:
+    """Each shard's plans on its mesh device."""
+    if mesh.size != edges.num_shards:
+        raise ValueError(f"plan has {edges.num_shards} shards, mesh "
+                         f"{mesh.size} devices")
+    return dataclasses.replace(edges, shards=tuple(
+        to_device(sh, dev) for sh, dev in zip(edges.shards, mesh.devices)))
 
 
 def padded_num_nodes(edges: HaloShardedEdges) -> int:
@@ -274,7 +337,7 @@ def halo_aggregate(x: torch.Tensor, w: torch.Tensor, edges: HaloShardedEdges,
     if mode == "fused":
         aggs = fused_halo_apply(xs, ws, edges.shards)
     else:
-        sends = [xs[s].index_select(0, sh.send_idx).view(s_n, h, d_in)
+        sends = [SendGather.apply(xs[s], sh).view(s_n, h, d_in)
                  for s, sh in enumerate(edges.shards)]
         recvs = HaloExchange.apply(mode or "library", *sends)
         agg_mode = "fused" if use_span else "edge"

@@ -20,6 +20,9 @@ block ``p`` prepared for it (its own block included), as
 :class:`HaloExchange` makes either exchange differentiable: the exchange
 is its own transpose (exchanging twice restores the layout), so its
 gradient is the exchange of the cotangents, as in the JAX package.
+:func:`send_transpose` is the transpose of the gather that fills a
+shard's sends, shared by both halo backwards (``parallel/halo.py``, and
+kernel #7's in ``parallel/fused_halo.py``).
 
 The shards' devices may be S cards, or S virtual shards on one card (a
 mesh that repeats one device). Between cards the kernels read peer memory:
@@ -36,6 +39,8 @@ import torch
 
 from scaling_rgcn_training_tpu_torch.ops import cuda_build
 from scaling_rgcn_training_tpu_torch.ops.cuda_build import LAUNCHES
+from scaling_rgcn_training_tpu_torch.ops.segment_kernels import (
+    sorted_segment_sum)
 
 # shards the kernels' pointer tables hold (csrc/span_rows.cuh kMaxShards)
 MAX_SHARDS = 64
@@ -182,6 +187,17 @@ def halo_exchange(sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 
 
 EXCHANGES = {"library": halo_exchange_library, "kernel": halo_exchange}
+
+
+def send_transpose(g_send: torch.Tensor, shard) -> torch.Tensor:
+    """The transpose of ``x_own[shard.send_idx]``: ``[n_per, d]`` float32,
+    row ``i`` the sum of the rows of ``g_send [S * H, d]`` that
+    ``send_idx`` took from row ``i``, through the CSR of a
+    ``parallel/halo.py`` ``HaloShard`` (``send_perm``, ``send_rowptr``;
+    the padding slots, whose cotangents are zero, left out), in a fixed
+    order: kernel #3 on the card, so two runs give the same bits."""
+    return sorted_segment_sum(g_send.contiguous(), shard.send_rowptr,
+                              perm=shard.send_perm)
 
 
 class HaloExchange(torch.autograd.Function):

@@ -3,8 +3,10 @@
 Counterpart of the JAX package's ``parallel/spmd.py``: the globally
 (relation, dst)-sorted edge list is cut into ``num_shards`` contiguous
 chunks of equal padded size (:func:`shard_rel_edges`, the JAX build's
-arrays); each shard aggregates its chunk from the whole feature table
-with the port's edge-mode aggregate, and the partial ``[N, h]`` sums are
+arrays, with each chunk's edge-mode layouts on the CPU, through the plan
+cache with ``cache_dir``; :func:`device_put_sharded_edges` moves each to
+its mesh device); each shard aggregates its chunk from the whole feature
+table with the port's edge-mode aggregate, and the partial ``[N, h]`` sums are
 added (the JAX package's ``psum``) on the mesh's first device, from which
 every shard reads the next layer's input.
 """
@@ -20,6 +22,8 @@ import torch
 from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import (
     RelEdges, RGCNLayer, materialize_weight, plan_edges, relational_aggregate)
 from scaling_rgcn_training_tpu_torch.parallel.mesh import Mesh
+from scaling_rgcn_training_tpu_torch.utils.plancache import get_or_build
+from scaling_rgcn_training_tpu_torch.utils.plantree import to_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,8 +31,8 @@ class ShardedRelEdges:
     """Host arrays ``src``/``dst``/``norm`` ``[S, E_shard]`` and
     ``group_sizes [S, slots]`` (the JAX build's: padding rows carry
     ``norm = 0`` and sit in the last relation slot); ``shards``: each
-    chunk's edge-mode layouts on its mesh device
-    (:func:`device_put_sharded_edges`), empty until placed."""
+    chunk's edge-mode layouts, on the CPU until
+    :func:`device_put_sharded_edges` places them."""
 
     src: np.ndarray
     dst: np.ndarray
@@ -42,12 +46,25 @@ class ShardedRelEdges:
 
 def shard_rel_edges(edge_src: np.ndarray, edge_dst: np.ndarray,
                     edge_type: np.ndarray, num_nodes: int, num_slots: int,
-                    num_shards: int,
-                    pad_to_multiple: int = 512) -> ShardedRelEdges:
-    """Host-side: sort globally, normalize, cut into equal padded shards."""
-    edge_src = np.asarray(edge_src, np.int32)
-    edge_dst = np.asarray(edge_dst, np.int32)
-    edge_type = np.asarray(edge_type, np.int32)
+                    num_shards: int, pad_to_multiple: int = 512,
+                    cache_dir: Optional[str] = None) -> ShardedRelEdges:
+    """Host-side: sort globally, normalize, cut into equal padded shards,
+    and each chunk's edge-mode layouts on the CPU. ``cache_dir``: keep and
+    reuse the partition on disk (``utils/plancache.py``)."""
+    arrays = tuple(np.asarray(a, np.int32)
+                   for a in (edge_src, edge_dst, edge_type))
+    return get_or_build(
+        cache_dir, "shardededges", arrays,
+        (int(num_nodes), int(num_slots), int(num_shards),
+         int(pad_to_multiple)),
+        lambda: _shard_rel_edges_host(*arrays, num_nodes, num_slots,
+                                      num_shards, pad_to_multiple),
+        (ShardedRelEdges, RelEdges))
+
+
+def _shard_rel_edges_host(edge_src, edge_dst, edge_type, num_nodes,
+                          num_slots, num_shards,
+                          pad_to_multiple) -> ShardedRelEdges:
     e = edge_src.shape[0]
 
     order = np.lexsort((edge_dst, edge_type))
@@ -73,28 +90,29 @@ def shard_rel_edges(edge_src: np.ndarray, edge_dst: np.ndarray,
             s_norm[s, :n] = norm[lo:hi]
             s_gs[s] = np.bincount(typ[lo:hi], minlength=num_slots)
         s_gs[s, num_slots - 1] += per - n  # padding rows -> empty slot
+    shards = []
+    for s in range(num_shards):
+        # each chunk's layouts, padding rows left out
+        real = s_norm[s] > 0
+        s_typ = np.repeat(np.arange(num_slots, dtype=np.int32),
+                          s_gs[s])[:per][real]
+        shards.append(plan_edges(s_src[s][real], s_dst[s][real], s_typ,
+                                 s_norm[s][real], num_nodes, num_slots,
+                                 span=False))
     return ShardedRelEdges(
         src=s_src, dst=s_dst, norm=s_norm, group_sizes=s_gs,
         num_nodes=int(num_nodes), num_shards=int(num_shards),
-        num_slots=int(num_slots))
+        num_slots=int(num_slots), shards=tuple(shards))
 
 
 def device_put_sharded_edges(edges: ShardedRelEdges,
                              mesh: Mesh) -> ShardedRelEdges:
-    """Each chunk's edge-mode layouts on its mesh device (padding rows
-    left out)."""
+    """Each chunk's edge-mode layouts on its mesh device."""
     if mesh.size != edges.num_shards:
         raise ValueError(f"plan has {edges.num_shards} shards, mesh "
                          f"{mesh.size} devices")
-    shards = []
-    for s, dev in enumerate(mesh.devices):
-        real = edges.norm[s] > 0
-        typ = np.repeat(np.arange(edges.num_slots, dtype=np.int32),
-                        edges.group_sizes[s])[:edges.src.shape[1]][real]
-        shards.append(plan_edges(edges.src[s][real], edges.dst[s][real], typ,
-                                 edges.norm[s][real], edges.num_nodes,
-                                 edges.num_slots, span=False, device=dev))
-    return dataclasses.replace(edges, shards=tuple(shards))
+    return dataclasses.replace(edges, shards=tuple(
+        to_device(sh, dev) for sh, dev in zip(edges.shards, mesh.devices)))
 
 
 def sharded_aggregate(x: torch.Tensor, w: torch.Tensor, edges: ShardedRelEdges,

@@ -30,11 +30,22 @@ or ``[K, N, d]`` for the attention head) enter the model through
 :meth:`Trainer._pad_embedding` and leave it through
 :meth:`Trainer._export_embedding`, so a seed gives every node the same
 initial vector at any device count.
+
+Checkpoints (``ckpt_dir``, ``ckpt_every``; ``utils/checkpoint.py``): the
+fine-tuning ``fit`` of ``train_original`` writes its state every
+``ckpt_every`` epochs to ``{ckpt_dir}/fit_{dataset}_{exp}[_{tag}].npz`` and
+resumes from that file when it exists, on the unbroken run's trajectory
+bit for bit: the parameters and Adam's moments in true node order, Adam's
+step, the dropout generator's state and the metric series.
+``train_summaries(save_path=...)`` and :meth:`Trainer.load_summaries`
+keep the summary pre-training on disk. ``plan_cache``: the directory of
+the on-disk plan cache (``utils/plancache.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -52,6 +63,9 @@ from scaling_rgcn_training_tpu_torch.train.metrics import (
     classification_table, evaluate, predictions)
 from scaling_rgcn_training_tpu_torch.train.optim import make_optimizer
 from scaling_rgcn_training_tpu_torch.train.transfer import EMBEDDING_TRICKS
+from scaling_rgcn_training_tpu_torch.utils.checkpoint import (
+    checkpoint_exists, load_checkpoint, load_transfer_state, save_checkpoint,
+    save_transfer_state)
 
 _DTYPES = {None: None, "bfloat16": torch.bfloat16}
 
@@ -64,7 +78,8 @@ class Trainer:
     conv, ``"ragged"``, ``"gather"`` or ``"pallas"``; ``aggr``: ``"mean"``
     or ``"attention"``; ``devices``: a mesh of that many CUDA devices, or
     of as many virtual shards of ``device`` when it is the CPU; ``mesh``:
-    an explicit mesh, e.g. S virtual shards on one card)."""
+    an explicit mesh, e.g. S virtual shards on one card; ``ckpt_dir``,
+    ``ckpt_every`` and ``plan_cache``: see the module)."""
 
     def __init__(self, data: Optional[Dataset], hidden_l: int, epochs: int,
                  emb_dim: int, lr: float, weight_d: float, seed: int = 0,
@@ -73,7 +88,9 @@ class Trainer:
                  compute_dtype=None, backend: Optional[str] = None,
                  aggr: str = "mean", devices: Optional[int] = None,
                  partition: str = "halo", reorder: bool = False,
-                 mesh: Optional[Mesh] = None) -> None:
+                 mesh: Optional[Mesh] = None, ckpt_dir: Optional[str] = None,
+                 ckpt_every: int = 0,
+                 plan_cache: Optional[str] = None) -> None:
         self.data = data
         self.hidden_l = hidden_l
         self.epochs = epochs
@@ -107,6 +124,10 @@ class Trainer:
             self.device = self.mesh.first
         self.partition = partition if self.mesh is not None else None
         self.reorder = bool(reorder)
+        self.ckpt_dir = ckpt_dir
+        self.ckpt_every = ckpt_every
+        self.ckpt_tag = ""              # set per iteration by the CLI
+        self.plan_cache = plan_cache
         self.gen = torch.Generator().manual_seed(seed)
         self.sum_model: Optional[model_heads.EmbModel] = None
         self._device_graphs: Dict[int, Tuple[Graph, DeviceGraph]] = {}
@@ -118,7 +139,7 @@ class Trainer:
         if hit is None or hit[0] is not graph:
             hit = (graph, build_device_graph(
                 graph, self.device, mesh=self.mesh, partition=self.partition,
-                reorder=self.reorder))
+                reorder=self.reorder, plan_cache=self.plan_cache))
             self._device_graphs[id(graph)] = hit
         return hit[1]
 
@@ -155,12 +176,12 @@ class Trainer:
     @staticmethod
     def _export_embedding(emb: torch.Tensor, dev_graph: DeviceGraph,
                           true_n: int) -> np.ndarray:
-        """The model's node table -> ``[true_n, d]`` in true node order
-        (the inverse of :meth:`_pad_embedding`)."""
+        """The model's node table -> ``true_n`` rows in true node order,
+        on the node axis of :meth:`_pad_embedding` (the inverse of it)."""
         arr = emb.detach().cpu().numpy()
-        if dev_graph.node_perm is not None:
-            return arr[np.asarray(dev_graph.node_perm)]
-        return arr[:true_n]
+        rows = np.arange(true_n) if dev_graph.node_perm is None \
+            else np.asarray(dev_graph.node_perm)
+        return np.take(arr, rows, axis=1 if arr.ndim == 3 else 0)
 
     # -- core epoch loop (modelTrainer.py:41-74) ---------------------------
 
@@ -178,6 +199,7 @@ class Trainer:
             loss_fn: Callable, activation: str, sum_graph: bool = True,
             frozen: Iterable[str] = (), verbose: bool = True,
             on_epoch: Optional[Callable[[int], None]] = None,
+            ckpt_path: Optional[str] = None,
             ) -> Tuple[torch.nn.Module, List[float], List[float],
                        List[float], List[float]]:
         """Train ``model`` (a head of ``models/heads.py``) in place for
@@ -186,21 +208,31 @@ class Trainer:
 
         ``frozen``: names of top-level submodules / parameters
         (``embedding``, ``rgcn1``, ``rgcn2``) that get no update.
-        ``on_epoch(epoch)`` is called after each step. Returns
+        ``on_epoch(epoch)`` is called after each step (and after its
+        checkpoint). With ``ckpt_path`` and ``ckpt_every`` > 0 the state
+        is written after every ``ckpt_every`` epochs and after the last,
+        and an existing file at ``ckpt_path`` is resumed from. Returns
         ``(model, val accuracies, losses, val weighted F1, val macro F1)``;
         the validation series are empty for summary graphs.
         """
         frozen = set(frozen)
-        trainable = []
+        trainable = {}
         for name, p in model.named_parameters():
             train = name.split(".")[0] not in frozen
             p.requires_grad_(train)
             if train:
-                trainable.append(p)
-        opt = make_optimizer(trainable, self.lr, self.weight_d) if trainable else None
+                trainable[name] = p
+        opt = make_optimizer(list(trainable.values()), self.lr,
+                             self.weight_d) if trainable else None
         gen = self._dropout_generator(model)
+        every = self.ckpt_every if ckpt_path and self.ckpt_every > 0 else 0
+        done: Dict[str, List[float]] = {k: [] for k in _SERIES}
+        start = 0
+        if every and checkpoint_exists(ckpt_path):
+            start, done = self._restore_fit(ckpt_path, model, graph,
+                                            trainable, opt, gen)
         losses, metrics = [], []
-        for epoch in range(self.epochs):
+        for epoch in range(start, self.epochs):
             if not sum_graph:
                 # validation eval BEFORE the update (modelTrainer.py:53-59)
                 with torch.no_grad():
@@ -214,12 +246,17 @@ class Trainer:
                 loss.backward()
                 opt.step()
             losses.append(loss.detach())
+            if every and ((epoch + 1 - start) % every == 0
+                          or epoch + 1 == self.epochs):
+                done = self._save_fit(ckpt_path, epoch + 1, model, graph,
+                                      trainable, opt, gen, done, losses,
+                                      metrics)
+                losses, metrics = [], []
             if on_epoch is not None:
                 on_epoch(epoch)
-        losses_l = torch.stack(losses).tolist() if losses else []
-        accs = f1_ws = f1_ms = []
-        if metrics:
-            accs, f1_ws, f1_ms = (list(s) for s in zip(*torch.stack(metrics).tolist()))
+        series = _append_series(done, losses, metrics)
+        losses_l = series["loss"]
+        accs, f1_ws, f1_ms = (series[k] for k in ("acc", "f1w", "f1m"))
         if verbose:
             for epoch in range(self.epochs):
                 if not sum_graph:
@@ -228,9 +265,96 @@ class Trainer:
                     print(f"Epoch: {epoch}, Loss: {losses_l[epoch]:.4f}")
         return model, accs, losses_l, f1_ws, f1_ms
 
+    # -- checkpoints of a fit ----------------------------------------------
+
+    def _ckpt_path(self, stage: str) -> Optional[str]:
+        """Where ``train_original``'s fit of ``stage`` keeps its state;
+        None without ``ckpt_dir`` or with ``ckpt_every`` 0 (as the JAX
+        package, ``-ckpt_every`` alone checkpoints nothing)."""
+        if not (self.ckpt_dir and self.ckpt_every > 0):
+            return None
+        tag = f"_{self.ckpt_tag}" if self.ckpt_tag != "" else ""
+        return os.path.join(self.ckpt_dir, f"fit_{stage}{tag}.npz")
+
+    def _true_order(self, name: str, value: torch.Tensor,
+                    graph: DeviceGraph) -> np.ndarray:
+        """A parameter (or its Adam moment) as stored: the embedding's
+        node axis in true node order, halo phantom rows dropped."""
+        if name == "embedding":
+            return self._export_embedding(value, graph, graph.edges.num_nodes)
+        return value.detach().cpu().numpy()
+
+    def _model_order(self, name: str, value: np.ndarray,
+                     graph: DeviceGraph) -> torch.Tensor:
+        t = torch.from_numpy(value)
+        if name == "embedding":
+            return self._pad_embedding(t, graph)
+        return t.to(self.device)
+
+    def _save_fit(self, path: str, epoch: int, model: torch.nn.Module,
+                  graph: DeviceGraph, trainable: Dict[str, torch.Tensor],
+                  opt, gen: Optional[torch.Generator],
+                  done: Dict[str, List[float]], losses, metrics
+                  ) -> Dict[str, List[float]]:
+        """Write the fit's state after ``epoch`` epochs; returns the metric
+        series so far."""
+        series = _append_series(done, losses, metrics)
+        arrays = {f"params/{name}": self._true_order(name, p, graph)
+                  for name, p in model.named_parameters()}
+        for name, p in trainable.items():
+            state = opt.state.get(p)
+            if state:
+                arrays[f"opt/{name}/step"] = state["step"].cpu().numpy()
+                for key in ("exp_avg", "exp_avg_sq"):
+                    arrays[f"opt/{name}/{key}"] = self._true_order(
+                        name, state[key], graph)
+        extra = {"series": series}
+        if gen is not None:
+            arrays["rng/dropout"] = gen.get_state().numpy()
+            extra["dropout_device"] = gen.device.type
+        save_checkpoint(path, arrays, epoch=epoch, extra=extra)
+        return series
+
+    def _restore_fit(self, path: str, model: torch.nn.Module,
+                     graph: DeviceGraph, trainable: Dict[str, torch.Tensor],
+                     opt, gen: Optional[torch.Generator]
+                     ) -> Tuple[int, Dict[str, List[float]]]:
+        """Load the state :meth:`_save_fit` wrote into ``model``, ``opt``
+        and ``gen``; returns ``(epoch, metric series)``."""
+        arrays, meta = load_checkpoint(path)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(self._model_order(name, arrays[f"params/{name}"],
+                                          graph))
+        if opt is not None:
+            state = {}
+            for i, (name, p) in enumerate(trainable.items()):
+                if f"opt/{name}/step" not in arrays:
+                    continue
+                state[i] = {
+                    "step": torch.tensor(float(arrays[f"opt/{name}/step"]),
+                                         dtype=torch.float32),
+                    **{key: self._model_order(name, arrays[f"opt/{name}/{key}"],
+                                              graph)
+                       for key in ("exp_avg", "exp_avg_sq")}}
+            opt.load_state_dict({"state": state,
+                                 "param_groups": opt.state_dict()["param_groups"]})
+        if gen is not None:
+            if meta.get("dropout_device") != gen.device.type:
+                raise ValueError(
+                    f"{path} holds a {meta.get('dropout_device')} dropout "
+                    f"generator; this fit draws on {gen.device.type}")
+            gen.set_state(torch.from_numpy(arrays["rng/dropout"]))
+        print(f"Resumed fit from {path} at epoch {meta['epoch']}")
+        return int(meta["epoch"]), meta["series"]
+
     # -- summary pre-training (modelTrainer.py:76-82) ----------------------
 
-    def train_summaries(self, configs: Dict[str, Any], verbose: bool = True) -> None:
+    def train_summaries(self, configs: Dict[str, Any], verbose: bool = True,
+                        save_path: Optional[str] = None) -> None:
+        """Pre-train the trunk over the summary graphs; with ``save_path``
+        write the trunk and the summary embeddings there
+        (``utils/checkpoint.py`` ``save_transfer_state``)."""
         loss_fn, activation = get_loss(configs["dataset"], sum_model=True)
         sg0 = self.data.sumGraphs[0]
         model = model_heads.init_emb_model(
@@ -249,6 +373,27 @@ class Trainer:
             sg.embedding = self._export_embedding(model.embedding, dg,
                                                   sg.num_nodes)
         self.sum_model = model
+        if save_path:
+            save_transfer_state(save_path, (model.rgcn1, model.rgcn2),
+                                [sg.embedding for sg in self.data.sumGraphs])
+
+    def load_summaries(self, path: str) -> None:
+        """Take the summary pre-training from a ``save_transfer_state``
+        file (of either package): each summary graph's embedding and the
+        trunk that ``transfer_weights`` copies."""
+        trunk, embs = load_transfer_state(path)
+        if len(embs) != len(self.data.sumGraphs) or len(trunk) != 2:
+            raise ValueError(
+                f"{path} holds {len(trunk)} trunk layers and {len(embs)} "
+                f"summary embeddings; the dataset has "
+                f"{len(self.data.sumGraphs)} summary graphs")
+        for sg, emb in zip(self.data.sumGraphs, embs):
+            sg.embedding = np.asarray(emb)
+        rgcn1, rgcn2 = (model_heads.layer_from_numpy(
+            [layer.get(k) for k in ("weight", "root", "bias", "comp")])
+            for layer in trunk)
+        self.sum_model = model_heads.EmbModel(
+            torch.zeros(0, self.emb_dim), rgcn1, rgcn2).to(self.device)
 
     # -- weight transfer (modelTrainer.py:26-39) ---------------------------
 
@@ -272,6 +417,8 @@ class Trainer:
             self.data.num_classes, og.num_nodes, self.emb_dim,
             num_sums=configs.get("num_sums", 1), num_bases=self.num_bases,
             num_blocks=self.num_blocks, device=self.device)
+        # the embedding the model starts from, in true node order
+        embedding = model.embedding.detach().cpu().clone()
         model.embedding = torch.nn.Parameter(self._pad_embedding(
             model.embedding.detach(), dev_graph))
         frozen = set()
@@ -280,7 +427,7 @@ class Trainer:
             embedding = EMBEDDING_TRICKS[head](og, self.data.sumGraphs,
                                                self.emb_dim, self.gen)
             model.embedding = torch.nn.Parameter(self._pad_embedding(
-                embedding, dev_graph))
+                embedding.clone(), dev_graph))
             if configs.get("e_freeze", True):
                 frozen.add("embedding")
             if verbose:
@@ -298,7 +445,8 @@ class Trainer:
             print("Training on Orginal Graph...")
         model, accs, losses, f1_ws, f1_ms = self.fit(
             model, dev_graph, loss_fn, activation, sum_graph=False,
-            frozen=frozen, verbose=verbose)
+            frozen=frozen, verbose=verbose,
+            ckpt_path=self._ckpt_path(f"{configs['dataset']}_{exp}"))
 
         test_acc, test_f1_w, test_f1_m = self.evaluate_test(
             model, dev_graph, activation, report=verbose)
@@ -309,6 +457,7 @@ class Trainer:
             "f1 weighted": f1_ws, "f1 macro": f1_ms,
             "test_acc": test_acc, "test_f1_weighted": test_f1_w,
             "test_f1_macro": test_f1_m, "model": model, "frozen": frozen,
+            "embedding": embedding,
         }
 
     @torch.no_grad()
@@ -323,6 +472,22 @@ class Trainer:
             pred = predictions(logits, activation)[graph.x_test]
             print(classification_table(pred, graph.y_test))
         return float(acc), float(f1_w), float(f1_m)
+
+
+_SERIES = ("loss", "acc", "f1w", "f1m")
+
+
+def _append_series(done: Dict[str, List[float]], losses, metrics
+                   ) -> Dict[str, List[float]]:
+    """The metric series ``done`` followed by the epochs' loss tensors and
+    stacked ``(acc, f1w, f1m)`` tensors, as floats."""
+    out = {k: list(v) for k, v in done.items()}
+    if losses:
+        out["loss"] += torch.stack(losses).tolist()
+    if metrics:
+        for k, col in zip(_SERIES[1:], zip(*torch.stack(metrics).tolist())):
+            out[k] += list(col)
+    return out
 
 
 def count_trainable_parameters(model: torch.nn.Module, frozen: Iterable[str],

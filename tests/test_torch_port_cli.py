@@ -8,6 +8,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -104,12 +105,32 @@ def test_cli_attention_over_two_shards(tmp_path, capsys):
     ["-ckpt_dir", "ck"], ["-ckpt_every", "2"], ["-plan_cache", "pc"],
     ["-e_viz", "true"],
 ])
-def test_unported_flags_raise(tmp_path, flags):
-    base = ["-exp", "summation"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmain.main(base + flags + ["-device", "cpu",
-                                   "-data_root", str(tmp_path)])
-    assert not os.listdir(tmp_path)
+def test_flags_run_on_cpu_and_write(tmp_path, flags, capsys):
+    """The JAX CLI's checkpoint, plan-cache and embedding flags run on the
+    CPU and write what they promise: ``-ckpt_dir`` the summary
+    pre-training (and the plan cache under it), ``-ckpt_every`` alone
+    nothing (as in the JAX CLI), ``-plan_cache`` one entry per graph,
+    ``-e_viz`` the summation head's starting embedding."""
+    flags = [flags[0], str(tmp_path / flags[1])] \
+        if flags[0] in ("-ckpt_dir", "-plan_cache") else flags
+    tmain.main(_args(tmp_path, "summation") + flags + ["-device", "cpu"])
+    assert "ACC ON TEST SET" in capsys.readouterr().out
+    written = sorted(os.path.relpath(os.path.join(d, f), tmp_path)
+                     for d, _, fs in os.walk(tmp_path) for f in fs
+                     if not d.startswith(str(tmp_path / "data"))
+                     and not d.startswith(str(tmp_path / "results")))
+    if flags[0] == "-ckpt_dir":
+        assert "ck/transfer_SYNTH_0.npz" in written
+        assert [w for w in written if w.startswith("ck/plans/reledges-")]
+        assert not [w for w in written if "fit_" in w]
+    elif flags[0] == "-plan_cache":
+        # the original graph and its three attribute summaries
+        assert len([w for w in written if w.startswith("pc/reledges-")]) == 4
+    elif flags[0] == "-e_viz":
+        emb = np.load(tmp_path / "results" / "embeddings"
+                      / "SYNTH_attr_embedding.npy")
+        assert emb.shape[1] == 12 and emb.dtype == np.float32
+    assert written == [] or flags[0] in ("-ckpt_dir", "-plan_cache")
 
 
 def test_cuda_device_without_cuda_raises(tmp_path, monkeypatch):

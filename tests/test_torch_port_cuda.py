@@ -615,6 +615,44 @@ def test_cuda_fused_halo_matches_plain(s_n, d_in, d_out, dtype, offset,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s_n,d", [(2, 16), (3, 64), (4, 63)])
+def test_cuda_send_transpose_matches_index_add(s_n, d, dtype):
+    """The send gather's transpose (kernel #3 over each shard's CSR of
+    ``send_idx``, a subset of the ``S * H`` slots, no scale) on cotangents
+    that are zero in the padding slots: within the tolerance of
+    ``index_add`` over ``send_idx`` in float64 and of the plain version,
+    the same bits on a second run, one ``segment_sum`` launch a call.
+    From 3 shards the last one ships no rows (an empty CSR)."""
+    from scaling_rgcn_training_tpu_torch.parallel import halo as hp
+    from scaling_rgcn_training_tpu_torch.parallel import ring_halo as rh
+    from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(s_n * 100 + d)
+    host = _halo_graph(rng, s_n, 301 * s_n - 3, 2500 * s_n, 7)
+    he = hp.device_put_halo_edges(host, make_mesh(devices=("cuda",) * s_n))
+    dt = getattr(torch, dtype)
+    rows = s_n * he.halo
+    for sh, cpu_sh in zip(he.shards, host.shards):
+        used = torch.zeros(rows, dtype=torch.bool, device="cuda")
+        used[sh.send_perm.long()] = True
+        g = (torch.randn(rows, d, device="cuda") * used[:, None]).to(dt)
+        before = cuda_build.LAUNCHES["segment_sum"]
+        got, again = rh.send_transpose(g, sh), rh.send_transpose(g, sh)
+        torch.cuda.synchronize()
+        assert cuda_build.LAUNCHES["segment_sum"] == before + 2
+        assert got.dtype == torch.float32 and got.shape == (he.n_per, d)
+        assert torch.equal(got, again)
+        want = torch.zeros(he.n_per, d, dtype=torch.float64,
+                           device="cuda").index_add_(0, sh.send_idx, g.double())
+        torch.testing.assert_close(got.double(), want, **_tol(dtype, want))
+        plain = rh.send_transpose(g.cpu(), cpu_sh)
+        torch.testing.assert_close(got.cpu(), plain, **_tol(dtype, plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d_in,d_out", [(63, 4), (11, 63), (16, 8), (64, 16),
                                         (128, 32)])
 @pytest.mark.parametrize("variant", ["base", "nodw", "nodx", "statrmw"])

@@ -212,3 +212,36 @@ def test_fused_plain_buffer_is_the_exchanged_halo(tmesh):
         want = (span_forward_plain(xs[s], w, sh.local.span)
                 + span_forward_plain(hbuf, w, sh.halo.span))
         torch.testing.assert_close(agg, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "hub"])
+def test_send_transpose_sums_what_index_add_sums(tmesh, kind):
+    """The send gather's transpose through the plan's CSR (a row shipped
+    to several readers sums their cotangents in a fixed order) equals
+    ``index_add`` over ``send_idx``; ``SendGather``'s gradient is it. The
+    CSR leaves out exactly the padding slots, which no halo edge reads
+    (their cotangents are zero)."""
+    src, dst, typ, n, slots = _graph(kind)
+    he = thalo.device_put_halo_edges(
+        thalo.halo_partition_edges(src, dst, typ, n, slots, S), tmesh)
+    h = he.halo
+    gen = torch.Generator().manual_seed(1)
+    for p, sh in enumerate(he.shards):
+        rows = sh.send_idx.numel()
+        shipped = [int(s * h + j) for s in range(S) for j in range(h)
+                   if (he.hsrc[s][he.hnorm[s] > 0] == p * h + j).any()]
+        assert sorted(sh.send_perm.tolist()) == shipped
+        g = torch.zeros(rows, 6, dtype=torch.float64)
+        g[shipped] = torch.randn(len(shipped), 6, generator=gen,
+                                 dtype=torch.float64)
+        want = torch.zeros(he.n_per, 6, dtype=torch.float64).index_add_(
+            0, sh.send_idx, g)
+        torch.testing.assert_close(tring.send_transpose(g, sh), want,
+                                   rtol=1e-12, atol=1e-12)
+        x = torch.randn(he.n_per, 6, generator=gen, dtype=torch.float64,
+                        requires_grad=True)
+        sent = thalo.SendGather.apply(x, sh)
+        assert torch.equal(sent, x.detach()[sh.send_idx])
+        sent.backward(g)
+        torch.testing.assert_close(x.grad, want, rtol=1e-12, atol=1e-12)
+        assert np.all(np.diff(sh.send_idx[sh.send_perm.long()].numpy()) >= 0)
