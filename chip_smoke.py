@@ -64,7 +64,10 @@ Phases, in order; any failure exits non-zero:
    script's: no main path calls the earlier routes); then
    ``aggr="attention"`` for 5 epochs: finite losses, the kernels' launch
    counters advanced on every step (and the earlier routes of #1, #2, #3,
-   #4 and #5 on none), ms/step and peak memory;
+   #4 and #5 on none), ms/step and peak memory; and one f32 step's
+   per-layer aggregation gradients (dx, dW of both layers, from the fused
+   step's inputs and upstream gradients) by #2, #8's redesign and edge
+   mode against float64: signed and largest errors;
 6. ``rgcn_conv`` in ``mode="auto"`` on a layer too wide for the span
    kernels (128 -> 64) at the bench N and E: it must take the edge mode
    and match the plain versions, forward and backward;
@@ -105,16 +108,24 @@ Phases, in order; any failure exits non-zero:
    kernel, 10 steps each; and #1 and its row route per call on shard 0's
    local and halo segments (host microseconds until a call returns, card
    milliseconds);
-9. kernel #8 (the one-pass backward of the attribution microbench) against
-   its plain versions, every variant (``base``, ``nodw``, ``nodx``,
-   ``statrmw``): at phase 3's edge cases (63 -> 4 and 11, 11 -> 63; 128 ->
-   32 over 30 relations, several relation passes) and at the bench shape
-   (layers 1 and 2, and ``base`` over the plan with ``dst`` folded into
-   4,096 rows), float32 and bfloat16; two runs must give the same dx bits
-   (dW sums with shared-memory atomics, so it is held to the tolerance
-   only); ``base``'s time beside its plain version; then the microbench's
-   entry point in this process for layers 1 and 2 in float32 and bfloat16
-   (each row's time beside its bound; its launches are #8's count), and
+9. kernel #8 (the one-pass backward of the attribution microbench), both
+   routes, against their plain versions: the redesign
+   (``span_backward_variant``, ``bwd_tc_kernel`` on the tensor cores over
+   the bucket plan; ``base``, ``nodw``, ``nodx``, ``tf32``) and the earlier
+   route (``span_backward_variant_simt``; ``base``, ``nodw``, ``nodx``,
+   ``statrmw``): at phase 3's edge cases (63 -> 4 and 11, 11 -> 63 over
+   32-row buckets, three with no edges; 128 -> 32 over 30 relations, 8
+   relation passes of the redesign) and at the bench shape (layers 1 and
+   2, and the redesign's ``base`` over the plan with ``dst`` folded into
+   4,096 rows), float32 and bfloat16; two runs of the redesign must give
+   the same bits of dx and dW, two of the earlier route the same dx bits
+   (its dW sums with shared-memory atomics); at the bench shape, the
+   redesign's float32 dx bits against #2's, the peak memory one call of
+   each adds, and ``base``'s time beside its plain version, then in turns
+   with #2 and the earlier route, beside its bound
+   (``span_kernels.backward_cost``); then the microbench's entry point in
+   this process for layers 1 and 2 in float32 and bfloat16 (each row's
+   time beside its bound; both routes' launch counters must move), and
    once as ``python -m scaling_rgcn_training_tpu_torch.bwd_variants
    --inner 3``, which must exit 0;
 10. ``Trainer.fit`` of the MLP and attention heads at the bench shape with
@@ -150,9 +161,10 @@ Tolerances: float32 within rtol 1e-4 and atol 1e-4 * max|ref| (summation
 order differs), bfloat16 inputs within 2e-2 * max|ref|.
 
 The second-to-last line is a JSON object with one entry per kernel (#1's,
-#2's, #3's, #4's, #5's and #7's with ``previous_ms``, their earlier
-routes' times in the same run; #3's, #4's, #5's and #7's with the CUDA
-kernels they launch); the last line is ``{"ok": true, "device": {...}}``.
+#2's, #3's, #4's, #5's, #7's and #8's with ``previous_ms``, their earlier
+routes' times in the same run; #3's, #4's, #5's, #7's and #8's with the
+CUDA kernels they launch); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -612,6 +624,63 @@ def run_fit(graph, compute_dtype, epochs, launches, head="summation",
           flush=True)
     steps = [{k: b[k] - a[k] for k in a} for a, b in zip(per_step, per_step[1:])]
     return {"losses": losses, "step_ms": step, "peak_mib": peak, "steps": steps}
+
+
+def layer_gradients(edges, plain_edges, splits) -> dict:
+    """One float32 train step's per-layer aggregation gradients at the
+    bench shape, before Adam: the fused model's forward and BCE backward
+    give each layer's input x, weight w and upstream g; then dx and dW of
+    that layer from #2 (the fused step's ``span_backward``), from #8's
+    redesign (``span_backward_variant``, base) and from edge mode (#4, #3
+    and #5 through the edge conv's autograd), each against the float64
+    plain version: the signed error (``signed_error``) and the largest
+    |error| over max|ref|. Printed and returned; the f32 tolerance of
+    ``check_close`` holds them."""
+    import torch
+    from scaling_rgcn_training_tpu_torch import bench_shape as bs
+    from scaling_rgcn_training_tpu_torch.ops import bwd_kernels as bk
+    from scaling_rgcn_training_tpu_torch.ops import span_kernels as sk
+    from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import (
+        materialize_weight, relational_aggregate)
+    from scaling_rgcn_training_tpu_torch.train.losses import bce_loss
+
+    _, model = bs.bench_trainer(1, DEV)
+    x, saved = model.embedding, []
+    for i, layer in enumerate((model.rgcn1, model.rgcn2)):
+        w = materialize_weight(layer)
+        agg = relational_aggregate(x, w, edges, "fused")
+        agg.retain_grad()
+        saved.append((x.detach(), w.detach(), agg))
+        x = agg + x @ layer.root + layer.bias
+        x = torch.relu(x) if i == 0 else x
+    bce_loss(x[splits["x_train"]], splits["y_train"]).backward()
+    buckets = bk.plan_buckets(edges.span)
+
+    def edge_mode(xin, w, g):
+        xe, we = xin.clone().requires_grad_(), w.clone().requires_grad_()
+        relational_aggregate(xe, we, plain_edges, "edge",
+                             backend="pallas").backward(g)
+        return xe.grad, we.grad
+
+    out = {}
+    for layer, (xin, w, agg) in zip(("layer1", "layer2"), saved):
+        g = agg.grad.contiguous()
+        refs = sk.span_backward_plain(g.double(), xin.double(), w.double(),
+                                      edges.span)
+        routes = {"fused #2": sk.span_backward(g, xin, w, edges.span),
+                  "#8 base": bk.span_backward_variant(g, xin, w, buckets),
+                  "edge mode": edge_mode(xin, w, g)}
+        for route, got in routes.items():
+            for name, a, ref in zip(("dx", "dW"), got, refs):
+                tag = f"{layer} {name} {route}"
+                check_close(f"gradient {tag}", a, ref, False)
+                rel = float((a.double() - ref).abs().max()) / float(
+                    ref.abs().max())
+                out[tag] = {"signed": signed_error(a, ref), "max_rel": rel}
+                print(f"  gradient {tag}: signed error "
+                      f"{out[tag]['signed']:+.3e}, max |error| / max|ref| "
+                      f"{rel:.3e}", flush=True)
+    return out
 
 
 def require_per_step(tag, steps, least):
@@ -1083,12 +1152,20 @@ def halo_phase(bench_src, bench_dst, bench_typ, splits, fits, launches,
 
 
 def check_bwd_variants(plan, d_in, d_out, dtype, rng, tag, variants=None,
-                       timing=False) -> dict:
-    """Kernel #8's variants against their plain versions on ``plan``;
-    with ``timing``, ``base`` timed beside its plain version, with its
-    bound (the same function as span_backward's)."""
+                       simt=True, timing=False, bucket_rows=None) -> dict:
+    """Kernel #8's variants against their plain versions on ``plan``: the
+    redesign's (``bwd_tc_kernel`` over the bucket plan of ``bucket_rows``
+    rows; two runs must give the same bits of dx and dW) and, with
+    ``simt``, the earlier route's (the same dx bits; its dW adds with
+    shared-memory atomics). With ``timing``, in float32 the redesign's dx
+    bits against #2's (``span_backward``), the peak memory one call of
+    each adds, and the redesign's ``base`` timed beside its plain version,
+    then in turns with #2 and the earlier route; its bound is #2's function's
+    (``span_kernels.backward_cost``)."""
     import torch
+    from scaling_rgcn_training_tpu_torch.bwd_variants import peak_mib
     from scaling_rgcn_training_tpu_torch.ops import bwd_kernels as bk
+    from scaling_rgcn_training_tpu_torch.ops import span_kernels as sk
 
     dev = plan.device
     bf16 = dtype == torch.bfloat16
@@ -1096,43 +1173,70 @@ def check_bwd_variants(plan, d_in, d_out, dtype, rng, tag, variants=None,
         rng.standard_normal(shape) * s, dtype=torch.float32).to(dev, dtype)
     x, g = t(plan.num_src, d_in), t(plan.num_nodes, d_out)
     w = t(plan.num_slots, d_in, d_out, s=0.2)
+    buckets = bk.plan_buckets(plan, bucket_rows or bk.BUCKET_ROWS)
     res = {"err": 0.0}
-    for v in variants or bk.VARIANTS:
-        got = bk.span_backward_variant(g, x, w, plan, v)
-        again = bk.span_backward_variant(g, x, w, plan, v)
-        torch.cuda.synchronize()
-        ref = bk.span_backward_variant_plain(g, x, w, plan, v)
-        for name, a, b, c in zip(("dx", "dW"), got, again, ref):
-            if a is None:
-                continue
-            res["err"] = max(res["err"], check_close(f"{tag} {v} {name}", a,
-                                                     c, bf16))
-            res[f"{v} {name} same bits"] = bool(torch.equal(a, b))
+    routes = [("", lambda v: bk.span_backward_variant(g, x, w, buckets, v),
+               lambda v: bk.span_backward_variant_plain(g, x, w, buckets, v),
+               variants or bk.VARIANTS)]
+    if simt:
+        routes.append((
+            "simt ", lambda v: bk.span_backward_variant_simt(g, x, w, plan, v),
+            lambda v: bk.span_backward_variant_simt_plain(g, x, w, plan, v),
+            bk.SIMT_VARIANTS))
+    for route, kernel, plain, names in routes:
+        for v in names:
+            got, again = kernel(v), kernel(v)
+            torch.cuda.synchronize()
+            for name, a, b, c in zip(("dx", "dW"), got, again, plain(v)):
+                if a is None:
+                    continue
+                res["err"] = max(res["err"], check_close(
+                    f"{tag} {route}{v} {name}", a, c, bf16))
+                res[f"{route}{v} {name} same bits"] = bool(torch.equal(a, b))
     same = {k: v for k, v in res.items() if k.endswith("same bits")}
     print(f"  {tag}: two runs give the same bits: {same}", flush=True)
-    # dx is written once per row by one warp; dW's shared atomics add in
-    # no fixed order
-    if not all(v for k, v in same.items() if " dx " in k):
-        fail(f"{tag}: two runs of #8 give other dx bits")
+    # the redesign adds without atomics; the earlier route's dx is written
+    # once per row by one warp, its dW's shared atomics add in no fixed order
+    if not all(v for k, v in same.items()
+               if not k.startswith("simt ") or " dx " in k):
+        fail(f"{tag}: two runs of #8 give other bits")
     if timing:
-        res.update(time_kernel(
-            lambda: bk.span_backward_variant(g, x, w, plan),
-            lambda: bk.span_backward_variant_plain(g, x, w, plan),
-            reps=20, plain_reps=20))
-        out_bytes = 4 * (plan.num_src * d_in + plan.num_slots * d_in * d_out)
-        res.update(bound(
-            nbytes(g, x, w, plan.bwd_rowptr, plan.bwd_dst, plan.bwd_rel,
-                   plan.bwd_norm) + out_bytes,
-            4 * plan.bwd_dst.numel() * d_in * d_out, dtype_name(dtype)))
+        new = lambda: bk.span_backward_variant(g, x, w, buckets)
+        shipped = lambda: sk.span_backward(g, x, w, plan)
+        earlier = lambda: bk.span_backward_variant_simt(g, x, w, plan)
+        if not bf16:
+            dx_new, dx_2 = new()[0], shipped()[0]
+            res["dx bits of #2"] = bool(torch.equal(dx_new, dx_2))
+            print(f"  {tag}: dx has #2's bits: {res['dx bits of #2']} "
+                  f"({int((dx_new != dx_2).sum())} of {dx_new.numel()} "
+                  f"differ, max {float((dx_new - dx_2).abs().max()):.3e})",
+                  flush=True)
+            del dx_new, dx_2
+        res["peak_mib"] = peak_mib(new)
+        res["shipped_peak_mib"] = peak_mib(shipped)
+        res.update(time_kernel(new, lambda: bk.span_backward_variant_plain(
+            g, x, w, buckets), reps=20, plain_reps=20))
+        # in turns: redesign, #2, earlier route, earlier route, #2, redesign
+        turns = [cuda_time_ms(f, 20) for f in (new, shipped, earlier, earlier,
+                                               shipped, new)]
+        res["turns_ms"] = (turns[0] + turns[5]) / 2
+        res["shipped_ms"] = (turns[1] + turns[4]) / 2
+        res["previous_ms"] = (turns[2] + turns[3]) / 2
+        res.update(bound(*sk.backward_cost(g, x, w, plan)))
+        blocks, rels, tiles = bk.tc_launch_shape(g, w, buckets)
         print(f"  {tag} span_backward_variant (base) {res['ms']:.4f} ms "
-              f"(plain {res['plain_ms']:.4f}, bound {res['bound_ms']:.4f} "
-              f"{res['bound_by']})", flush=True)
+              f"(in turns {res['turns_ms']:.4f}; #2 {res['shipped_ms']:.4f}, "
+              f"earlier route {res['previous_ms']:.4f}; plain "
+              f"{res['plain_ms']:.4f}; bound {res['bound_ms']:.4f} "
+              f"{res['bound_by']}); {blocks} blocks, {rels} relations a "
+              f"pass, stages of {tiles} tiles; peak +{res['peak_mib']:.1f} "
+              f"MiB a call (#2 +{res['shipped_peak_mib']:.1f})", flush=True)
     return res
 
 
 def bwd_variant_phase(small, wide, bench_plan, rng, launches, reset) -> dict:
-    """Phase 9: kernel #8 at edge cases and the bench shape, then the
-    attribution microbench through its entry point."""
+    """Phase 9: kernel #8 (both routes) at edge cases and the bench shape,
+    then the attribution microbench through its entry point."""
     import torch
     from scaling_rgcn_training_tpu_torch import bwd_variants as bwv
     from scaling_rgcn_training_tpu_torch.bench_shape import C, D, HL
@@ -1141,24 +1245,28 @@ def bwd_variant_phase(small, wide, bench_plan, rng, launches, reset) -> dict:
     err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         name = dtype_name(dtype)
+        # 32-row buckets: 16 buckets, the last part-filled, the last three
+        # with no edges
         for d_in, d_out in ((63, 4), (63, 11), (11, 63)):
             err = max(err, check_bwd_variants(
                 small, d_in, d_out, dtype, rng,
-                f"small {d_in}->{d_out} {name}")["err"])
+                f"small {d_in}->{d_out} {name}", bucket_rows=32)["err"])
+        # 128 -> 32 takes 8 relation passes of the redesign at 32 rows
         err = max(err, check_bwd_variants(
-            wide, 128, 32, dtype, rng, f"small 128->32 30 slots {name}")["err"])
+            wide, 128, 32, dtype, rng, f"small 128->32 30 slots {name}",
+            bucket_rows=32)["err"])
     folded = bk.fold_dst(bench_plan, bwv.WINDOW)
     base = None
     for d_in, d_out, layer in ((D, HL, "layer1"), (HL, C, "layer2")):
         for dtype in (torch.float32, torch.bfloat16):
             tag = f"bench {layer} {d_in}->{d_out} {dtype_name(dtype)}"
             r = check_bwd_variants(bench_plan, d_in, d_out, dtype, rng, tag,
-                                   timing=(layer, dtype) == ("layer1",
-                                                             torch.float32))
-            base = r if "ms" in r else base
+                                   timing=True)
+            if (layer, dtype) == ("layer1", torch.float32):
+                base = r
             err = max(err, r["err"], check_bwd_variants(
                 folded, d_in, d_out, dtype, rng, f"{tag} dst folded",
-                variants=("base",))["err"])
+                variants=("base",), simt=False)["err"])
     del folded
 
     rows = {}
@@ -1170,19 +1278,21 @@ def bwd_variant_phase(small, wide, bench_plan, rng, launches, reset) -> dict:
             rows[f"{d_in}->{d_out} {dtype}"] = out["rows"]
     counts = dict(launches)
     print(f"  microbench launches {counts}", flush=True)
-    if not counts["span_backward_variant"]:
-        fail("the microbench launched kernel #8 no time")
+    for kname in ("span_backward_variant", "span_backward_variant_simt"):
+        if not counts[kname]:
+            fail(f"the microbench launched {kname} no time")
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     res = subprocess.run([sys.executable, "-m", f"{PKG}.bwd_variants",
                           "--inner", "3"], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=600)
-    print("\n".join(res.stdout.splitlines()[-11:-1]), flush=True)
+    print("\n".join(res.stdout.splitlines()[-16:-1]), flush=True)
     if res.returncode != 0:
         print(res.stderr[-4000:], file=sys.stderr)
         fail(f"python -m {PKG}.bwd_variants --inner 3 exited {res.returncode}")
     return {"err": err, "base": base, "rows": rows,
-            "launches": counts["span_backward_variant"]}
+            "launches": counts["span_backward_variant"],
+            "simt_launches": counts["span_backward_variant_simt"]}
 
 
 def run_cli(extra, tag, exps=("summation",), root=None, results="results"):
@@ -1738,6 +1848,8 @@ def main() -> None:
     print(f"  edge-mode f32 losses match the fused run's (max rel diff "
           f"{max(abs(a - b) / abs(b) for a, b in zip(edge_l, fused_l)):.2e})",
           flush=True)
+    # where the fused/edge loss gap starts: one step's gradients, per layer
+    grads = layer_gradients(edges, plain_edges, splits)
     reset()
     fits[("attention", None)] = run_fit(non_fused, None, ATT_EPOCHS, launches,
                                         backend="pallas", aggr="attention")
@@ -1861,14 +1973,18 @@ def main() -> None:
             kernels[-1].update(
                 kernels=["span_msg_kernel", "span_msg_sum_kernel",
                          "halo_buf_kernel"], previous_ms=r["previous_ms"])
+    # the redesign's three kernels (bwd_variants.cu bwd_tc_kernel and its
+    # W staging and dW reduce); previous_ms: the earlier route's base
     kernels.append({
         "name": "span_backward_variant", "route": "cuda",
         "source": f"{PKG}/csrc/bwd_variants.cu",
         "replaces": "scripts/bwd_variants.py:76",
         "launches": bwd["launches"], "max_abs_err": bwd["err"],
         **{k: bwd["base"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by")},
-        "library_ms": None})
+                                       "bound_by", "previous_ms")},
+        "library_ms": None,
+        "kernels": ["bwd_wsplit_kernel", "bwd_tc_kernel",
+                    "bwd_tc_reduce_kernel"]})
     print(json.dumps({
         "card": card,
         "bench_shape_ms": {
@@ -1891,7 +2007,8 @@ def main() -> None:
         "launches": {"fused": fused_launches, "edge": edge_launches,
                      "attention": att_launches, **halo["counts"],
                      **head_launches},
-        "bwd_variants": bwd["rows"], "checkpoint": ckpt}),
+        "bwd_variants": bwd["rows"], "layer_gradients": grads,
+        "checkpoint": ckpt}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,15 +9,25 @@ Counterpart of the JAX package's ``scripts/bwd_variants.py`` (its
 ``--d-out``, ``--inner`` and ``--only``), over the bench shape of
 ``bench_shape.py`` (N 200,000, E 4,000,000, 91 relation slots, uniform
 random edges from seed 0, mean norms); layer 1 is 64 -> 16 (the default),
-layer 2 16 -> 8. Rows, each the TPU variant of the same name:
+layer 2 16 -> 8. Rows, each the TPU variant of the same name where
+there is one:
 
-- ``base``: kernel #8 (``ops/bwd_kernels.py``), dx and dW in one pass;
-- ``nodw``: #8, dx only; ``nodx``: #8, dW only;
-- ``statrmw``: #8 with every edge's dW added into its relation pass's
-  first slot (wrong math: the cost of indexing dW per relation);
-- ``noonehot``: #8 over the plan with ``dst`` folded into a 4,096-row
-  window that stays in L2 (the cost of the random ``g_out`` gather; the
-  TPU variant dropped the one-hot matrix that is its gather);
+- ``base``: kernel #8's redesign (``ops/bwd_kernels.py``
+  ``span_backward_variant``, ``bwd_tc_kernel`` on the tensor cores over
+  the bucket plan, ``--bucket-rows`` src rows a bucket), dx and dW in one
+  pass;
+- ``nodw``: the redesign, dx only; ``nodx``: dW only; ``tf32``: one TF32
+  product per multiply-add instead of the float32 split (wrong bits: the
+  cost of the split; bfloat16 runs ``base``);
+- ``noonehot``: the redesign's ``base`` over the plan with ``dst`` folded
+  into a 4,096-row window that stays in L2 (the cost of the random
+  ``g_out`` gather; the TPU variant dropped the one-hot matrix that is its
+  gather);
+- ``simt``: #8's earlier route on the CUDA cores
+  (``span_backward_variant_simt``, dW by shared-memory atomics), dx and dW;
+  ``statrmw``: the earlier route with every edge's dW added into its
+  relation pass's first slot (wrong math: the cost of indexing dW per
+  relation);
 - ``fwdrev``: the ``span_rows`` kernel (``span_forward_rows``) over the
   backward plan with ``W^T`` (the dx half of #2's earlier route alone);
 - ``shipped``: ``span_backward`` (#2: dx messages and dW partials on the
@@ -33,13 +43,20 @@ within 2e-2 * max|ref|; a mismatch exits non-zero), then timed with CUDA
 events over ``--inner`` calls, best of 3. Printed per row: ms, the bound
 (the larger of the bytes each input read once and each output written once
 over 3.35 TB/s and the operations over the peak of the units that run
-them, 67 TFLOP/s float32 on the CUDA cores, 495 TFLOP/s TF32 (``shipped``
-and ``fwdnorm`` in float32: ``span_kernels.backward_cost`` and
-``forward_cost``, three TF32 products per multiply-add) and 989 bfloat16
-on the tensor cores: an H100 SXM) and the
-largest difference
-from the plain version; a JSON line last. ``--device cpu`` runs the plain
-versions and measures no time.
+them, an H100 SXM's: 67 TFLOP/s float32 on the CUDA cores (``simt``,
+``statrmw``, ``fwdrev``, ``rows``), 495 TFLOP/s TF32 (the redesign's rows,
+``shipped`` and ``fwdnorm`` in float32: ``span_kernels.backward_cost`` and
+``forward_cost``, three TF32 products per multiply-add, one for ``tf32``;
+``nodw`` and ``nodx`` one half of it) and 989 bfloat16 on the tensor
+cores), the largest difference from the plain version, and for ``base``
+and ``shipped`` the peak device memory one call adds
+(``torch.cuda.max_memory_allocated``) and the row's ms split over the
+kernels a call launches by their shares of its device time
+(``torch.profiler``); with ``--phases``, under each row
+of the redesign the cycles a stage of each phase of its kernel (warp 0's
+``clock64`` in a build with ``-DBWD_TC_PHASES``,
+``ops/bwd_kernels.py`` ``tc_phases``); a JSON line last. ``--device cpu``
+runs the plain versions and measures no time.
 
 Not carried over from the TPU script: ``hint``; ``mxurep``, ``mxuall``;
 ``minimal``, ``minimal16``, ``minsplit``; ``overwrite``, ``mintrans``;
@@ -57,8 +74,10 @@ from typing import Dict, List, Optional
 
 import torch
 
-ROWS = ("base", "nodw", "nodx", "statrmw", "noonehot", "fwdrev", "shipped",
-        "rows", "fwdnorm", "floor")
+ROWS = ("base", "nodw", "nodx", "tf32", "noonehot", "simt", "statrmw",
+        "fwdrev", "shipped", "rows", "fwdnorm", "floor")
+# rows of the redesign, and of the earlier route
+TC_ROWS = ("base", "nodw", "nodx", "tf32", "noonehot")
 # H100 SXM: HBM bytes/s; peak operations/s of the units (CUDA-core f32,
 # dense TF32 and bf16 tensor cores)
 HBM_RATE = 3.35e12
@@ -109,11 +128,13 @@ def time_ms(fn, inner: int) -> float:
     return best
 
 
-def row_specs(plan, g, x, w, names) -> Dict[str, tuple]:
-    """``name -> (kernel call, plain call, bytes, operations, unit)``: the
-    calls return tuples of outputs; bytes and operations are those of the
-    row's function on these inputs, the operations at the peak of
-    ``unit`` (``PEAK_RATE``: the input type's, or ``tf32``)."""
+def row_specs(plan, g, x, w, names, bucket_rows: int):
+    """``(specs, phases)``: ``specs`` maps a row's name to ``(kernel call,
+    plain call, bytes, operations, unit)``, the calls returning tuples of
+    outputs, bytes and operations those of the row's function on these
+    inputs, the operations at the peak of ``unit`` (``PEAK_RATE``: the
+    input type's, or ``tf32``); ``phases`` maps each of the redesign's rows
+    to a call of ``bwd_kernels.tc_phases`` on its inputs."""
     from scaling_rgcn_training_tpu_torch.ops import bwd_kernels as bk
     from scaling_rgcn_training_tpu_torch.ops import span_kernels as sk
 
@@ -124,23 +145,37 @@ def row_specs(plan, g, x, w, names) -> Dict[str, tuple]:
     dxb, dwb = 4 * n_src * d_in, 4 * slots * d_in * d_out
     half = 2 * e * d_in * d_out
     unit = str(x.dtype)[6:]
-    specs = {}
+    specs, phases = {}, {}
 
-    def calls(p, v):
+    def tc(p, v, name=None):
+        phases[name or v] = lambda: bk.tc_phases(g, x, w, p, v)
         return (lambda: bk.span_backward_variant(g, x, w, p, v),
                 lambda: bk.span_backward_variant_plain(g, x, w, p, v))
 
-    for v in bk.VARIANTS:
-        specs[v] = calls(plan, v)
-    specs["base"] += (gb + xb + wb + csr + dxb + dwb, 2 * half, unit)
-    specs["statrmw"] += specs["base"][2:]
-    specs["nodw"] += (gb + wb + csr + dxb, half, unit)
-    specs["nodx"] += (gb + xb + csr + dwb, half, unit)
+    if set(names) & {"base", "nodw", "nodx", "tf32"}:
+        buckets = bk.plan_buckets(plan, bucket_rows)
+        n_bytes, ops, tc_unit = sk.backward_cost(g, x, w, plan)
+        specs["base"] = tc(buckets, "base") + (n_bytes, ops, tc_unit)
+        specs["nodw"] = tc(buckets, "nodw") + (n_bytes - xb - dwb, ops // 2,
+                                               tc_unit)
+        specs["nodx"] = tc(buckets, "nodx") + (n_bytes - dxb, ops // 2,
+                                               tc_unit)
+        specs["tf32"] = tc(buckets, "tf32") + (
+            (n_bytes, ops // 3, "tf32") if x.dtype == torch.float32
+            else (n_bytes, ops, tc_unit))
     if "noonehot" in names:
         folded = bk.fold_dst(plan, WINDOW)
-        specs["noonehot"] = calls(folded, "base") + (
-            gb * min(n, WINDOW) / max(n, 1) + xb + wb + csr + dxb + dwb,
-            2 * half, unit)
+        n_bytes, ops, tc_unit = sk.backward_cost(g, x, w, folded)
+        specs["noonehot"] = tc(bk.plan_buckets(folded, bucket_rows), "base",
+                               "noonehot") + (
+            n_bytes - gb * (1 - min(n, WINDOW) / max(n, 1)), ops, tc_unit)
+
+    def simt(v):
+        return (lambda: bk.span_backward_variant_simt(g, x, w, plan, v),
+                lambda: bk.span_backward_variant_simt_plain(g, x, w, plan, v),
+                gb + xb + wb + csr + dxb + dwb, 2 * half, unit)
+
+    specs["simt"], specs["statrmw"] = simt("base"), simt("statrmw")
     rev, wt = bk.reverse_plan(plan), w.transpose(1, 2).contiguous()
     specs["fwdrev"] = (lambda: (sk.span_forward_rows(g, wt, rev),),
                        lambda: (sk.span_forward_plain(g, wt, rev),),
@@ -149,20 +184,59 @@ def row_specs(plan, g, x, w, names) -> Dict[str, tuple]:
                         lambda: sk.span_backward_plain(g, x, w, plan),
                         *sk.backward_cost(g, x, w, plan))
     specs["rows"] = (lambda: sk.span_backward_rows(g, x, w, plan),
-                     specs["shipped"][1], *specs["base"][2:])
+                     specs["shipped"][1], *specs["simt"][2:])
     specs["fwdnorm"] = (lambda: (sk.span_forward(x, w, plan),),
                         lambda: (sk.span_forward_plain(x, w, plan),),
                         *sk.forward_cost(x, w, plan))
     specs["floor"] = ((lambda: bk.floor_launch(g.device)) if g.is_cuda
                       else (lambda: None), None, 0, 0, unit)
-    return {k: specs[k] for k in names}
+    return {k: specs[k] for k in names}, phases
+
+
+def kernel_shares(fn, calls: int = 5) -> Dict[str, float]:
+    """Each CUDA kernel's share of the device time ``fn``'s calls spend in
+    the kernels they launch, by kernel name (``torch.profiler`` over
+    ``calls`` calls after one). Shares, not times: a profile may keep
+    fewer calls' events than it ran."""
+    from scaling_rgcn_training_tpu_torch.profile_step import _device_time
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: Dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("<")[0].split("(")[0]
+            out[name] = out.get(name, 0.0) + _device_time(e)
+    total = sum(out.values()) or 1.0
+    return {k: v / total for k, v in out.items()}
+
+
+def peak_mib(fn) -> float:
+    """Device memory one call of ``fn`` adds at its peak, MiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    return peak / 2**20
 
 
 def run_rows(plan, d_in: int, d_out: int, dtype: torch.dtype, inner: int,
-             names=ROWS, seed: int = 0) -> Dict[str, dict]:
+             names=ROWS, seed: int = 0, bucket_rows: Optional[int] = None,
+             phases: bool = False) -> Dict[str, dict]:
     """Every named row on ``plan``'s device: its check against the plain
-    version, its time (None on the CPU) and its bound; printed and
-    returned. Raises SystemExit when a row disagrees."""
+    version, its time (None on the CPU) and its bound, and with
+    ``phases`` (on the card) the redesign's rows' cycles a stage in each
+    phase of its kernel; printed and returned. Raises SystemExit when a row
+    disagrees."""
     dev = plan.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     g = torch.randn(plan.num_nodes, d_out, generator=gen, device=dev).to(dtype)
@@ -171,8 +245,11 @@ def run_rows(plan, d_in: int, d_out: int, dtype: torch.dtype, inner: int,
          * 0.2).to(dtype)
     on_card = dev.type == "cuda"
     results, bad = {}, []
-    for name, (kernel, plain, n_bytes, ops, unit) in row_specs(
-            plan, g, x, w, names).items():
+    from scaling_rgcn_training_tpu_torch.ops.bwd_kernels import BUCKET_ROWS
+
+    specs, phase_calls = row_specs(plan, g, x, w, names,
+                                   bucket_rows or BUCKET_ROWS)
+    for name, (kernel, plain, n_bytes, ops, unit) in specs.items():
         err = None
         if plain is not None:
             err = max_error(kernel(), plain(), dtype)
@@ -180,12 +257,28 @@ def run_rows(plan, d_in: int, d_out: int, dtype: torch.dtype, inner: int,
                 bad.append(name)
         ms = time_ms(kernel, inner) if on_card else None
         res = {"ms": ms, **bound(n_bytes, ops, unit), "max_abs_err": err}
+        if on_card and name in ("base", "shipped"):
+            res["peak_mib"] = peak_mib(kernel)
+            res["kernels_ms"] = {k: v * ms for k, v in
+                                 kernel_shares(kernel).items()}
         results[name] = res
         shown = "not measured" if ms is None else f"{ms:9.4f} ms"
         check = "" if plain is None else \
             "  MISMATCH" if err is None else f"  max_abs_err {err:.3e}"
+        peak = f"  peak +{res['peak_mib']:.1f} MiB" if "peak_mib" in res else ""
         print(f"{name:10s} {shown}  bound {res['bound_ms']:.4f} ms "
-              f"({res['bound_by']}){check}", flush=True)
+              f"({res['bound_by']}){check}{peak}", flush=True)
+        if "kernels_ms" in res:
+            print("    kernels (their shares of the row's ms): " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in res["kernels_ms"].items()),
+                flush=True)
+        if phases and on_card and name in phase_calls:
+            res["phases"] = ph = phase_calls[name]()
+            print(f"    {ph['stages']:.0f} stages and {ph['bucket_passes']:.0f}"
+                  f" bucket passes a block, {ph['cycles']:.4g} cycles; "
+                  "cycles a stage, warp 0:", flush=True)
+            for phase, c in ph["cycles_per_stage"].items():
+                print(f"      {phase:24s} {c:8.0f}", flush=True)
     if bad:
         raise SystemExit(f"bwd_variants: {bad} disagree with their plain "
                          "versions")
@@ -217,6 +310,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ap.add_argument("--nodes", type=int, default=bs.N)
     ap.add_argument("--edges", type=int, default=bs.E)
     ap.add_argument("--slots", type=int, default=bs.SLOTS)
+    ap.add_argument("--phases", action="store_true",
+                    help="also time the phases of the redesign's kernel "
+                    "(its -DBWD_TC_PHASES build; on the card)")
+    ap.add_argument("--bucket-rows", type=int, default=None,
+                    help="src rows a bucket of the redesign's plan "
+                    "(default ops/bwd_kernels.py BUCKET_ROWS)")
     args = ap.parse_args(argv)
     names = [v for v in args.only.split(",") if v] or list(ROWS)
     unknown = set(names) - set(ROWS)
@@ -240,11 +339,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
           f"d_in={args.d_in} d_out={args.d_out} {args.dtype} "
           f"inner={args.inner} on {device}"
           + ("" if card else " (times not measured)"), flush=True)
-    rows = run_rows(plan, args.d_in, args.d_out, dtype, args.inner, names)
+    from scaling_rgcn_training_tpu_torch.ops.bwd_kernels import BUCKET_ROWS
+
+    bucket_rows = args.bucket_rows or BUCKET_ROWS
+    rows = run_rows(plan, args.d_in, args.d_out, dtype, args.inner, names,
+                    bucket_rows=bucket_rows, phases=args.phases)
     out = {"card": card, "device": str(device),
            "shape": {"nodes": args.nodes, "edges": args.edges,
                      "slots": args.slots, "d_in": args.d_in,
-                     "d_out": args.d_out, "dtype": args.dtype},
+                     "d_out": args.d_out, "dtype": args.dtype,
+                     "bucket_rows": bucket_rows},
            "inner": args.inner, "rows": rows}
     print(json.dumps(out), flush=True)
     return out

@@ -6,7 +6,9 @@ Each source ``csrc/<name>.cu`` has a plain C interface and is compiled by
 shared headers ``csrc/*.cuh`` and the flags, so an edited source or header
 is rebuilt), then loaded with ``ctypes``.
 :func:`build` starts one ``nvcc`` per missing library, all at once, and
-waits for all of them; a failed build raises. Nothing is built when a
+waits for all of them; a failed build raises. A source may also be built
+with one preprocessor ``define`` into a library of its own (the
+microbench's instrumented kernel #8, ``BWD_TC_PHASES``). Nothing is built when a
 module is imported: the first kernel launch builds what it needs.
 
 ``LAUNCHES`` counts kernel launches by wrapper name: a wrapper adds one
@@ -40,14 +42,14 @@ LAUNCHES: Dict[str, int] = {
     "grouped_drhs_simt": 0,
     "halo_exchange": 0, "fused_halo_aggregate": 0,
     "fused_halo_aggregate_rows": 0,
-    "span_backward_variant": 0}
+    "span_backward_variant": 0, "span_backward_variant_simt": 0}
 
 # ptxas report (registers, shared memory, spills) of each source built by
 # this process
 build_logs: Dict[str, str] = {}
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[tuple, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
@@ -63,18 +65,24 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def library_path(name: str) -> Path:
+def _flags(define: str):
+    return NVCC_FLAGS + ((f"-D{define}",) if define else ())
+
+
+def library_path(name: str, define: str = "") -> Path:
     text = b"".join(p.read_bytes() for p in
                     [_CSRC / f"{name}.cu", *sorted(_CSRC.glob("*.cuh"))])
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(text + " ".join(_flags(define)).encode()
                             ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    tag = f"_{define.lower()}" if define else ""
+    return BUILD_DIR / f"lib{name}{tag}_{digest}.so"
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
-    """Compile the named sources that are not built yet, one ``nvcc`` each,
-    in parallel; return every library's path. Raises when a build fails."""
-    paths = {n: library_path(n) for n in names}
+def build(names: Iterable[str] = SOURCES, define: str = "") -> Dict[str, Path]:
+    """Compile the named sources that are not built yet (with ``define``,
+    if given), one ``nvcc`` each, in parallel; return every library's
+    path. Raises when a build fails."""
+    paths = {n: library_path(n, define) for n in names}
     todo = {n: p for n, p in paths.items() if not p.exists()}
     if not todo:
         return paths
@@ -84,7 +92,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     for n, so in todo.items():
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         procs[n] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{n}.cu")],
+            [nvcc, *_flags(define), "-o", str(tmp), str(_CSRC / f"{n}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     failed = []
     for n, (tmp, proc) in procs.items():
@@ -93,23 +101,25 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
             failed.append(f"nvcc failed on {n}.cu:\n{out}{err}")
             continue
         os.replace(tmp, todo[n])
-        build_logs[n] = err
+        build_logs[f"{n}:{define}" if define else n] = err
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths
 
 
-def load(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built at first use;
-    ``declare`` sets its functions' ``argtypes`` and ``restype``."""
+def load(name: str, declare: Callable[[ctypes.CDLL], None],
+         define: str = "") -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built with ``define``, if
+    given), built at first use; ``declare`` sets its functions'
+    ``argtypes`` and ``restype``."""
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get((name, define))
         if lib is None:
-            lib = ctypes.CDLL(str(build([name])[name]))
+            lib = ctypes.CDLL(str(build([name], define)[name]))
             lib.kernel_error_string.argtypes = [ctypes.c_int]
             lib.kernel_error_string.restype = ctypes.c_char_p
             declare(lib)
-            _libs[name] = lib
+            _libs[(name, define)] = lib
         return lib
 
 

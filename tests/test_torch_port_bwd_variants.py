@@ -1,15 +1,17 @@
-"""Kernel #8's plain versions and the attribution microbench, on the CPU.
+"""Kernel #8's plain versions, its bucket plan and the attribution
+microbench, on the CPU.
 
-The variants' plain versions (``ops/bwd_kernels.py``) against the JAX
-package's one-pass backward span kernel ``rel_span_backward_scatter``, run
-in Pallas TPU interpret mode as ``tests/test_span_kernels.py`` runs it;
-the TPU microbench script itself builds a 4M-edge graph when imported, so
-the kernel it times is reached through the package. Same inputs from one
-numpy seed, empty relations and rows without edges. Tolerances: float32
-rtol 1e-5 with atol 1e-5 * max|ref| (summation order differs); bfloat16
-inputs rtol and atol 3e-2 * max|ref|, as in
-``test_torch_port_span_kernels.py`` (the TPU kernel rounds its products to
-bf16, the port sums in f32).
+The variants' plain versions (``ops/bwd_kernels.py``, both routes) against
+the JAX package's one-pass backward span kernel
+``rel_span_backward_scatter``, run in Pallas TPU interpret mode as
+``tests/test_span_kernels.py`` runs it; the TPU microbench script itself
+builds a 4M-edge graph when imported, so the kernel it times is reached
+through the package. Same inputs from one numpy seed, empty relations and
+rows without edges. Tolerances: float32 rtol 1e-5 with atol 1e-5 *
+max|ref| (summation order differs); bfloat16 inputs rtol and atol 3e-2 *
+max|ref|, as in ``test_torch_port_span_kernels.py`` (the TPU kernel rounds
+its products to bf16, the port sums in f32); the ``tf32`` variant's
+rounded operands, the TF32 bound below.
 """
 
 import json
@@ -72,12 +74,14 @@ def _close(got, ref, rtol, atol):
 @pytest.mark.parametrize("dtype,rtol,atol", DTYPES)
 @pytest.mark.parametrize("d_in,d_out", SHAPES)
 @pytest.mark.parametrize("variant", ["base", "nodw", "nodx", "statrmw",
-                                     "noonehot", "fwdrev"])
+                                     "noonehot", "fwdrev", "simt"])
 def test_variant_plain_matches_jax(variant, d_in, d_out, dtype, rtol, atol):
-    """Each row's plain version against the JAX kernel: ``nodw``/``nodx``
-    the one half, ``statrmw`` dx and each relation pass's dW summed into
-    its first slot, ``noonehot`` ``base`` on edges with ``dst`` folded into
-    a window, ``fwdrev`` the forward over the reversed plan with W^T."""
+    """Each row's plain version against the JAX kernel: the redesign's
+    ``base`` and ``nodw``/``nodx`` (the one half) over the bucket plan,
+    the earlier route's ``simt`` (its base) and ``statrmw`` (dx and each
+    relation pass's dW summed into its first slot), ``noonehot`` ``base``
+    on edges with ``dst`` folded into a window, ``fwdrev`` the forward over
+    the reversed plan with W^T."""
     n, e, slots = 300, 2000, 7
     rng = np.random.default_rng(d_in * 100 + d_out)
     src, dst, rel, norm = _graph(rng, n, e, slots)
@@ -97,8 +101,12 @@ def test_variant_plain_matches_jax(variant, d_in, d_out, dtype, rtol, atol):
         _close(sk.span_forward_rows(tt(g), wt, bk.reverse_plan(plan)),
                dx_ref, rtol, atol)
         return
-    v = "base" if variant == "noonehot" else variant
-    dx, dw = bk.span_backward_variant(tt(g), tt(x), tt(w), plan, v)
+    v = "base" if variant in ("noonehot", "simt") else variant
+    if variant in ("simt", "statrmw"):
+        dx, dw = bk.span_backward_variant_simt(tt(g), tt(x), tt(w), plan, v)
+    else:
+        dx, dw = bk.span_backward_variant(tt(g), tt(x), tt(w),
+                                          bk.plan_buckets(plan, 32), v)
     assert (dx is None) == (v == "nodx") and (dw is None) == (v == "nodw")
     if dx is not None:
         assert dx.shape == (n, d_in)
@@ -116,6 +124,94 @@ def test_variant_plain_matches_jax(variant, d_in, d_out, dtype, rtol, atol):
         _close(dw, dw_ref, rtol, atol)
         if v != "statrmw":
             assert not dw[1::3].any()              # relations without edges
+
+
+@pytest.mark.parametrize("d_in,d_out", SHAPES)
+def test_tf32_plain_matches_jax(d_in, d_out):
+    """The ``tf32`` variant's plain version (float32 inputs, the operands
+    ``norm * g``, ``x`` and ``w`` rounded to TF32, summed in float32)
+    against the JAX kernel in float32. TF32 keeps 10 mantissa bits, so a
+    rounded operand is off by at most 2^-11 of itself and a product of two
+    by at most 2^-10 + 2^-22 of itself: every element stays within 1.01 *
+    2^-10 of the sum of its terms' magnitudes (the same sums over |norm
+    g|, |x| and |w|), plus the float32 tolerance above for the order of
+    the sums."""
+    n, e, slots = 300, 2000, 7
+    rng = np.random.default_rng(d_in * 100 + d_out)
+    src, dst, rel, norm = _graph(rng, n, e, slots)
+    x = rng.standard_normal((n, d_in)).astype(np.float32)
+    w = (rng.standard_normal((slots, d_in, d_out)) * 0.2).astype(np.float32)
+    g = rng.standard_normal((n, d_out)).astype(np.float32)
+    plan = sk.plan_span(src, dst, rel, norm, n, slots)
+    refs = _jax_backward(src, dst, rel, norm, n, slots, x, w, g, "float32")
+    got = bk.span_backward_variant(torch.tensor(g), torch.tensor(x),
+                                   torch.tensor(w), bk.plan_buckets(plan),
+                                   "tf32")
+    mags = [t.numpy() for t in sk.span_backward_plain(
+        torch.tensor(np.abs(g), dtype=torch.float64),
+        torch.tensor(np.abs(x), dtype=torch.float64),
+        torch.tensor(np.abs(w), dtype=torch.float64), plan)]
+    for a, ref, mag in zip(got, refs, mags):
+        err = np.abs(a.numpy().astype(np.float64) - ref)
+        limit = 1.01 * 2.0**-10 * mag + 1e-5 * np.abs(ref).max()
+        assert (err <= limit).all(), float((err - limit).max())
+        # the rounding shows: not the float32 version
+        assert err.max() > 1e-6 * np.abs(ref).max()
+
+
+def test_tf32_round():
+    """``tf32_round`` keeps 10 mantissa bits, rounds to nearest with ties
+    to even, and keeps infinities, NaNs and signed zeros."""
+    rng = np.random.default_rng(5)
+    v = (rng.standard_normal(10000) * 10.0 ** rng.integers(-30, 30, 10000)
+         ).astype(np.float32)
+    r = bk.tf32_round(torch.tensor(v)).numpy()
+    assert (r.view(np.int32) & 0x1FFF == 0).all()
+    assert (np.abs(r.astype(np.float64) - v) <= 2.0**-11 * np.abs(v)).all()
+    one = np.float32(1.0)
+    ties = np.array([1 + 2**-11, 1 + 3 * 2**-11, -(1 + 2**-11)], np.float32)
+    assert bk.tf32_round(torch.tensor(ties)).tolist() == [
+        one, 1 + 2 * 2**-10, -one]
+    special = torch.tensor([np.inf, -np.inf, np.nan, -0.0,
+                            np.finfo(np.float32).max],
+                           dtype=torch.float32)
+    r = bk.tf32_round(special)
+    assert r[0] == np.inf and r[1] == -np.inf and torch.isnan(r[2])
+    assert str(r[3].item()) == "-0.0" and r[4] == np.inf
+
+
+@pytest.mark.parametrize("bucket_rows", [1, 7, 64, 512])
+def test_plan_buckets(bucket_rows):
+    """The bucket plan is a permutation of the plan's edges; its offsets
+    bound each (bucket, relation) segment, whose edges are that bucket's
+    and relation's, sorted by src; and every src row meets its edges in
+    the src-sorted CSR's order (relation, then the CSR's ties)."""
+    rng = np.random.default_rng(bucket_rows)
+    n, e, slots = 130, 1500, 5
+    src, dst, rel, norm = _graph(rng, n, e, slots)
+    norm = np.arange(e, dtype=np.float32)      # tells the edges apart
+    plan = sk.plan_span(src, dst, rel, norm, n, slots)
+    bp = bk.plan_buckets(plan, bucket_rows)
+    nb = -(-n // bucket_rows)
+    assert bp.num_buckets == nb and bp.bucket_rows == bucket_rows
+    assert bp.row.dtype == torch.int16 and bp.dst.dtype == torch.int32
+    seg = bp.seg_ptr.numpy()
+    assert seg.shape == (nb * slots + 1,) and seg[0] == 0 and seg[-1] == e
+    assert (np.diff(seg) >= 0).all()
+    ids = bp.norm.numpy().astype(np.int64)
+    assert np.array_equal(np.sort(ids), np.arange(e))
+    b_src = np.repeat(np.arange(nb * slots) // slots, np.diff(seg)) \
+        * bucket_rows + bp.row.numpy()
+    b_rel = np.repeat(np.arange(nb * slots) % slots, np.diff(seg))
+    assert np.array_equal(b_src, src[ids]) and np.array_equal(b_rel, rel[ids])
+    assert np.array_equal(bp.dst.numpy(), dst[ids])
+    assert (bp.row.numpy() >= 0).all() and (bp.row.numpy() < bucket_rows).all()
+    for s_lo, s_hi in zip(seg[:-1], seg[1:]):
+        assert (np.diff(b_src[s_lo:s_hi]) >= 0).all()
+    csr_src, _, _, csr_norm = bk.plan_edge_arrays(plan)
+    for v in range(n):
+        assert np.array_equal(ids[b_src == v],
+                              csr_norm[csr_src == v].astype(np.int64))
 
 
 @pytest.mark.parametrize("variant,dtype,d_in,d_out,slots,expected", [
@@ -166,18 +262,28 @@ def test_plans_of_the_rows():
 def test_cpu_calls_launch_nothing_and_bad_calls_raise():
     rng = np.random.default_rng(7)
     plan = sk.plan_span(*_graph(rng, 30, 100, 4), 30, 4)
+    buckets = bk.plan_buckets(plan, 8)
     x, w, g = torch.randn(30, 5), torch.randn(4, 5, 3), torch.randn(30, 3)
     before = dict(bk.LAUNCHES)
     for v in bk.VARIANTS:
-        bk.span_backward_variant(g, x, w, plan, v)
+        bk.span_backward_variant(g, x, w, buckets, v)
+    for v in bk.SIMT_VARIANTS:
+        bk.span_backward_variant_simt(g, x, w, plan, v)
     assert bk.LAUNCHES == before
     with pytest.raises(ValueError):
-        bk.span_backward_variant(g, x, w, plan, "hint")
+        bk.span_backward_variant(g, x, w, buckets, "statrmw")
+    with pytest.raises(ValueError):
+        bk.span_backward_variant_simt(g, x, w, plan, "tf32")
     with pytest.raises(ValueError):
         bk.span_backward_variant(g.to("meta"), x.to("meta"), w.to("meta"),
-                                 plan)
+                                 buckets)
     with pytest.raises(ValueError):
-        bk.span_backward_variant(g[:, :2], x, w, plan)
+        bk.span_backward_variant_simt(g.to("meta"), x.to("meta"),
+                                      w.to("meta"), plan)
+    with pytest.raises(ValueError):
+        bk.span_backward_variant(g[:, :2], x, w, buckets)
+    with pytest.raises(ValueError):
+        bk.plan_buckets(plan, 2**15 + 1)
 
 
 def test_entry_point_prints_every_row_on_cpu(capsys):

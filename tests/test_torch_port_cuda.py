@@ -657,9 +657,10 @@ def test_cuda_send_transpose_matches_index_add(s_n, d, dtype):
                                         (128, 32)])
 @pytest.mark.parametrize("variant", ["base", "nodw", "nodx", "statrmw"])
 def test_cuda_bwd_variant_matches_plain(variant, d_in, d_out, dtype):
-    """Kernel #8's variants against their plain versions, with empty
-    relations, rows without edges and (128 -> 32, 30 slots) several
-    relation passes; on a plan with ``dst`` folded into a window too."""
+    """Kernel #8's earlier route (``span_backward_variant_simt``) against
+    its plain versions, with empty relations, rows without edges and
+    (128 -> 32, 30 slots) several relation passes; on a plan with ``dst``
+    folded into a window too."""
     from scaling_rgcn_training_tpu_torch.ops import bwd_kernels as bk
 
     if not torch.cuda.is_available():
@@ -673,16 +674,57 @@ def test_cuda_bwd_variant_matches_plain(variant, d_in, d_out, dtype):
     w = (torch.randn(slots, d_in, d_out, device="cuda") * 0.2).to(dt)
     g = torch.randn(n, d_out, device="cuda").to(dt)
     for p in (plan, bk.fold_dst(plan, 37)):
-        before = cuda_build.LAUNCHES["span_backward_variant"]
-        got = bk.span_backward_variant(g, x, w, p, variant)
+        before = cuda_build.LAUNCHES["span_backward_variant_simt"]
+        got = bk.span_backward_variant_simt(g, x, w, p, variant)
         torch.cuda.synchronize()
-        assert cuda_build.LAUNCHES["span_backward_variant"] == before + 1
-        ref = bk.span_backward_variant_plain(g, x, w, p, variant)
+        assert cuda_build.LAUNCHES["span_backward_variant_simt"] == before + 1
+        ref = bk.span_backward_variant_simt_plain(g, x, w, p, variant)
         for a, b in zip(got, ref):
             assert (a is None) == (b is None)
             if a is not None:
                 assert a.dtype == torch.float32
                 torch.testing.assert_close(a, b, **_tol(dtype, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d_in,d_out,bucket_rows", [
+    (63, 4, 64), (11, 63, 64), (16, 8, 128), (64, 16, 64), (64, 16, 7),
+    (128, 32, 32)])
+@pytest.mark.parametrize("variant", ["base", "nodw", "nodx", "tf32"])
+def test_cuda_bwd_tc_matches_plain(variant, d_in, d_out, bucket_rows, dtype):
+    """Kernel #8's redesign (``span_backward_variant``, ``bwd_tc_kernel``)
+    against its plain versions over buckets of several sizes (7 rows: more
+    buckets than blocks; 128 -> 32 over 32-row buckets: several relation
+    passes), with empty relations and rows without edges, on a plan with
+    ``dst`` folded into a window too; two runs give the same bits of dx and
+    dW, and each call moves its launch counter by one."""
+    from scaling_rgcn_training_tpu_torch.ops import bwd_kernels as bk
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(d_in + 7 * d_out + bucket_rows)
+    n, e, slots = 500, 4000, 30
+    src, dst, rel, norm = _graph(rng, n, e, slots)
+    plan = sk.plan_span(src, dst, rel, norm, n, slots, device="cuda")
+    dt = getattr(torch, dtype)
+    x = torch.randn(n, d_in, device="cuda").to(dt)
+    w = (torch.randn(slots, d_in, d_out, device="cuda") * 0.2).to(dt)
+    g = torch.randn(n, d_out, device="cuda").to(dt)
+    for p in (plan, bk.fold_dst(plan, 37)):
+        buckets = bk.plan_buckets(p, bucket_rows)
+        before = cuda_build.LAUNCHES["span_backward_variant"]
+        got = bk.span_backward_variant(g, x, w, buckets, variant)
+        again = bk.span_backward_variant(g, x, w, buckets, variant)
+        torch.cuda.synchronize()
+        assert cuda_build.LAUNCHES["span_backward_variant"] == before + 2
+        ref = bk.span_backward_variant_plain(g, x, w, buckets, variant)
+        for a, b, c in zip(got, again, ref):
+            assert (a is None) == (c is None)
+            if a is not None:
+                assert a.dtype == torch.float32
+                assert torch.equal(a, b)
+                torch.testing.assert_close(a, c, **_tol(dtype, c))
 
 
 @pytest.mark.cuda
