@@ -155,7 +155,20 @@ Phases, in order; any failure exits non-zero:
    true -plan_cache P`` (a finite ``[N, 63]`` ``.npy``, entries in P);
    and the native and Python parses of a 200,000-entity graph at degree 8
    (the same graph; their seconds), which fails if the native parser did
-   not run.
+   not run;
+12. halo training across processes at the bench shape
+   (``multihost_sim``'s loop, 10 steps): 2 processes x 2 shards sharing the
+   card over gloo, the library exchange, #6 and #7 in float32 and #7 with
+   bfloat16 streams, #6 and #7 reading the other process's rows through
+   CUDA IPC; losses against the single-process 4-shard run of the same
+   mode on the card (float32 rtol 1e-5 and atol 1e-6, bfloat16 rtol 5e-3
+   and atol 5e-3 of the first loss), each child's
+   launches of its mode's kernels on every step, #6, #7 and the library
+   exchange across processes against their plain versions at S = 2 and 4
+   (a peer that ships no rows), ms/step and peak memory of each process,
+   and per call at layer 1's width #6, #7 and the library exchange across
+   processes and in one process beside their bounds, and the host
+   barrier; with 2 cards or more also 2 processes x 1 card over NCCL.
 
 Tolerances: float32 within rtol 1e-4 and atol 1e-4 * max|ref| (summation
 order differs), bfloat16 inputs within 2e-2 * max|ref|.
@@ -163,7 +176,9 @@ order differs), bfloat16 inputs within 2e-2 * max|ref|.
 The second-to-last line is a JSON object with one entry per kernel (#1's,
 #2's, #3's, #4's, #5's, #7's and #8's with ``previous_ms``, their earlier
 routes' times in the same run; #3's, #4's, #5's, #7's and #8's with the
-CUDA kernels they launch); the last line is ``{"ok": true, "device":
+CUDA kernels they launch; #6's and #7's with ``cross_process``, phase 12's
+per-call times across processes and the launches of each child); the last
+line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -1632,6 +1647,115 @@ def native_parse_check() -> dict:
             "native_s": native_s, "python_s": python_s, "build_s": build_s}
 
 
+def multihost_phase(cards: int) -> dict:
+    """Phase 12: ``multihost_sim`` at the bench shape (its loop: embedding
+    -> halo conv -> ReLU -> halo conv -> BCE over 4,096 labelled rows ->
+    Adam 0.05) over 2
+    processes x 2 shards sharing the card, the library exchange, #6 and
+    #7 in float32 and #7 with bfloat16 streams, 10 steps each, against the
+    single-process run of the same 4 shards on the card (phase 8's layout)
+    in the same call (``multihost_sim``'s tolerances: float32 rtol 1e-5,
+    bfloat16 rtol 5e-3 with an absolute floor); every child must
+    launch its mode's kernels on every step (``multihost_sim`` raises
+    otherwise, and the record is checked here), and holds #6, #7 and the
+    library exchange across processes against their plain versions at
+    S = 2 and 4 (``--check``). Per call at layer 1's width, across
+    processes and in one process: #6, the library exchange and #7 beside
+    their bounds, and the host barrier alone. With 2 cards or more, also
+    2 processes x 1 card over NCCL, float32."""
+    import torch
+    from scaling_rgcn_training_tpu_torch import bench_shape as bs
+    from scaling_rgcn_training_tpu_torch import multihost_sim as mh
+
+    env = {"MH_NODES": str(bs.N), "MH_EDGES": str(bs.E),
+           "MH_RELS": str(bs.R), "MH_STEPS": "10", "MH_REORDER": "0",
+           "MH_BF16": "0", "MH_LABELLED": str(bs.N_TRAIN)}
+    layouts = [("2 processes x 2 shards, one card", ["--shards-per-proc", "2",
+                "--cards", "1", "--modes",
+                "library-f32,kernel-f32,fused-f32,fused-bf16", "--check",
+                "--time-calls"])]
+    if cards >= 2:
+        layouts.append(("2 processes x 1 card, NCCL", [
+            "--shards-per-proc", "1", "--cards", "2", "--modes",
+            "library-f32,kernel-f32,fused-f32", "--time-calls"]))
+    else:
+        print("  2 processes x 1 card over NCCL: skipped (1 card)", flush=True)
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    out = {}
+    try:
+        for name, extra in layouts:
+            torch.cuda.empty_cache()
+            with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                             prefix="smoke_multihost_") as wd:
+                t0 = time.perf_counter()
+                try:
+                    rec = mh.run(["--device", "cuda", "--procs", "2",
+                                  "--widths", f"{bs.D},{bs.HL},{bs.C}",
+                                  "--workdir", wd, "--timeout", "400",
+                                  *extra])
+                except RuntimeError as e:
+                    fail(f"multihost {name}: {e}")
+            print(f"  multihost {name}: {time.perf_counter() - t0:.1f} s in "
+                  f"all (backend {rec['backend']}, n_per {rec['n_per']}, H "
+                  f"{rec['halo']}, partition built once in "
+                  f"{rec['partition_build_s']:.2f} s, loaded by the "
+                  f"processes in {[round(v, 2) for v in rec['plan_load_s']]}"
+                  " s)", flush=True)
+            for tag, m in rec["modes"].items():
+                pairs = list(zip(m["multi_process_losses"],
+                                 m["single_process_losses"]))
+                rel = max(abs(a - b) / abs(b) for a, b in pairs)
+                diff = max(abs(a - b) for a, b in pairs)
+                print(f"  multihost {name} {tag}: ms/step {m['ms_per_step']} "
+                      f"(one process: {m['single_ms_per_step']:.3f}), peak "
+                      f"MiB {m['peak_mib']} + IPC buffers {m['shared_mib']} "
+                      f"(one process: {m['single_peak_mib']:.0f}), losses "
+                      f"{m['multi_process_losses'][0]:.7f} -> "
+                      f"{m['multi_process_losses'][-1]:.7f}, max rel diff "
+                      f"{rel:.2e}, max abs diff {diff:.2e} (rtol "
+                      f"{m['rtol']:.0e}, atol {m['atol']:.1e})", flush=True)
+                if not m["loss_parity"]:
+                    fail(f"multihost {name} {tag}: losses "
+                         f"{m['multi_process_losses']} differ from the "
+                         f"single-process run's {m['single_process_losses']}")
+                kernel = {"library": "span_forward", "kernel": "halo_exchange",
+                          "fused": "fused_halo_aggregate"}[tag.split("-")[0]]
+                for proc in m["launches"]:
+                    if len(proc) != 10 or not all(
+                            st[kernel] and st["span_backward"]
+                            and st["segment_sum"] for st in proc):
+                        fail(f"multihost {name} {tag}: a child missed its "
+                             f"kernels on a step: {proc}")
+            for child, checks in enumerate(rec.get("check", [])):
+                print(f"  multihost {name} process {child}: #6, #7 and the "
+                      "library exchange across processes match their plain "
+                      f"versions at {[c['shards'] for c in checks]} shards "
+                      f"(#7 max_abs_err {max(c['fused_err'] for c in checks):.2e})",
+                      flush=True)
+            calls = rec["calls"]
+            for key in ("halo_exchange", "library_exchange",
+                        "fused_halo_aggregate"):
+                multi = [c[key]["ms"] for c in calls["multi"]]
+                print(f"  multihost {name} {key} per call at "
+                      f"{calls['single']['d_in']}->{calls['single']['d_out']}"
+                      f" f32: across processes {multi} ms (bound "
+                      f"{calls['multi'][0][key]['bound_ms']:.4f}), one "
+                      f"process {calls['single'][key]['ms']:.4f} ms (bound "
+                      f"{calls['single'][key]['bound_ms']:.4f})", flush=True)
+            print(f"  multihost {name} host barrier "
+                  f"{[round(c['barrier_ms'], 4) for c in calls['multi']]} ms"
+                  f" a call; in the run {rec['barrier']}", flush=True)
+            out[name] = rec
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out
+
+
 def main() -> None:
     phase("1 environment")
     try:
@@ -1916,6 +2040,11 @@ def main() -> None:
     ckpt["cli"] = cli_checkpoint_phase()
     ckpt["native_parse"] = native_parse_check()
 
+    phase("12 halo training across processes (multihost_sim) at the bench "
+          "shape")
+    multihost = multihost_phase(torch.cuda.device_count())
+    shared = multihost["2 processes x 2 shards, one card"]
+
     kernels = []
     b = bench[("layer1", "float32")]
     for kname, key, src_file, replaces in (
@@ -1967,6 +2096,17 @@ def main() -> None:
             "max_abs_err": halo["errs"][key], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
+        calls = shared["calls"]
+        kernels[-1]["cross_process"] = {
+            "ms": max(c[kname]["ms"] for c in calls["multi"]),
+            "one_process_ms": calls["single"][kname]["ms"],
+            "bound_ms": calls["multi"][0][kname]["bound_ms"],
+            "library_exchange_ms": max(c["library_exchange"]["ms"]
+                                       for c in calls["multi"]),
+            "launches": [sum(st[kname] for st in proc) for proc in
+                         shared["modes"][{"halo_exchange": "kernel-f32",
+                                          "fused_halo_aggregate":
+                                          "fused-f32"}[kname]]["launches"]]}
         if key == "fused":
             # span_tc.cuh's chunk kernel over the shards' rows and CSR sum,
             # then the halo buffer's copy (halo_kernels.cu fused_halo_tc)
@@ -2008,7 +2148,10 @@ def main() -> None:
                      "attention": att_launches, **halo["counts"],
                      **head_launches},
         "bwd_variants": bwd["rows"], "layer_gradients": grads,
-        "checkpoint": ckpt}),
+        "checkpoint": ckpt,
+        "multihost": {name: {k: rec[k] for k in (
+            "backend", "modes", "calls", "barrier", "plan_load_s")}
+            for name, rec in multihost.items()}}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -56,8 +56,17 @@
 // fused_halo_rows is the earlier route of #7 (span_rows.cuh's row kernel
 // over ShardRows on the CUDA cores, whose epilogue writes the buffer); it
 // stays callable as fused_halo_aggregate_rows and no main path calls it.
+//
+// Across processes (parallel/ipc.py) the pointer tables of #6 and #7 also
+// hold other processes' rows, mapped into this process by CUDA IPC: the
+// ipc_* entries below allocate the buffers a process shares (cudaMalloc, as
+// cudaIpcGetMemHandle wants the base of an allocation, which PyTorch's
+// caching allocator does not give), export and open their memory handles,
+// and create, export and open the interprocess events that order the
+// processes' streams. No kernel changes for it.
 
 #include <cstdint>
+#include <cstring>
 
 #include "span_rows.cuh"
 #include "span_tc.cuh"
@@ -320,6 +329,73 @@ int fused_halo_rows(int dtype, const void* const* xtab, int n_shards,
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// CUDA IPC. A handle is 64 bytes (CUDA_IPC_HANDLE_SIZE) in the caller's
+// buffer; each entry returns a cudaError_t.
+
+// bytes of device memory on the current device, and its memory handle.
+int ipc_alloc(long long bytes, void** ptr, void* handle) {
+  cudaError_t err = cudaMalloc(ptr, static_cast<size_t>(bytes));
+  if (err == cudaSuccess)
+    err = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), *ptr);
+  return static_cast<int>(err);
+}
+
+int ipc_free(void* ptr) { return static_cast<int>(cudaFree(ptr)); }
+
+// Another process's allocation mapped on the current device (peer access
+// enabled when it lies on another card).
+int ipc_open(const void* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return static_cast<int>(
+      cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess));
+}
+
+int ipc_close(void* ptr) {
+  return static_cast<int>(cudaIpcCloseMemHandle(ptr));
+}
+
+// An interprocess event of the current device (no timing, as IPC wants),
+// and its handle.
+int ipc_event_create(void** event, void* handle) {
+  cudaEvent_t ev;
+  cudaError_t err = cudaEventCreateWithFlags(
+      &ev, cudaEventInterprocess | cudaEventDisableTiming);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *event = ev;
+  return static_cast<int>(
+      cudaIpcGetEventHandle(static_cast<cudaIpcEventHandle_t*>(handle), ev));
+}
+
+int ipc_event_open(const void* handle, void** event) {
+  cudaIpcEventHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  cudaEvent_t ev;
+  cudaError_t err = cudaIpcOpenEventHandle(&ev, h);
+  if (err == cudaSuccess) *event = ev;
+  return static_cast<int>(err);
+}
+
+int event_destroy(void* event) {
+  return static_cast<int>(cudaEventDestroy(static_cast<cudaEvent_t>(event)));
+}
+
+int event_record(void* event, void* stream) {
+  return static_cast<int>(cudaEventRecord(static_cast<cudaEvent_t>(event),
+                                          static_cast<cudaStream_t>(stream)));
+}
+
+int stream_wait_event(void* stream, void* event) {
+  return static_cast<int>(cudaStreamWaitEvent(
+      static_cast<cudaStream_t>(stream), static_cast<cudaEvent_t>(event), 0));
+}
+
+int copy_async(void* dst, const void* src, long long bytes, void* stream) {
+  return static_cast<int>(cudaMemcpyAsync(dst, src, static_cast<size_t>(bytes),
+                                          cudaMemcpyDeviceToDevice,
+                                          static_cast<cudaStream_t>(stream)));
 }
 
 const char* kernel_error_string(int err) {

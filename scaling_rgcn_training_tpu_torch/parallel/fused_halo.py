@@ -32,8 +32,18 @@ PyTorch; no main path calls either.
 
 :class:`FusedHaloApply` follows the JAX package's ``_fused_apply_bwd``:
 the span backward (#2) over each shard's local and halo plans, then the
-reverse exchange of the halo cotangents and the transpose of the send
-gather.
+reverse exchange of the halo cotangents (the library exchange) and the
+transpose of the send gather.
+
+Across processes (:func:`fused_halo_shards` on a mesh of several) each
+process runs #7 for its k shards: a layer call copies its ``x_own`` rows
+once into its CUDA IPC buffer (``parallel/ipc.py``), and the kernels read
+the other processes' shards through their buffers, mapped here
+(:func:`fused_halo_cost` counts that copy with ``copied=True``); the
+backward's exchange crosses the processes too. On the CPU the plain
+version across processes is the library exchange between processes (the
+halo buffer) plus the aggregation of the local and halo segments: the
+same function.
 """
 
 from __future__ import annotations
@@ -48,10 +58,12 @@ from scaling_rgcn_training_tpu_torch.ops import cuda_build
 from scaling_rgcn_training_tpu_torch.ops.cuda_build import LAUNCHES
 from scaling_rgcn_training_tpu_torch.ops.span_kernels import (
     _acc_dtype, _csr, _cuda_dtype_code, _check_widths, check_edges,
-    relation_chunks, span_backward, span_forward_tiled_plain)
+    relation_chunks, span_backward, span_forward, span_forward_tiled_plain)
+from scaling_rgcn_training_tpu_torch.parallel.ipc import peer_set
+from scaling_rgcn_training_tpu_torch.parallel.mesh import Mesh
 from scaling_rgcn_training_tpu_torch.parallel.ring_halo import (
-    connect, halo_exchange_library, halo_kernels, on_cards, pointer_table,
-    release_sources, send_transpose, wait_for_sources)
+    connect, exchange_across, halo_exchange_library, halo_kernels, on_cards,
+    pointer_table, release_sources, send_transpose, wait_for_sources)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,15 +286,17 @@ def fused_halo_aggregate_rows(x_owns: Sequence[torch.Tensor],
 
 
 def fused_halo_cost(x_owns: Sequence[torch.Tensor], w: torch.Tensor,
-                    plan: FusedHaloPlan, want_buf: bool = True
-                    ) -> Tuple[int, int, str]:
+                    plan: FusedHaloPlan, want_buf: bool = True,
+                    copied: bool = False) -> Tuple[int, int, str]:
     """``(bytes, operations, unit)`` of :func:`fused_halo_aggregate`'s
     function on these inputs, for its bound: bytes are every shard's
     ``x_own``, ``w`` and the plan arrays its kernels read (the
     relation-ordered edges, the chunks, the forward CSR's row pointer and
     positions, and with the buffer ``recv_idx``), each once, the float32
-    ``agg`` once and the halo buffer written once. Operations: ``2 E d_in
-    d_out`` on the tensor cores, three times for float32 (3xTF32, ``unit``
+    ``agg`` once and the halo buffer written once; with ``copied`` (across
+    processes) also this shard's ``x_own`` read and written once more, its
+    copy into the process's IPC buffer. Operations: ``2 E d_in d_out`` on
+    the tensor cores, three times for float32 (3xTF32, ``unit``
     ``"tf32"``), once for bfloat16. The ``msg`` round trip and the fourth
     TF32 product are the design's own cost, not the function's."""
     slots, d_in, d_out = w.shape
@@ -293,6 +307,8 @@ def fused_halo_cost(x_owns: Sequence[torch.Tensor], w: torch.Tensor,
     n_bytes = sum(t.numel() * t.element_size()
                   for t in (*x_owns, w, *plans))
     n_bytes += 4 * plan.n_per * d_out
+    if copied:
+        n_bytes += 2 * plan.n_per * d_in * w.element_size()
     if want_buf:
         n_bytes += plan.num_shards * plan.halo * d_in * w.element_size()
     ops = 2 * plan.fwd_pos.numel() * d_in * d_out
@@ -301,34 +317,63 @@ def fused_halo_cost(x_owns: Sequence[torch.Tensor], w: torch.Tensor,
     return n_bytes, 3 * ops, "tf32"
 
 
+def fused_halo_shards(x_owns: Sequence[torch.Tensor],
+                      ws: Sequence[torch.Tensor], shards,
+                      mesh: Optional[Mesh] = None, want_buf: bool = True
+                      ) -> Tuple[List[torch.Tensor], List]:
+    """Kernel #7 for the shards of this process (``shards``, the
+    partition's ``HaloShard`` plans, with their ``x_owns`` and ``ws``; every
+    shard in one process): ``(aggs, bufs)``. Across processes on the card
+    the other processes' rows are read through CUDA IPC; on the CPU the
+    halo buffers come from the library exchange between processes and the
+    aggregation from the local and halo segments' span plans."""
+    if mesh is None or not mesh.multiprocess:
+        sources, peers = x_owns, None
+    elif on_cards(x_owns):
+        peers = peer_set(halo_kernels(), mesh, x_owns[0].shape,
+                         x_owns[0].dtype)
+        sources = peers.publish(x_owns)
+    else:
+        s_n, h = mesh.size, shards[0].fused.halo
+        bufs = [r.reshape(s_n * h, -1) for r in exchange_across(
+            [x.index_select(0, sh.send_idx).view(s_n, h, -1)
+             for x, sh in zip(x_owns, shards)], mesh)]
+        aggs = [span_forward(x, w, sh.local.span)
+                + span_forward(buf, w, sh.halo.span)
+                for x, w, buf, sh in zip(x_owns, ws, bufs, shards)]
+        return aggs, bufs if want_buf else [None] * len(aggs)
+    out = [fused_halo_aggregate(sources, w, sh.fused, want_buf)
+           for w, sh in zip(ws, shards)]
+    if peers is not None:
+        peers.release()
+    return [a for a, _ in out], [b for _, b in out]
+
+
 class FusedHaloApply(torch.autograd.Function):
-    """Every shard's aggregation by kernel #7: ``(shards, want_buf,
-    *x_owns, *ws)`` -> the S aggregations ``[n_per, d_out]`` float32;
-    ``shards`` are the partition's per-shard plans (``parallel/halo.py``
-    ``HaloShard``); ``want_buf``: a backward will run, so keep the halo
-    buffers."""
+    """This process's shards' aggregations by kernel #7: ``(shards,
+    want_buf, mesh, *x_owns, *ws)`` -> the k aggregations ``[n_per, d_out]``
+    float32; ``shards`` are the partition's per-shard plans of this process
+    (``parallel/halo.py`` ``HaloShard``); ``mesh``: None in one process;
+    ``want_buf``: a backward will run, so keep the halo buffers."""
 
     @staticmethod
-    def forward(ctx, shards, want_buf, *tensors):
-        s_n = len(shards)
-        x_owns, ws = tensors[:s_n], tensors[s_n:]
-        aggs, bufs = [], []
-        for q, sh in enumerate(shards):
-            agg, buf = fused_halo_aggregate(x_owns, ws[q], sh.fused, want_buf)
-            aggs.append(agg)
-            bufs.append(buf)
+    def forward(ctx, shards, want_buf, mesh, *tensors):
+        k = len(shards)
+        x_owns, ws = tensors[:k], tensors[k:]
+        aggs, bufs = fused_halo_shards(x_owns, ws, shards, mesh, want_buf)
         if want_buf:
             ctx.save_for_backward(*x_owns, *ws, *bufs)
-        ctx.shards = shards
+        ctx.shards, ctx.mesh = shards, mesh
         return tuple(aggs)
 
     @staticmethod
     def backward(ctx, *grads):
         shards = ctx.shards
-        s_n = len(shards)
+        k = len(shards)
         saved = ctx.saved_tensors
-        x_owns, ws, bufs = saved[:s_n], saved[s_n:2 * s_n], saved[2 * s_n:]
+        x_owns, ws, bufs = saved[:k], saved[k:2 * k], saved[2 * k:]
         halo = shards[0].fused.halo
+        s_n = shards[0].fused.num_shards
         dxs, dws, dbufs = [], [], []
         for q, sh in enumerate(shards):
             g = grads[q].to(ws[q].dtype).contiguous()
@@ -339,17 +384,20 @@ class FusedHaloApply(torch.autograd.Function):
             dbufs.append(dbuf.to(x_owns[q].dtype).view(s_n, halo, -1))
         # reverse exchange of the halo cotangents, then the send gather's
         # transpose: the rows each shard shipped get their cotangents back
-        dsends = halo_exchange_library(dbufs)
+        dsends = halo_exchange_library(dbufs, ctx.mesh)
         for p, sh in enumerate(shards):
             dxs[p] = dxs[p] + send_transpose(
                 dsends[p].reshape(s_n * halo, -1), sh).to(dxs[p].dtype)
-        return (None, None, *[d.to(x.dtype) for d, x in zip(dxs, x_owns)],
-                *dws)
+        return (None, None, None,
+                *[d.to(x.dtype) for d, x in zip(dxs, x_owns)], *dws)
 
 
 def fused_halo_apply(x_owns: Sequence[torch.Tensor],
-                     ws: Sequence[torch.Tensor], shards) -> List[torch.Tensor]:
-    """Differentiable kernel #7 over every shard of the partition."""
+                     ws: Sequence[torch.Tensor], shards,
+                     mesh: Optional[Mesh] = None) -> List[torch.Tensor]:
+    """Differentiable kernel #7 over this process's shards of the
+    partition (every shard in one process)."""
     want_buf = torch.is_grad_enabled() and any(
         t.requires_grad for t in (*x_owns, *ws))
-    return list(FusedHaloApply.apply(tuple(shards), want_buf, *x_owns, *ws))
+    return list(FusedHaloApply.apply(tuple(shards), want_buf, mesh, *x_owns,
+                                     *ws))

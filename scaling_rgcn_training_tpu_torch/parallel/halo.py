@@ -17,12 +17,17 @@ each shard's plans on the CPU: the port's span plans
 the local segment and of the halo segment, which reads the received
 buffer, and kernel #7's plan. None of the TPU's chunked plans is built.
 With ``cache_dir`` the whole partition goes through the plan cache
-(``utils/plancache.py``). :func:`device_put_halo_edges` moves each
-shard's plans to its mesh device.
+(``utils/plancache.py``). :func:`device_put_halo_edges` moves the plans of
+this process's shards to their mesh devices (every shard in one process).
 
-:func:`halo_aggregate` takes node-major ``x [S * n_per, d]`` on the mesh's
-first device, slices it into the shards' ``x_own`` (views on one card) and
-moves each to its shard's device. Per shard, the span kernels (#1, #2)
+:func:`halo_aggregate` takes this process's node-major rows
+``x [k * n_per, d]`` on the mesh's first device (``k = S`` in one process;
+across processes ``parallel/mesh.py`` ``put_global`` gives them), slices
+them into its shards' ``x_own`` (views on one card), moves each to its
+shard's device and returns the same rows of the result. The exchange of
+a mesh of several processes crosses them (``parallel/ring_halo.py``,
+``parallel/fused_halo.py``); one process is the case P = 1, with its
+behaviour and its bits. Per shard, the span kernels (#1, #2)
 aggregate where they take the widths and no ``backend`` is given (the
 JAX package's ``use_fused``); otherwise the edge mode (kernels #4 and #3
 with ``backend="pallas"``). On the CPU the plain versions run. The
@@ -288,12 +293,15 @@ def _shard_plans(edges: HaloShardedEdges) -> Tuple[HaloShard, ...]:
 
 def device_put_halo_edges(edges: HaloShardedEdges,
                           mesh: Mesh) -> HaloShardedEdges:
-    """Each shard's plans on its mesh device."""
+    """The plans of this process's shards (``mesh.first_shard`` on, every
+    shard in one process) on their mesh devices; the others' are
+    dropped."""
     if mesh.size != edges.num_shards:
         raise ValueError(f"plan has {edges.num_shards} shards, mesh "
                          f"{mesh.size} devices")
+    mine = edges.shards[mesh.first_shard:mesh.first_shard + mesh.local_size]
     return dataclasses.replace(edges, shards=tuple(
-        to_device(sh, dev) for sh, dev in zip(edges.shards, mesh.devices)))
+        to_device(sh, dev) for sh, dev in zip(mine, mesh.devices)))
 
 
 def padded_num_nodes(edges: HaloShardedEdges) -> int:
@@ -312,15 +320,17 @@ def exchange_mode() -> Optional[str]:
 def halo_aggregate(x: torch.Tensor, w: torch.Tensor, edges: HaloShardedEdges,
                    mesh: Mesh, backend: Optional[str] = None) -> torch.Tensor:
     """``sum_e norm_e * (x[src_e] @ w[rel_e])`` onto ``dst_e``, shard by
-    shard: ``x [S * n_per, d_in]`` -> ``[S * n_per, d_out]`` float32 on
-    the mesh's first device."""
+    shard: this process's rows ``x [k * n_per, d_in]`` -> ``[k * n_per,
+    d_out]`` float32 on the mesh's first device."""
     s_n, n_per, h = edges.num_shards, edges.n_per, edges.halo
-    if not edges.shards or mesh.size != s_n:
+    k = mesh.local_size
+    if mesh.size != s_n or len(edges.shards) != k or \
+            edges.shards[0].fused.shard != mesh.first_shard:
         raise ValueError("halo edges must be placed on this mesh "
                          "(device_put_halo_edges)")
-    if x.shape[0] != s_n * n_per:
-        raise ValueError(f"x has {x.shape[0]} rows, the partition "
-                         f"{s_n} x {n_per}")
+    if x.shape[0] != k * n_per:
+        raise ValueError(f"x has {x.shape[0]} rows, this process's shards "
+                         f"{k} x {n_per}")
     slots, d_in, d_out = w.shape
     use_span = fused_ok(d_in, d_out) and backend is None
     mode = exchange_mode()
@@ -334,12 +344,13 @@ def halo_aggregate(x: torch.Tensor, w: torch.Tensor, edges: HaloShardedEdges,
     xs = [x[s * n_per:(s + 1) * n_per].to(dev)
           for s, dev in enumerate(mesh.devices)]
     ws = [w.to(dev) for dev in mesh.devices]
+    across = mesh if mesh.multiprocess else None
     if mode == "fused":
-        aggs = fused_halo_apply(xs, ws, edges.shards)
+        aggs = fused_halo_apply(xs, ws, edges.shards, across)
     else:
         sends = [SendGather.apply(xs[s], sh).view(s_n, h, d_in)
                  for s, sh in enumerate(edges.shards)]
-        recvs = HaloExchange.apply(mode or "library", *sends)
+        recvs = HaloExchange.apply(mode or "library", across, *sends)
         agg_mode = "fused" if use_span else "edge"
         aggs: List[torch.Tensor] = []
         for s, sh in enumerate(edges.shards):
@@ -353,7 +364,8 @@ def halo_aggregate(x: torch.Tensor, w: torch.Tensor, edges: HaloShardedEdges,
 def halo_rgcn_conv(x: torch.Tensor, edges: HaloShardedEdges, layer: RGCNLayer,
                    mesh: Mesh, backend: Optional[str] = None,
                    compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Node-partitioned R-GCN layer: ``[S * n_per, in] -> [S * n_per, out]``.
+    """Node-partitioned R-GCN layer over this process's rows: ``[k * n_per,
+    in] -> [k * n_per, out]`` (``k = S`` in one process).
 
     Same math as ``ops/rgcn_conv.py`` ``rgcn_conv``. ``compute_dtype``
     (e.g. ``torch.bfloat16``): the per-edge streams, the exchanged rows

@@ -9,9 +9,9 @@ block ``p`` prepared for it (its own block included), as
   (``csrc/halo_kernels.cu`` ``halo_pull``), which replaces the TPU
   remote-DMA kernel ``scaling_rgcn_training_tpu/parallel/ring_halo.py:42``
   ``_a2a_kernel``. One launch per receiver, on the receiver's stream,
-  reads the S senders' blocks through a table of their pointers; the
-  order of the streams replaces the TPU kernel's barrier semaphore. On the
-  CPU it runs its plain version;
+  reads the S senders' blocks through a table of their pointers; within a
+  process the order of the streams replaces the TPU kernel's barrier
+  semaphore. On the CPU it runs its plain version;
 - :func:`halo_exchange_plain`: the plain version, one ``copy_`` per block;
 - :func:`halo_exchange_library`: the default exchange of the halo conv,
   PyTorch's own copies (``Tensor.to``, a peer copy between cards, and one
@@ -28,12 +28,23 @@ The shards' devices may be S cards, or S virtual shards on one card (a
 mesh that repeats one device). Between cards the kernels read peer memory:
 the wrappers check ``torch.cuda.can_device_access_peer`` and raise without
 it, then enable peer access once per pair.
+
+Across processes (a ``mesh`` of several, ``parallel/mesh.py``) each
+process passes its k shards' sends and gets its k receivers' blocks. The
+library exchange moves the blocks between processes in one
+``all_to_all_single`` over the process group (the counterpart of
+``lax.all_to_all`` crossing DCN in the JAX package; blocks between shards
+of one process stay local copies). Kernel #6 runs unchanged over a table
+that mixes this process's sends with other processes' send blocks mapped
+by CUDA IPC (``parallel/ipc.py``, which also orders the processes'
+streams). On the CPU every mode takes the library exchange between
+processes.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -41,6 +52,8 @@ from scaling_rgcn_training_tpu_torch.ops import cuda_build
 from scaling_rgcn_training_tpu_torch.ops.cuda_build import LAUNCHES
 from scaling_rgcn_training_tpu_torch.ops.segment_kernels import (
     sorted_segment_sum)
+from scaling_rgcn_training_tpu_torch.parallel.ipc import peer_set
+from scaling_rgcn_training_tpu_torch.parallel.mesh import Mesh, all_to_all_rows
 
 # shards the kernels' pointer tables hold (csrc/span_rows.cuh kMaxShards)
 MAX_SHARDS = 64
@@ -58,6 +71,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fused_halo_tc.argtypes = [i, p, i, i, *[p] * 10, i, i, i, i, i, p, p,
                                   i, p]
     lib.fused_halo_tc.restype = i
+    pp, b, ll = ctypes.POINTER(p), ctypes.c_char_p, ctypes.c_longlong
+    for name, args in (("ipc_alloc", [ll, pp, b]), ("ipc_free", [p]),
+                       ("ipc_open", [b, pp]), ("ipc_close", [p]),
+                       ("ipc_event_create", [pp, b]),
+                       ("ipc_event_open", [b, pp]), ("event_destroy", [p]),
+                       ("event_record", [p, p]),
+                       ("stream_wait_event", [p, p]),
+                       ("copy_async", [p, p, ll, p])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = i
 
 
 def halo_kernels() -> ctypes.CDLL:
@@ -123,10 +146,16 @@ def release_sources(stream: torch.cuda.Stream,
             t.record_stream(stream)
 
 
-def _check(sends: Sequence[torch.Tensor]) -> None:
-    s_n = len(sends)
-    if s_n < 1:
-        raise ValueError("an exchange needs at least one shard")
+def _across(mesh: Optional[Mesh]) -> bool:
+    return mesh is not None and mesh.multiprocess
+
+
+def _check(sends: Sequence[torch.Tensor], mesh: Optional[Mesh] = None) -> None:
+    """S sends of ``[S, H, d]``; across processes this process's k."""
+    s_n = mesh.size if _across(mesh) else len(sends)
+    if len(sends) < 1 or (_across(mesh) and len(sends) != mesh.local_size):
+        raise ValueError(f"an exchange takes this process's shards' sends, "
+                         f"got {len(sends)}")
     shape, dtype = sends[0].shape, sends[0].dtype
     for t in sends:
         if t.dim() != 3 or t.shape != shape or t.shape[0] != s_n:
@@ -134,6 +163,20 @@ def _check(sends: Sequence[torch.Tensor]) -> None:
                              f"shape, got {[tuple(t.shape) for t in sends]}")
         if t.dtype != dtype:
             raise TypeError(f"mixed dtypes {dtype} and {t.dtype}")
+
+
+def exchange_across(sends: Sequence[torch.Tensor],
+                    mesh: Mesh) -> List[torch.Tensor]:
+    """The library exchange between processes: this process's k sends
+    ``[S, H, d]`` -> its k receivers' ``[S, H, d]``, the blocks of each
+    other process in one ``all_to_all_single`` (``all_to_all_rows``),
+    this process's own as local copies."""
+    k, p_n = mesh.local_size, mesh.process_count
+    h, d = sends[0].shape[1:]
+    # [P (to), k (local sender), k (receiver in that process), H, d]
+    blocks = torch.stack(list(sends)).view(k, p_n, k, h, d).transpose(0, 1)
+    got = all_to_all_rows(blocks, mesh)   # [P (from), k (sender), k (me)]
+    return list(got.permute(2, 0, 1, 3, 4).reshape(k, p_n * k, h, d))
 
 
 def halo_exchange_plain(sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -146,21 +189,30 @@ def halo_exchange_plain(sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return outs
 
 
-def halo_exchange_library(sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def halo_exchange_library(sends: Sequence[torch.Tensor],
+                          mesh: Optional[Mesh] = None) -> List[torch.Tensor]:
     """The default exchange: per receiver, the S blocks moved to its
     device (``Tensor.to``: a peer copy between cards, nothing on one card)
-    and stacked."""
-    _check(sends)
+    and stacked; across processes :func:`exchange_across`."""
+    _check(sends, mesh)
+    if _across(mesh):
+        return exchange_across(sends, mesh)
     return [torch.stack([send[q].to(sends[q].device) for send in sends])
             for q in range(len(sends))]
 
 
-def halo_exchange(sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def halo_exchange(sends: Sequence[torch.Tensor],
+                  mesh: Optional[Mesh] = None) -> List[torch.Tensor]:
     """Kernel #6: ``sends[p] [S, H, d]`` on shard ``p``'s device ->
     ``outs[q] [S, H, d]`` on shard ``q``'s, ``outs[q][p] = sends[p][q]``;
-    float32 or bfloat16, any H and d."""
-    _check(sends)
+    float32 or bfloat16, any H and d. Across processes (``mesh``): this
+    process's k sends -> its k receivers' blocks, the other processes'
+    send blocks read through CUDA IPC; on the CPU the library exchange
+    between processes."""
+    _check(sends, mesh)
     if not on_cards(sends):
+        if _across(mesh):
+            return exchange_across(sends, mesh)
         return halo_exchange_plain(sends)
     if sends[0].dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"halo_exchange takes float32 or bfloat16, got "
@@ -171,17 +223,23 @@ def halo_exchange(sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     if block_bytes == 0:
         return outs
     lib = halo_kernels()
-    table = pointer_table(sends)
-    for q, out in enumerate(outs):
+    peers, sources, first = None, sends, 0
+    if _across(mesh):
+        peers = peer_set(lib, mesh, sends[0].shape, sends[0].dtype)
+        sources, first = peers.publish(sends), mesh.first_shard
+    table = pointer_table(sources)
+    for j, out in enumerate(outs):
         dev = out.device
-        connect(lib, dev, sends)
+        connect(lib, dev, sources)
         stream = torch.cuda.current_stream(dev)
         with torch.cuda.device(dev):
-            wait_for_sources(stream, sends)
-            err = lib.halo_pull(table, len(sends), out.data_ptr(), q,
-                                block_bytes, stream.cuda_stream)
+            wait_for_sources(stream, sources)
+            err = lib.halo_pull(table, len(sources), out.data_ptr(),
+                                first + j, block_bytes, stream.cuda_stream)
             cuda_build.check_launch(lib, err, "halo_exchange")
-            release_sources(stream, sends)
+            release_sources(stream, sources)
+    if peers is not None:
+        peers.release()
     LAUNCHES["halo_exchange"] += 1
     return outs
 
@@ -201,14 +259,15 @@ def send_transpose(g_send: torch.Tensor, shard) -> torch.Tensor:
 
 
 class HaloExchange(torch.autograd.Function):
-    """``EXCHANGES[mode]`` over S sends; its gradient is the same exchange
-    of the cotangents."""
+    """``EXCHANGES[mode]`` over this process's sends on ``mesh`` (None:
+    one process); its gradient is the same exchange of the cotangents."""
 
     @staticmethod
-    def forward(ctx, mode: str, *sends):
-        ctx.mode = mode
-        return tuple(EXCHANGES[mode](sends))
+    def forward(ctx, mode: str, mesh: Optional[Mesh], *sends):
+        ctx.mode, ctx.mesh = mode, mesh
+        return tuple(EXCHANGES[mode](sends, mesh))
 
     @staticmethod
     def backward(ctx, *grads):
-        return (None, *EXCHANGES[ctx.mode]([g.contiguous() for g in grads]))
+        return (None, None, *EXCHANGES[ctx.mode](
+            [g.contiguous() for g in grads], ctx.mesh))

@@ -107,7 +107,11 @@ def _shard_rel_edges_host(edge_src, edge_dst, edge_type, num_nodes,
 
 def device_put_sharded_edges(edges: ShardedRelEdges,
                              mesh: Mesh) -> ShardedRelEdges:
-    """Each chunk's edge-mode layouts on its mesh device."""
+    """Each chunk's edge-mode layouts on its mesh device (one process: the
+    edge partition across processes is not ported)."""
+    if mesh.multiprocess:
+        raise NotImplementedError("the edge partition runs in one process; "
+                                  "across processes take the halo partition")
     if mesh.size != edges.num_shards:
         raise ValueError(f"plan has {edges.num_shards} shards, mesh "
                          f"{mesh.size} devices")

@@ -15,8 +15,15 @@ Counterpart of the JAX package's ``utils/checkpoint.py``, in its format:
   decomposition) and ``summary_embedding/<k>``: a file written by either
   package loads in the other.
 
-The one process of a run writes each file once, to a temporary file that
+One process writes each file once, to a temporary file that
 ``os.replace`` puts in place, so a crash leaves the previous file whole.
+Across processes (a ``mesh`` of several, ``parallel/mesh.py``), the
+counterpart of the JAX ``_leaf_to_host``: the node-sharded leaves
+(``node_sharded``, this process's rows) are gathered across processes in
+shard order, rank 0 writes, and the other ranks wait at a barrier, so the
+file has the arrays' bits of the one the single-process run of the same
+S shards writes; :func:`load_checkpoint` gives each process its rows of
+those leaves (``put_global``'s rows), so a file moves between layouts.
 The JAX package's Orbax backend (``RGCN_CKPT_BACKEND=orbax``) is not
 ported. Files are read with ``allow_pickle=False``.
 """
@@ -25,10 +32,14 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import (Any, Collection, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
+
+from scaling_rgcn_training_tpu_torch.parallel.mesh import (
+    Mesh, gather_global, host_barrier, process_rows)
 
 _LAYER_FIELDS = ("weight", "root", "bias", "comp")
 
@@ -62,24 +73,39 @@ def checkpoint_exists(path: str) -> bool:
 
 
 def save_checkpoint(path: str, arrays: Mapping[str, Any], epoch: int = 0,
-                    extra: Optional[Dict] = None) -> str:
+                    extra: Optional[Dict] = None, mesh: Optional[Mesh] = None,
+                    node_sharded: Collection[str] = ()) -> str:
     """Write ``arrays`` (tensors or numpy arrays by name) to
     ``{path}.npz`` and ``{"epoch": epoch, **extra}`` to its
     ``.meta.json``; returns the ``.npz`` path. The epoch goes into both
-    files, so :func:`load_checkpoint` can tell a matching pair."""
+    files, so :func:`load_checkpoint` can tell a matching pair. On a
+    ``mesh`` of several processes every process calls it: the arrays named
+    in ``node_sharded`` hold this process's rows and are gathered in shard
+    order, rank 0 writes, and every process returns once the files are in
+    place."""
     out = _npz_path(path)
-    _write_npz(out, {**arrays, "epoch": np.int64(epoch)})
-    tmp = f"{out}.meta.json.tmp.{os.getpid()}"
-    with open(tmp, "w") as fh:
-        json.dump({"epoch": int(epoch), **(extra or {})}, fh)
-    os.replace(tmp, out + ".meta.json")
+    across = mesh is not None and mesh.multiprocess
+    if across:
+        arrays = {k: gather_global(v, mesh) if k in node_sharded else v
+                  for k, v in arrays.items()}
+    if not across or mesh.process_index == 0:
+        _write_npz(out, {**arrays, "epoch": np.int64(epoch)})
+        tmp = f"{out}.meta.json.tmp.{os.getpid()}"
+        with open(tmp, "w") as fh:
+            json.dump({"epoch": int(epoch), **(extra or {})}, fh)
+        os.replace(tmp, out + ".meta.json")
+    if across:
+        host_barrier(mesh)
     return out
 
 
-def load_checkpoint(path: str) -> Tuple[Dict[str, np.ndarray], Dict]:
+def load_checkpoint(path: str, mesh: Optional[Mesh] = None,
+                    node_sharded: Collection[str] = ()
+                    ) -> Tuple[Dict[str, np.ndarray], Dict]:
     """``(arrays, meta)`` of the checkpoint at ``path``; raises when the
     meta file belongs to another epoch than the arrays (a write cut
-    between the two files)."""
+    between the two files). With a ``mesh``, the arrays named in
+    ``node_sharded`` are cut to this process's rows."""
     src = _npz_path(path)
     arrays = _read_npz(src)
     epoch = int(arrays.pop("epoch"))
@@ -88,6 +114,9 @@ def load_checkpoint(path: str) -> Tuple[Dict[str, np.ndarray], Dict]:
     if meta.get("epoch") != epoch:
         raise ValueError(f"{src} holds epoch {epoch}, its meta file "
                          f"epoch {meta.get('epoch')}")
+    if mesh is not None:
+        for k in node_sharded:
+            arrays[k] = process_rows(arrays[k], mesh)
     return arrays, meta
 
 

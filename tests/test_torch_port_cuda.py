@@ -1,7 +1,9 @@
 """The CUDA kernels (span forward and backward on the tensor cores and
 their earlier routes, segment sum, grouped matmul, d_rhs, halo exchange,
 fused halo aggregate and the one-pass backward's variants) against their
-plain PyTorch versions, on the card.
+plain PyTorch versions, on the card; and halo training across processes
+(``multihost_sim``: #6 and #7 reading the other process's rows through
+CUDA IPC, 2 processes sharing the card, and over NCCL on 2 cards).
 
 Needs a CUDA device and nvcc; skips without a card. Imports no jax (the
 card's machine has none), so on the card run it without the JAX test
@@ -753,3 +755,58 @@ def test_cuda_halo_kernels_on_two_cards():
         ref, ref_buf = fh.fused_halo_aggregate_plain(xs, w, sh.fused)
         assert torch.equal(buf, ref_buf)
         torch.testing.assert_close(agg, ref, **_tol("float32", ref))
+
+
+def _multihost(tmp_path, tag, *extra):
+    """``multihost_sim`` on the card at N 4096, E 32768, 3 float32 steps;
+    its record (the run raises, and exits non-zero, when a child fails, a
+    child misses a kernel on a step or the losses differ)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, MH_NODES="4096",
+               MH_EDGES="32768", MH_STEPS="3", MH_BF16="0")
+    env.pop("MH_PORT", None)
+    res = subprocess.run(
+        [sys.executable, "-m", "scaling_rgcn_training_tpu_torch.multihost_sim",
+         "--device", "cuda", "--procs", "2", "--workdir",
+         str(tmp_path / tag), "--timeout", "240", *extra],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.cuda
+def test_cuda_two_processes_on_one_card(tmp_path):
+    """2 processes x 2 shards sharing the card (gloo): kernels #6 and #7
+    read the other process's rows through CUDA IPC and match their plain
+    versions (``--check``), every mode's losses match the single-process
+    run's, and two runs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = ("--shards-per-proc", "2", "--cards", "1", "--modes",
+            "library,kernel,fused,fused-bf16")
+    first = _multihost(tmp_path, "a", *args, "--check")
+    again = _multihost(tmp_path, "b", *args)
+    assert first["backend"] == "gloo" and first["loss_parity"] is True
+    assert [c["shards"] for c in first["check"][0]] == [2, 4]
+    for tag, m in first["modes"].items():
+        assert m["multi_process_losses"] == \
+            again["modes"][tag]["multi_process_losses"], tag
+        kernel = {"library": "span_forward", "kernel": "halo_exchange",
+                  "fused": "fused_halo_aggregate"}[tag.split("-")[0]]
+        assert all(st[kernel] > 0 for proc in m["launches"] for st in proc)
+
+
+@pytest.mark.cuda
+def test_cuda_two_processes_on_two_cards(tmp_path):
+    """2 processes x 1 card over NCCL: #6 and #7 read the peer card's
+    rows through CUDA IPC; the losses match the single-process run's."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    rec = _multihost(tmp_path, "nccl", "--shards-per-proc", "1", "--cards",
+                     "2", "--modes", "library,kernel,fused", "--check")
+    assert rec["backend"] == "nccl" and rec["loss_parity"] is True
