@@ -168,7 +168,27 @@ Phases, in order; any failure exits non-zero:
    (a peer that ships no rows), ms/step and peak memory of each process,
    and per call at layer 1's width #6, #7 and the library exchange across
    processes and in one process beside their bounds, and the host
-   barrier; with 2 cards or more also 2 processes x 1 card over NCCL.
+   barrier; with 2 cards or more also 2 processes x 1 card over NCCL;
+13. the AM shape (``bench_shape.AM_*``: N 1,600,000, E 12,000,000, 267
+   relation slots, 64 -> 16 -> 11, 8,192 labelled rows; ``am_phase``):
+   ``rehearse_am``'s loop fused with bfloat16 streams and in float32
+   (``AM_INNER`` x (1 + ``AM_CALLS``) steps each) and in edge mode, float32,
+   ``AM_EDGE_STEPS`` steps, the edge-mode losses within 1e-4 relative of
+   the fused f32 run's at every step, #1 and #2 (and no #3-#5) launched
+   on every fused step, #3, #4 and #5 (and no #1, #2) on every edge-mode
+   step, ms/step and peak memory of each; #1 and #2 at 64 -> 16 and
+   16 -> 11, #3 with its gather and #4 and #5 at layer 1's shapes, float32
+   and bfloat16, against their plain versions on that graph (phases 3 and
+   4's helpers, tolerances and two-run bits), each timed beside its bound;
+   ``rehearse_am_dist``'s uniform graph (no reorder) partitioned once over
+   S = 8 virtual shards of the card, its traffic model (H, true boundary
+   rows, modelled wire bytes), #6 and #7 on it at both layers against
+   their plain versions (phase 8's helper), then ``rehearse_am_dist``'s
+   loop with the library exchange, #6 and #7, each in bfloat16 and
+   float32, ``AM_HALO_STEPS`` steps, every step launching its mode's
+   kernels and no other counted kernel, each run's losses within 1e-4
+   relative (bfloat16: 5e-3, phase 8's criteria) of the same loop from the
+   same parameters and dtype unpartitioned through the fused conv.
 
 Tolerances: float32 within rtol 1e-4 and atol 1e-4 * max|ref| (summation
 order differs), bfloat16 inputs within 2e-2 * max|ref|.
@@ -177,8 +197,9 @@ The second-to-last line is a JSON object with one entry per kernel (#1's,
 #2's, #3's, #4's, #5's, #7's and #8's with ``previous_ms``, their earlier
 routes' times in the same run; #3's, #4's, #5's, #7's and #8's with the
 CUDA kernels they launch; #6's and #7's with ``cross_process``, phase 12's
-per-call times across processes and the launches of each child); the last
-line is ``{"ok": true, "device":
+per-call times across processes and the launches of each child); the line
+before it holds the run's other numbers (phase 13's under ``am_shape``);
+the last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -212,6 +233,11 @@ DEV = "cuda"
 # parse of the native parser against the Python one
 CLI_ENTITIES = 20_000
 PARSE_ENTITIES = 200_000
+# phase 13 at the AM shape: rehearse_am's first call and timed calls of
+# AM_INNER steps (its knobs' defaults), edge-mode and halo steps
+AM_INNER, AM_CALLS = 5, 3
+AM_EDGE_STEPS = 10
+AM_HALO_STEPS = 10
 
 
 def fail(msg: str) -> None:
@@ -219,8 +245,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def check_close(name: str, got, ref, bf16: bool) -> float:
@@ -1756,6 +1785,218 @@ def multihost_phase(cards: int) -> dict:
     return out
 
 
+def am_phase(launches, reset) -> dict:
+    """Phase 13: the AM shape (``bench_shape.AM_*``: N 1,600,000, E
+    12,000,000, 267 slots, 64 -> 16 -> 11, 8,192 labelled rows).
+
+    (a) ``rehearse_am``'s loop on one card: fused with bfloat16 streams
+    (the JAX script's arm) and in float32, ``AM_INNER`` x (1 + ``AM_CALLS``)
+    steps each, and edge mode in float32 (``mode="edge"``,
+    ``backend="pallas"``) for ``AM_EDGE_STEPS``; the fused f32 and edge f32
+    losses agree within 1e-4 relative at every step (phase 5's criterion),
+    the fused runs launch #1 and #2 on every step and no #3, #4, #5, the
+    edge run #3, #4 and #5 and no #1, #2; each run's peak memory.
+    (b) #1 and #2 at 64 -> 16 and 16 -> 11, #3 with its gather and #4, #5
+    at layer 1's shapes, in float32 and bfloat16, on that graph, and #6
+    and #7 at S = 8 on (c)'s partition at both layers: against their plain
+    versions (phases 3, 4 and 8's helpers and tolerances), the same bits
+    on two runs, each time beside its bound.
+    (c) ``rehearse_am_dist``'s uniform graph (no reorder), its halo
+    partition over 8 virtual shards of the card built once (and its
+    traffic model: H, true boundary rows, the modelled wire bytes), then
+    ``rehearse_am_dist``'s loop with the library exchange, #6 and #7, each
+    in bfloat16 and float32, ``AM_HALO_STEPS`` steps, every step launching
+    its mode's kernels and no other counted kernel; each run's losses
+    within 1e-4 relative (bfloat16: 5e-3, phase 8's criteria) of the same
+    loop from the same parameters and dtype run unpartitioned through the
+    fused conv on the card."""
+    import torch
+    from scaling_rgcn_training_tpu_torch import bench_shape as bs
+    from scaling_rgcn_training_tpu_torch import multihost_sim as mh
+    from scaling_rgcn_training_tpu_torch import rehearse_am as ra
+    from scaling_rgcn_training_tpu_torch import rehearse_am_dist as rd
+    from scaling_rgcn_training_tpu_torch.ops import span_kernels as sk
+    from scaling_rgcn_training_tpu_torch.parallel.halo import (
+        EXCHANGE_ENV, device_put_halo_edges, padded_num_nodes)
+    from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device(DEV)
+    bf16 = torch.bfloat16
+    k = {"nodes": bs.AM_N, "edges": bs.AM_E, "rels": bs.AM_R,
+         "dim": bs.AM_D, "hidden": bs.AM_HL, "inner": AM_INNER,
+         "calls": AM_CALLS, "plan_cache": None}
+    out = {"runs": {}, "kernels": {}, "halo": {}}
+    t0 = time.perf_counter()
+    edges, rows, targets, slots, plan_s = ra.build_edges(k, dev)
+    print(f"AM edges (N {bs.AM_N}, E {bs.AM_E}, {slots} slots, "
+          f"{edges.span.num_chunks} relation chunks) built in {plan_s:.2f} "
+          f"s, placed in {time.perf_counter() - t0 - plan_s:.2f} s",
+          flush=True)
+    out["plan_build_s"] = plan_s
+
+    # (a) the one-card loop
+    edge_k = dict(k, inner=AM_EDGE_STEPS // 2, calls=1)
+    for name, cd, mode, kk in (("fused bf16", bf16, "fused", k),
+                               ("fused f32", None, "fused", k),
+                               ("edge f32", None, "edge", edge_k)):
+        reset()
+        res = ra.run(kk, dev, edges, rows, targets, slots, cd, mode)
+        n_steps = kk["inner"] * (1 + kk["calls"])
+        if len(res["losses"]) != n_steps or \
+                not np.isfinite(res["losses"]).all():
+            fail(f"AM {name}: losses {res['losses']}")
+        if mode == "fused":
+            require_per_step(f"AM {name}", res["launches"],
+                             {"span_forward": 2, "span_backward": 2})
+            off = ("segment_sum", "grouped_matmul", "grouped_drhs")
+        else:
+            require_per_step(f"AM {name}", res["launches"],
+                             {"grouped_matmul": 4, "segment_sum": 4,
+                              "grouped_drhs": 2})
+            off = ("span_forward", "span_backward")
+        if any(st[n] for st in res["launches"] for n in off):
+            fail(f"AM {name} launched one of {off}: {res['launches'][0]}")
+        print(f"  AM {name}: {res['ms_per_step']:.3f} ms/step over "
+              f"{kk['calls'] * kk['inner']} steps after a first call of "
+              f"{kk['inner']} ({res['first_call_s']:.2f} s), peak "
+              f"{res['peak_mib']:.0f} MiB, loss {res['losses'][0]:.7f} -> "
+              f"{res['losses'][-1]:.7f}, launches a step "
+              f"{res['launches'][-1]}", flush=True)
+        out["runs"][name] = {key: res[key] for key in (
+            "ms_per_step", "first_call_s", "peak_mib", "losses", "call_ms")}
+        out["runs"][name]["launches_step"] = res["launches"][-1]
+    fused_l = out["runs"]["fused f32"]["losses"][:AM_EDGE_STEPS]
+    edge_l = out["runs"]["edge f32"]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(edge_l, fused_l))
+    if not np.allclose(edge_l, fused_l, rtol=1e-4, atol=0):
+        fail(f"AM edge-mode f32 losses {edge_l} differ from fused {fused_l}")
+    print(f"  AM edge-mode f32 losses match the fused run's at every step "
+          f"(max rel diff {rel:.2e}, limit 1e-04)", flush=True)
+
+    # (b) #1-#5 against their plain versions on the AM graph
+    rng = np.random.default_rng(13)
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    for d_in, d_out, layer in ((bs.AM_D, bs.AM_HL, "layer1"),
+                               (bs.AM_HL, bs.AM_C, "layer2")):
+        for dtype in (torch.float32, bf16):
+            out["kernels"][f"span {layer} {dtype_name(dtype)}"] = \
+                compare_span_kernels(
+                    sk, edges.span, d_in, d_out, dtype, rng,
+                    f"AM {layer} {d_in}->{d_out} {dtype_name(dtype)}",
+                    timing=True)
+    for dtype in (torch.float32, bf16):
+        name = dtype_name(dtype)
+        t = lambda *shape, s=1.0: (torch.randn(
+            shape, generator=gen, device=DEV) * s).to(dtype)
+        for h, side in ((bs.AM_HL, "dst"), (bs.AM_D, "src")):
+            rp = edges.dst_rowptr if side == "dst" else edges.src_rowptr
+            perm = getattr(edges, f"{side}_perm")
+            out["kernels"][f"segment_sum [E, {h}] -> {side} {name}"] = \
+                check_segment(t(bs.AM_E, h), rp,
+                              f"AM [E, {h}] -> {side} rows {name} perm"
+                              f"{'+scale' if side == 'dst' else ''}",
+                              perm=perm,
+                              scale=edges.norm if side == "dst" else None,
+                              timing=True)
+        r = check_grouped(t(bs.AM_E, bs.AM_D),
+                          t(slots, bs.AM_D, bs.AM_HL, s=0.2),
+                          t(bs.AM_E, bs.AM_HL), edges.group_sizes,
+                          f"AM {bs.AM_D}->{bs.AM_HL} {name}", timing=True)
+        out["kernels"][f"grouped_matmul {name}"] = r["gmm"]
+        out["kernels"][f"grouped_drhs {name}"] = r["drhs"]
+    del edges, rows, targets
+    torch.cuda.empty_cache()
+
+    # (c) 8 virtual shards: the dist rehearsal's uniform graph, no reorder
+    drng = np.random.default_rng(0)
+    typ = rd.relations(drng, k)
+    src, dst = rd.gen(drng, "uniform", bs.AM_N, bs.AM_E)
+    arm, host = rd.traffic_arm("uniform", False, src, dst, typ, k)
+    mesh = make_mesh(devices=(DEV,) * rd.S)
+    t0 = time.perf_counter()
+    he = device_put_halo_edges(host, mesh)
+    del host
+    print(f"AM halo partition ({rd.S} shards, n_per {he.n_per}, H "
+          f"{he.halo}, local edges {[sh.local.num_edges for sh in he.shards]}"
+          f", halo edges {[sh.halo.num_edges for sh in he.shards]}) built in "
+          f"{arm['plan_build_s']:.2f} s, placed in "
+          f"{time.perf_counter() - t0:.2f} s; traffic model: true boundary "
+          f"rows {arm['true_boundary_rows_total']}, modelled wire "
+          f"{arm['wire_bytes_per_step_per_device']} bytes a step and card",
+          flush=True)
+    out["halo"]["arm"] = arm
+    for d_in, d_out, layer in ((bs.AM_D, bs.AM_HL, "layer1"),
+                               (bs.AM_HL, bs.AM_C, "layer2")):
+        for dtype in (torch.float32, bf16):
+            r = check_halo_kernels(
+                he, d_in, d_out, dtype,
+                f"AM S {rd.S} {layer} {d_in}->{d_out} {dtype_name(dtype)}",
+                timing=True)
+            out["kernels"][f"halo {layer} {dtype_name(dtype)}"] = r
+    n_pad = padded_num_nodes(he)
+    params = rd.make_params(n_pad, k, slots)
+    refs = {}
+    for cd in (bf16, None):
+        t0 = time.perf_counter()
+        ref_conv = rd.unpartitioned_conv(src, dst, typ, n_pad, slots, dev, cd)
+        print(f"  AM unpartitioned edges of the same graph built in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        reset()
+        ref = refs[cd] = rd.run_loop(params, ref_conv, dev, AM_HALO_STEPS)
+        del ref_conv
+        torch.cuda.empty_cache()
+        name = f"unpartitioned {dtype_name(cd or torch.float32)}"
+        print(f"  AM {name} fused: {ref['ms_per_step']:.3f} ms/step, peak "
+              f"{ref['peak_mib']:.0f} MiB, loss {ref['losses'][0]:.7f} -> "
+              f"{ref['losses'][-1]:.7f}", flush=True)
+        out["halo"][name] = {
+            key: ref[key] for key in ("ms_per_step", "peak_mib", "losses")}
+    try:
+        for mode, env, key in (("library", None, "library"),
+                               ("#6", "1", "kernel"), ("#7", "fused", "fused")):
+            if env is None:
+                os.environ.pop(EXCHANGE_ENV, None)
+            else:
+                os.environ[EXCHANGE_ENV] = env
+            # multihost_sim's loop: the same launches a shard and step, and
+            # none of the kernels the mode does not use
+            want = dict.fromkeys(ra.COUNTED, 0)
+            want.update((n, c * rd.S) for n, c in mh.EXPECTED[key].items())
+            if mode == "#6":
+                want["halo_exchange"] = 4
+            for cd in (bf16, None):
+                name = f"halo {mode} {dtype_name(cd or torch.float32)}"
+                reset()
+                res = rd.run_loop(params, rd.halo_conv(he, mesh, cd), dev,
+                                  AM_HALO_STEPS)
+                if not np.isfinite(res["losses"]).all():
+                    fail(f"AM {name}: losses {res['losses']}")
+                for i, st in enumerate(res["launches"]):
+                    bad = {n: (st[n], c) for n, c in want.items()
+                           if st[n] != c}
+                    if bad:
+                        fail(f"AM {name} step {i}: launches (got, want) {bad}")
+                line = (f"  AM {name}: {res['ms_per_step']:.3f} ms/step "
+                        f"(first step {res['first_step_s']:.2f} s), peak "
+                        f"{res['peak_mib']:.0f} MiB, loss "
+                        f"{res['losses'][0]:.7f} -> {res['losses'][-1]:.7f}")
+                ref = refs[cd]["losses"]
+                rtol = 1e-4 if cd is None else 5e-3
+                rel = max(abs(a - b) / abs(b)
+                          for a, b in zip(res["losses"], ref))
+                if not np.allclose(res["losses"], ref, rtol=rtol, atol=0):
+                    fail(f"AM {name} losses {res['losses']} differ from the "
+                         f"unpartitioned run's {ref}")
+                line += (f"; matches the unpartitioned run (max rel diff "
+                         f"{rel:.2e}, limit {rtol:.0e})")
+                print(line, flush=True)
+                out["halo"][name] = {key: res[key] for key in (
+                    "ms_per_step", "first_step_s", "peak_mib", "losses")}
+    finally:
+        os.environ.pop(EXCHANGE_ENV, None)
+    return out
+
+
 def main() -> None:
     phase("1 environment")
     try:
@@ -2045,6 +2286,10 @@ def main() -> None:
     multihost = multihost_phase(torch.cuda.device_count())
     shared = multihost["2 processes x 2 shards, one card"]
 
+    phase("13 the AM shape (rehearse_am, rehearse_am_dist) on the card")
+    torch.cuda.empty_cache()
+    am = am_phase(launches, reset)
+
     kernels = []
     b = bench[("layer1", "float32")]
     for kname, key, src_file, replaces in (
@@ -2151,7 +2396,8 @@ def main() -> None:
         "checkpoint": ckpt,
         "multihost": {name: {k: rec[k] for k in (
             "backend", "modes", "calls", "barrier", "plan_load_s")}
-            for name, rec in multihost.items()}}),
+            for name, rec in multihost.items()},
+        "am_shape": am}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

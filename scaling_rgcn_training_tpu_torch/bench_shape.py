@@ -1,7 +1,8 @@
 """The bench shape of the port's card runs (``chip_smoke.py``,
 ``profile_step.py`` and ``bwd_variants.py``): the JAX package's
 ``bench.py`` graph size, uniform random edges from seed 0, a labelled split
-and the baseline embedding model's trainer. Nothing here measures; the
+and the baseline embedding model's trainer; and the AM shape's constants
+(``rehearse_am.py``, ``rehearse_am_dist.py``). Nothing here measures; the
 tools build their runs from it, so their numbers are taken on the same
 graph.
 """
@@ -20,6 +21,12 @@ SLOTS = 2 * R + 1
 N_TRAIN, N_VAL = 4096, 1024
 # summary graphs whose embeddings the MLP and attention heads take
 NUM_SUMS = 4
+# the AM shape (the JAX package's scripts/rehearse_am.py:38-43,67): the
+# reference's largest dataset, 133 relations (2 * R + 1 = 267 slots),
+# 64 -> 16 -> 11, 8,192 labelled rows; rehearse_am.py and
+# rehearse_am_dist.py draw its graph
+AM_N, AM_E, AM_R, AM_D, AM_HL, AM_C = 1_600_000, 12_000_000, 133, 64, 16, 11
+AM_LABELLED = 8192
 
 
 def bench_edges(seed: int = 0, n: Optional[int] = None,

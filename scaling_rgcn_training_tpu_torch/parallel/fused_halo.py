@@ -362,7 +362,13 @@ class FusedHaloApply(torch.autograd.Function):
         x_owns, ws = tensors[:k], tensors[k:]
         aggs, bufs = fused_halo_shards(x_owns, ws, shards, mesh, want_buf)
         if want_buf:
-            ctx.save_for_backward(*x_owns, *ws, *bufs)
+            ctx.save_for_backward(*x_owns, *ws)
+            # the halo buffers are this function's own intermediates: kept
+            # on ctx, so the backward can drop each once its shard is done.
+            # That gives up autograd's version check, which needs none here:
+            # each buffer is a fresh allocation that nothing else aliases
+            # or writes (fused_halo_aggregate, exchange_across)
+            ctx.bufs = list(bufs)
         ctx.shards, ctx.mesh = shards, mesh
         return tuple(aggs)
 
@@ -371,7 +377,12 @@ class FusedHaloApply(torch.autograd.Function):
         shards = ctx.shards
         k = len(shards)
         saved = ctx.saved_tensors
-        x_owns, ws, bufs = saved[:k], saved[k:2 * k], saved[2 * k:]
+        x_owns, ws, bufs = saved[:k], saved[k:], ctx.bufs
+        if any(b is None for b in bufs):
+            raise RuntimeError("kernel #7's backward runs once a forward: "
+                               "an earlier backward of it freed the halo "
+                               "buffers (if that one raised, its error is "
+                               "the cause)")
         halo = shards[0].fused.halo
         s_n = shards[0].fused.num_shards
         dxs, dws, dbufs = [], [], []
@@ -379,12 +390,17 @@ class FusedHaloApply(torch.autograd.Function):
             g = grads[q].to(ws[q].dtype).contiguous()
             dx, dw = span_backward(g, x_owns[q], ws[q], sh.local.span)
             dbuf, dw_halo = span_backward(g, bufs[q], ws[q], sh.halo.span)
+            # freed here, not when the backward returns: held through the
+            # reverse exchange, the k buffers (k S H d_in elements) were
+            # the #7 step's peak above the library exchange's
+            bufs[q] = None
             dxs.append(dx)
             dws.append((dw + dw_halo).to(ws[q].dtype))
             dbufs.append(dbuf.to(x_owns[q].dtype).view(s_n, halo, -1))
         # reverse exchange of the halo cotangents, then the send gather's
         # transpose: the rows each shard shipped get their cotangents back
         dsends = halo_exchange_library(dbufs, ctx.mesh)
+        del dbufs
         for p, sh in enumerate(shards):
             dxs[p] = dxs[p] + send_transpose(
                 dsends[p].reshape(s_n * halo, -1), sh).to(dxs[p].dtype)

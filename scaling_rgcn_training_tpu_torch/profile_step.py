@@ -1,9 +1,13 @@
 """Where a train step's time goes on the card: ``torch.profiler`` over a
 window of ``Trainer.fit`` steps at the bench shape of ``bench_shape.py``
 (also ``chip_smoke.py``'s: N 200,000, E 4,000,000, 91 relation slots,
-64 -> 16 -> 8, uniform random edges from seed 0).
+64 -> 16 -> 8, uniform random edges from seed 0), or with ``--shape am``
+over a window of ``rehearse_am.py``'s steps at the AM shape (N 1,600,000,
+E 12,000,000, 267 slots, 64 -> 16 -> 11, no validation forward; ``--conv``
+``fused`` or ``edge``, the embedding model; ``AM_*`` knobs as there).
 
     python -m scaling_rgcn_training_tpu_torch.profile_step --conv edge
+    python -m scaling_rgcn_training_tpu_torch.profile_step --shape am
 
 ``--conv``: ``fused`` (span kernels), ``edge`` (edges built without the span
 plan, ``backend="pallas"``), ``attention`` (``aggr="attention"``,
@@ -27,10 +31,11 @@ from __future__ import annotations
 
 import argparse
 import os
-import subprocess
 import time
 
 import torch
+
+from scaling_rgcn_training_tpu_torch import rehearse_am as ra
 
 
 def _device_time(evt) -> float:
@@ -46,6 +51,7 @@ def _device_time_total(evt) -> float:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--shape", choices=["bench", "am"], default="bench")
     ap.add_argument("--conv", choices=["fused", "edge", "attention", "halo",
                                        "edge-partition"], default="fused")
     ap.add_argument("--exchange", choices=["library", "kernel", "fused"],
@@ -65,18 +71,74 @@ def main(argv=None) -> None:
                     help="comma-separated operator names to split by input "
                     "shape, e.g. index_select")
     args = ap.parse_args(argv)
+    if args.shape == "am" and (args.conv not in ("fused", "edge")
+                               or args.head != "summation"):
+        ap.error("--shape am takes --conv fused or edge and the summation "
+                 "head")
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    print(ra.card_name(), flush=True)
+    compute_dtype = None if args.dtype == "float32" else args.dtype
+    if args.shape == "am":
+        k = dict(ra.knobs(), inner=args.warmup + args.steps, calls=0)
+        edges, rows, targets, slots, _ = ra.build_edges(k, "cuda")
+
+        def run(on_step):
+            ra.run(k, torch.device("cuda"), edges, rows, targets, slots,
+                   None if compute_dtype is None
+                   else getattr(torch, compute_dtype), args.conv,
+                   on_step=on_step)
+    else:
+        run = _bench_run(args, compute_dtype)
+    stamps = []
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA],
+        schedule=torch.profiler.schedule(wait=args.warmup - 1, warmup=1,
+                                         active=args.steps, repeat=1),
+        record_shapes=args.shapes is not None)
+
+    def on_epoch(epoch):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        prof.step()
+
+    with prof:
+        run(on_epoch)
+    wall = (stamps[-1] - stamps[args.warmup - 1]) * 1e3 / args.steps
+    # device events, without the annotated ranges laid over the kernels
+    # (the profiler's per-step ones, and the optimizer's: counted, the
+    # Adam step's kernels were summed twice into busy)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith(("ProfilerStep", "Optimizer.step#"))]
+    busy = sum(_device_time(e) for e in kernels) / 1e3 / args.steps
+    name = f"{args.conv} {args.exchange}" if args.conv == "halo" else args.conv
+    name += " (AM shape)" if args.shape == "am" else ""
+    name += "" if args.head == "summation" else f" {args.head} head"
+    print(f"{name} {args.dtype}: wall {wall:.3f} ms/step, device busy "
+          f"{busy:.3f} ms/step, idle share {1 - busy / wall:.3f} "
+          f"({args.steps} steps after {args.warmup})", flush=True)
+    for e in sorted(kernels, key=_device_time, reverse=True)[:args.top]:
+        print(f"  {_device_time(e) / 1e3 / args.steps:8.3f} ms/step "
+              f"{e.count / args.steps:6.1f}/step  {e.key[:150]}", flush=True)
+    if args.shapes:
+        _print_by_shape(prof, args.shapes.split(","), args.steps)
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+
+def _bench_run(args, compute_dtype):
+    """``run(on_epoch)``: ``Trainer.fit`` of ``args``' model and conv at
+    the bench shape, ``on_epoch`` after each step."""
     from scaling_rgcn_training_tpu_torch import bench_shape as bs
     from scaling_rgcn_training_tpu_torch.graphs.device import DeviceGraph
     from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import build_rel_edges
     from scaling_rgcn_training_tpu_torch.train.losses import bce_loss
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
     kw = {} if args.conv in ("fused", "halo") else {"backend": "pallas"}
     if args.conv in ("halo", "edge-partition"):
         from scaling_rgcn_training_tpu_torch.parallel import halo, spmd
@@ -102,43 +164,14 @@ def main(argv=None) -> None:
         kw["aggr"] = "attention"
     trainer, model = bs.bench_trainer(
         args.warmup + args.steps, "cuda",
-        compute_dtype=None if args.dtype == "float32" else args.dtype,
+        compute_dtype=compute_dtype,
         head=args.head, **kw)
-    stamps = []
-    prof = torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA],
-        schedule=torch.profiler.schedule(wait=args.warmup - 1, warmup=1,
-                                         active=args.steps, repeat=1),
-        record_shapes=args.shapes is not None)
 
-    def on_epoch(epoch):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        prof.step()
-
-    with prof:
+    def run(on_epoch):
         trainer.fit(model, graph, bce_loss, "sigmoid", sum_graph=False,
                     frozen=() if args.head == "summation" else ("embedding",),
                     verbose=False, on_epoch=on_epoch)
-    wall = (stamps[-1] - stamps[args.warmup - 1]) * 1e3 / args.steps
-    # device events, without the profiler's own per-step annotation
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith("ProfilerStep")]
-    busy = sum(_device_time(e) for e in kernels) / 1e3 / args.steps
-    name = f"{args.conv} {args.exchange}" if args.conv == "halo" else args.conv
-    name += "" if args.head == "summation" else f" {args.head} head"
-    print(f"{name} {args.dtype}: wall {wall:.3f} ms/step, device busy "
-          f"{busy:.3f} ms/step, idle share {1 - busy / wall:.3f} "
-          f"({args.steps} steps after {args.warmup})", flush=True)
-    for e in sorted(kernels, key=_device_time, reverse=True)[:args.top]:
-        print(f"  {_device_time(e) / 1e3 / args.steps:8.3f} ms/step "
-              f"{e.count / args.steps:6.1f}/step  {e.key[:150]}", flush=True)
-    if args.shapes:
-        _print_by_shape(prof, args.shapes.split(","), args.steps)
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
+    return run
 
 
 def _print_by_shape(prof, ops, steps: int) -> None:

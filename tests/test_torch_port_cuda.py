@@ -810,3 +810,71 @@ def test_cuda_two_processes_on_two_cards(tmp_path):
     rec = _multihost(tmp_path, "nccl", "--shards-per-proc", "1", "--cards",
                      "2", "--modes", "library,kernel,fused", "--check")
     assert rec["backend"] == "nccl" and rec["loss_parity"] is True
+
+
+@pytest.mark.cuda
+def test_cuda_rehearse_am_fused_matches_edge_mode():
+    """``rehearse_am``'s loop at a mid size (N 200,000, E 1,500,000, 133
+    relations -> 267 slots, 64 -> 16 -> 11), float32: the fused run (#1,
+    #2 on every step, no #3-#5) against edge mode (#3, #4, #5, no #1, #2),
+    losses within 1e-4 relative at every step (chip_smoke.py phase 5's and
+    13's criterion)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scaling_rgcn_training_tpu_torch import rehearse_am as ra
+
+    k = {"nodes": 200_000, "edges": 1_500_000, "rels": 133, "dim": 64,
+         "hidden": 16, "inner": 3, "calls": 1, "plan_cache": None}
+    dev = torch.device("cuda")
+    edges, rows, targets, slots, _ = ra.build_edges(k, dev)
+    runs = {mode: ra.run(k, dev, edges, rows, targets, slots, None, mode)
+            for mode in ("fused", "edge")}
+    np.testing.assert_allclose(runs["edge"]["losses"],
+                               runs["fused"]["losses"], rtol=1e-4, atol=0)
+    for st in runs["fused"]["launches"]:
+        assert st["span_forward"] == 2 and st["span_backward"] == 2
+        assert not (st["grouped_matmul"] or st["segment_sum"]
+                    or st["grouped_drhs"])
+    for st in runs["edge"]["launches"]:
+        assert st["grouped_matmul"] >= 4 and st["segment_sum"] >= 4
+        assert st["grouped_drhs"] == 2
+        assert not (st["span_forward"] or st["span_backward"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ["1", "fused"])
+def test_cuda_rehearse_am_dist_step_matches_unpartitioned(exchange,
+                                                          monkeypatch):
+    """``rehearse_am_dist``'s executed step over 8 virtual shards of the
+    card at a mid size (N 200,000, E 1,500,000, 267 slots), float32, with
+    #6 (``=1``) and #7 (``=fused``): every step launches the mode's
+    kernels, and the losses match the same loop unpartitioned through the
+    fused conv within 1e-4 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scaling_rgcn_training_tpu_torch import rehearse_am_dist as rd
+    from scaling_rgcn_training_tpu_torch.parallel.halo import (
+        EXCHANGE_ENV, device_put_halo_edges, padded_num_nodes)
+    from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh
+
+    k = {"nodes": 200_000, "edges": 1_500_000, "rels": 133, "dim": 64,
+         "hidden": 16}
+    rng = np.random.default_rng(0)
+    typ = rd.relations(rng, k)
+    src, dst = rd.gen(rng, "uniform", k["nodes"], k["edges"])
+    slots = 2 * k["rels"] + 1
+    dev = torch.device("cuda")
+    mesh = make_mesh(devices=("cuda",) * rd.S)
+    he = device_put_halo_edges(rd.partition(src, dst, typ, k["nodes"],
+                                            slots), mesh)
+    params = rd.make_params(padded_num_nodes(he), k, slots)
+    ref = rd.run_loop(params, rd.unpartitioned_conv(
+        src, dst, typ, padded_num_nodes(he), slots, dev, None), dev, 4)
+    monkeypatch.setenv(EXCHANGE_ENV, exchange)
+    res = rd.run_loop(params, rd.halo_conv(he, mesh, None), dev, 4)
+    np.testing.assert_allclose(res["losses"], ref["losses"], rtol=1e-4,
+                               atol=0)
+    kernel = "halo_exchange" if exchange == "1" else "fused_halo_aggregate"
+    want = 4 if exchange == "1" else 2 * rd.S
+    assert all(st[kernel] == want and st["span_backward"] == 4 * rd.S
+               for st in res["launches"])

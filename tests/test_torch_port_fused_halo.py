@@ -230,3 +230,37 @@ def test_fused_halo_conv_matches_jax_fused_kernel(dtype, monkeypatch):
         np.testing.assert_allclose(g, r, rtol=0,
                                    atol=frac * float(np.abs(r).max()),
                                    err_msg=name)
+
+
+def test_fused_halo_backward_drops_each_halo_buffer():
+    """#7's backward frees each shard's halo buffer once its shard is done
+    (held through the reverse exchange, the buffers were the #7 step's
+    peak above the library exchange's): the gradients are those of the
+    library exchange's step, and a second backward of the same forward
+    raises instead of reading a freed buffer."""
+    he = _partition(4)
+    tmesh = make_mesh(devices=("cpu",) * 4)
+    rng = np.random.default_rng(7)
+    slots, d_in, d_out = 7, 11, 5
+    t = lambda *shape: torch.tensor(rng.standard_normal(shape),
+                                    dtype=torch.float32)
+    x0, w0, b = t(thalo.padded_num_nodes(he), d_in), t(slots, d_in, d_out), \
+        t(d_in, d_out)
+    grads = {}
+    for mode in (None, "fused"):
+        with pytest.MonkeyPatch.context() as mp:
+            if mode is None:
+                mp.delenv(thalo.EXCHANGE_ENV, raising=False)
+            else:
+                mp.setenv(thalo.EXCHANGE_ENV, mode)
+            x = x0.clone().requires_grad_(True)
+            layer = RGCNLayer(w0.clone(), b, torch.zeros(d_out))
+            out = thalo.halo_rgcn_conv(x, he, layer, tmesh)
+            out.square().sum().backward(retain_graph=True)
+            grads[mode] = (x.grad.clone(), layer.weight.grad.clone())
+            if mode == "fused":
+                with pytest.raises(RuntimeError, match="runs once"):
+                    out.square().sum().backward()
+    for got, ref in zip(grads["fused"], grads[None]):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(ref.abs().max()))
