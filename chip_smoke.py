@@ -156,19 +156,27 @@ Phases, in order; any failure exits non-zero:
    and the native and Python parses of a 200,000-entity graph at degree 8
    (the same graph; their seconds), which fails if the native parser did
    not run;
-12. halo training across processes at the bench shape
-   (``multihost_sim``'s loop, 10 steps): 2 processes x 2 shards sharing the
-   card over gloo, the library exchange, #6 and #7 in float32 and #7 with
-   bfloat16 streams, #6 and #7 reading the other process's rows through
-   CUDA IPC; losses against the single-process 4-shard run of the same
-   mode on the card (float32 rtol 1e-5 and atol 1e-6, bfloat16 rtol 5e-3
-   and atol 5e-3 of the first loss), each child's
-   launches of its mode's kernels on every step, #6, #7 and the library
-   exchange across processes against their plain versions at S = 2 and 4
-   (a peer that ships no rows), ms/step and peak memory of each process,
-   and per call at layer 1's width #6, #7 and the library exchange across
-   processes and in one process beside their bounds, and the host
-   barrier; with 2 cards or more also 2 processes x 1 card over NCCL;
+12. training across processes at the bench shape (``multihost_sim``'s
+   loop, 10 steps): 2 processes x 2 shards sharing the card over gloo, the
+   halo partition with the library exchange, #6 and #7 in float32 and #7
+   with bfloat16 streams, #6 and #7 reading the other process's rows
+   through CUDA IPC, and the edge partition in float32 and bfloat16 (#4,
+   #3 and #5 on each process's shards, the partial sums and cotangents
+   summed across the processes); losses against the single-process
+   4-shard run of the same mode on the card (float32 rtol 1e-5 and atol
+   1e-6, bfloat16 rtol 5e-3 and atol 5e-3 of the first loss; the edge
+   partition's first loss with its bits), each child's launches of its
+   mode's kernels on every step and of no other, the replicated state's
+   bits the same on both processes, #6, #7 and the library exchange
+   across processes against their plain versions at S = 2 and 4 (a peer
+   that ships no rows), one layer of the edge partition across processes
+   against one process's at S = 2 and 4 (a process whose shards hold only
+   padding rows), ms/step and peak memory of each process, the MB each
+   process gathers a step in the edge partition, and per call at layer
+   1's width #6, #7 and the library exchange across processes and in one
+   process beside their bounds, the host barrier, and the edge
+   partition's cross-process sums beside their bytes; with 2 cards or
+   more also 2 processes x 1 card over NCCL;
 13. the AM shape (``bench_shape.AM_*``: N 1,600,000, E 12,000,000, 267
    relation slots, 64 -> 16 -> 11, 8,192 labelled rows; ``am_phase``):
    ``rehearse_am``'s loop fused with bfloat16 streams and in float32
@@ -197,7 +205,9 @@ The second-to-last line is a JSON object with one entry per kernel (#1's,
 #2's, #3's, #4's, #5's, #7's and #8's with ``previous_ms``, their earlier
 routes' times in the same run; #3's, #4's, #5's, #7's and #8's with the
 CUDA kernels they launch; #6's and #7's with ``cross_process``, phase 12's
-per-call times across processes and the launches of each child); the line
+per-call times across processes and the launches of each child; #3's,
+#4's and #5's with ``cross_process``, the launches of each child in phase
+12's float32 edge-partition run); the line
 before it holds the run's other numbers (phase 13's under ``am_shape``);
 the last line is ``{"ok": true, "device":
 {...}}``.
@@ -1678,20 +1688,29 @@ def native_parse_check() -> dict:
 
 def multihost_phase(cards: int) -> dict:
     """Phase 12: ``multihost_sim`` at the bench shape (its loop: embedding
-    -> halo conv -> ReLU -> halo conv -> BCE over 4,096 labelled rows ->
-    Adam 0.05) over 2
-    processes x 2 shards sharing the card, the library exchange, #6 and
-    #7 in float32 and #7 with bfloat16 streams, 10 steps each, against the
-    single-process run of the same 4 shards on the card (phase 8's layout)
-    in the same call (``multihost_sim``'s tolerances: float32 rtol 1e-5,
-    bfloat16 rtol 5e-3 with an absolute floor); every child must
-    launch its mode's kernels on every step (``multihost_sim`` raises
-    otherwise, and the record is checked here), and holds #6, #7 and the
-    library exchange across processes against their plain versions at
-    S = 2 and 4 (``--check``). Per call at layer 1's width, across
+    -> conv -> ReLU -> conv -> BCE over 4,096 labelled rows -> Adam 0.05)
+    over 2 processes x 2 shards sharing the card: the halo partition with
+    the library exchange, #6 and #7 in float32 and #7 with bfloat16
+    streams, and the edge partition (#4, #3 and #5 on each process's
+    shards, the partial sums and cotangents summed across the processes
+    through the host over gloo) in float32 and bfloat16, 10 steps each,
+    against the single-process run of the same 4 shards on the card
+    (phase 8's layout) in the same call (``multihost_sim``'s tolerances:
+    float32 rtol 1e-5, bfloat16 rtol 5e-3 with an absolute floor; the edge
+    partition's first loss with the one-process run's bits); every child
+    must launch its mode's kernels on every step and no other counted
+    kernel (``multihost_sim`` raises otherwise, and the record is checked
+    here), and both processes must end with the same bits of every
+    replicated tensor and Adam moment. ``--check``: #6, #7 and the library
+    exchange across processes against their plain versions at S = 2 and
+    4, and one layer of the edge partition across processes against one
+    process's (the summed output and the cotangents bit for bit) at S = 2
+    and 4, a process whose shards hold only padding rows among them. Per call at layer 1's width, across
     processes and in one process: #6, the library exchange and #7 beside
-    their bounds, and the host barrier alone. With 2 cards or more, also
-    2 processes x 1 card over NCCL, float32."""
+    their bounds, the host barrier alone, and the edge partition's
+    cross-process sums (forward: each process's 2 partials; backward: the
+    ``[N, D]`` and ``w`` cotangents) beside their bytes. With 2 cards or
+    more, also 2 processes x 1 card over NCCL, float32."""
     import torch
     from scaling_rgcn_training_tpu_torch import bench_shape as bs
     from scaling_rgcn_training_tpu_torch import multihost_sim as mh
@@ -1701,14 +1720,20 @@ def multihost_phase(cards: int) -> dict:
            "MH_BF16": "0", "MH_LABELLED": str(bs.N_TRAIN)}
     layouts = [("2 processes x 2 shards, one card", ["--shards-per-proc", "2",
                 "--cards", "1", "--modes",
-                "library-f32,kernel-f32,fused-f32,fused-bf16", "--check",
-                "--time-calls"])]
+                "library-f32,kernel-f32,fused-f32,fused-bf16,edge-f32,"
+                "edge-bf16", "--check", "--time-calls"])]
     if cards >= 2:
         layouts.append(("2 processes x 1 card, NCCL", [
             "--shards-per-proc", "1", "--cards", "2", "--modes",
-            "library-f32,kernel-f32,fused-f32", "--time-calls"]))
+            "library-f32,kernel-f32,fused-f32,edge-f32", "--time-calls"]))
     else:
         print("  2 processes x 1 card over NCCL: skipped (1 card)", flush=True)
+    # the kernels each mode must launch on every step
+    needs = {"library": ("span_forward", "span_backward", "segment_sum"),
+             "kernel": ("halo_exchange", "span_backward", "segment_sum"),
+             "fused": ("fused_halo_aggregate", "span_backward",
+                       "segment_sum"),
+             "edge": ("grouped_matmul", "segment_sum", "grouped_drhs")}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     out = {}
@@ -1727,40 +1752,67 @@ def multihost_phase(cards: int) -> dict:
                     fail(f"multihost {name}: {e}")
             print(f"  multihost {name}: {time.perf_counter() - t0:.1f} s in "
                   f"all (backend {rec['backend']}, n_per {rec['n_per']}, H "
-                  f"{rec['halo']}, partition built once in "
-                  f"{rec['partition_build_s']:.2f} s, loaded by the "
-                  f"processes in {[round(v, 2) for v in rec['plan_load_s']]}"
+                  f"{rec['halo']}, edge shard rows {rec['edge_shard_rows']}; "
+                  "partitions built once in "
+                  f"{ {k: round(v, 2) for k, v in rec['partition_build_s'].items()} }"
+                  " s, loaded by the processes in "
+                  f"{[{k: round(v, 2) for k, v in c.items()} for c in rec['plan_load_s']]}"
                   " s)", flush=True)
             for tag, m in rec["modes"].items():
                 pairs = list(zip(m["multi_process_losses"],
                                  m["single_process_losses"]))
                 rel = max(abs(a - b) / abs(b) for a, b in pairs)
                 diff = max(abs(a - b) for a, b in pairs)
+                edge = tag.startswith("edge")
+                memory = (f"peak MiB {m['peak_mib']}" if edge else
+                          f"peak MiB {m['peak_mib']} + IPC buffers "
+                          f"{m['shared_mib']}")
                 print(f"  multihost {name} {tag}: ms/step {m['ms_per_step']} "
-                      f"(one process: {m['single_ms_per_step']:.3f}), peak "
-                      f"MiB {m['peak_mib']} + IPC buffers {m['shared_mib']} "
-                      f"(one process: {m['single_peak_mib']:.0f}), losses "
-                      f"{m['multi_process_losses'][0]:.7f} -> "
+                      f"(one process: {m['single_ms_per_step']:.3f}), "
+                      f"{memory} (one process: {m['single_peak_mib']:.0f}), "
+                      f"losses {m['multi_process_losses'][0]:.7f} -> "
                       f"{m['multi_process_losses'][-1]:.7f}, max rel diff "
                       f"{rel:.2e}, max abs diff {diff:.2e} (rtol "
-                      f"{m['rtol']:.0e}, atol {m['atol']:.1e})", flush=True)
+                      f"{m['rtol']:.0e}, atol {m['atol']:.1e}), replicated "
+                      "state the same bits on both processes: "
+                      f"{m['replicated_bits_equal']}", flush=True)
+                if edge:
+                    print(f"  multihost {name} {tag}: each process gathered "
+                          f"{m['gathered_mb_per_step']} MB out a step (as "
+                          "many in from the other); the one-process run's "
+                          f"bits: first loss {m['first_loss_same_bits']}, "
+                          f"every loss {m['loss_series_same_bits']}",
+                          flush=True)
                 if not m["loss_parity"]:
                     fail(f"multihost {name} {tag}: losses "
                          f"{m['multi_process_losses']} differ from the "
-                         f"single-process run's {m['single_process_losses']}")
-                kernel = {"library": "span_forward", "kernel": "halo_exchange",
-                          "fused": "fused_halo_aggregate"}[tag.split("-")[0]]
+                         f"single-process run's {m['single_process_losses']}"
+                         + (f" (first loss same bits: "
+                            f"{m['first_loss_same_bits']})" if edge else ""))
+                if not m["replicated_bits_equal"]:
+                    fail(f"multihost {name} {tag}: the processes ended with "
+                         "different bits of the replicated state")
+                need = needs[tag.split("-")[0]]
                 for proc in m["launches"]:
                     if len(proc) != 10 or not all(
-                            st[kernel] and st["span_backward"]
-                            and st["segment_sum"] for st in proc):
+                            all(st[k] for k in need) for st in proc):
                         fail(f"multihost {name} {tag}: a child missed its "
                              f"kernels on a step: {proc}")
+            if "--check" in extra and not (rec.get("check")
+                                           and rec.get("edge_check")):
+                fail(f"multihost {name}: --check left no record")
             for child, checks in enumerate(rec.get("check", [])):
                 print(f"  multihost {name} process {child}: #6, #7 and the "
                       "library exchange across processes match their plain "
                       f"versions at {[c['shards'] for c in checks]} shards "
                       f"(#7 max_abs_err {max(c['fused_err'] for c in checks):.2e})",
+                      flush=True)
+            for child, checks in enumerate(rec.get("edge_check", [])):
+                print(f"  multihost {name} process {child}: the edge "
+                      "partition's summed output and x, w cotangents across "
+                      "processes have one process's bits, f32 and bf16, at "
+                      "(S, E, this process's real edges a shard) "
+                      f"{[(c['shards'], c['edges'], c['local_edges']) for c in checks]}",
                       flush=True)
             calls = rec["calls"]
             for key in ("halo_exchange", "library_exchange",
@@ -1772,6 +1824,17 @@ def multihost_phase(cards: int) -> dict:
                       f"{calls['multi'][0][key]['bound_ms']:.4f}), one "
                       f"process {calls['single'][key]['ms']:.4f} ms (bound "
                       f"{calls['single'][key]['bound_ms']:.4f})", flush=True)
+            ec = rec["edge_calls"]
+            for key in ("forward_sum", "backward_sum"):
+                multi = [c[key] for c in ec["multi"]]
+                one = (f"; one process over its 4 shards "
+                       f"{ec['single'][key]['ms']:.4f} ms")
+                print(f"  multihost {name} edge partition {key} per call at "
+                      f"{ec['single']['d_in']}->{ec['single']['d_out']} f32: "
+                      f"across processes {[round(c['ms'], 3) for c in multi]}"
+                      f" ms, {multi[0]['mb_out']:.2f} MB out and "
+                      f"{multi[0]['mb_in']:.2f} MB in a process{one}",
+                      flush=True)
             print(f"  multihost {name} host barrier "
                   f"{[round(c['barrier_ms'], 4) for c in calls['multi']]} ms"
                   f" a call; in the run {rec['barrier']}", flush=True)
@@ -2281,8 +2344,8 @@ def main() -> None:
     ckpt["cli"] = cli_checkpoint_phase()
     ckpt["native_parse"] = native_parse_check()
 
-    phase("12 halo training across processes (multihost_sim) at the bench "
-          "shape")
+    phase("12 training across processes (multihost_sim: halo and edge "
+          "partitions) at the bench shape")
     multihost = multihost_phase(torch.cuda.device_count())
     shared = multihost["2 processes x 2 shards, one card"]
 
@@ -2328,6 +2391,11 @@ def main() -> None:
                      "grouped_drhs": ["drhs_tc_kernel",
                                       "drhs_reduce_kernel"]}[kname],
             previous_ms=r["previous_ms"])
+        # phase 12's edge partition across 2 processes: each child's
+        # launches in its 10 float32 steps
+        kernels[-1]["cross_process"] = {"launches": [
+            sum(st[kname] for st in proc)
+            for proc in shared["modes"]["edge-f32"]["launches"]]}
     for kname, key, replaces, run in (
             ("halo_exchange", "exchange", "ring_halo.py:42", "halo #6"),
             ("fused_halo_aggregate", "fused", "fused_halo.py:307",
@@ -2394,8 +2462,9 @@ def main() -> None:
                      **head_launches},
         "bwd_variants": bwd["rows"], "layer_gradients": grads,
         "checkpoint": ckpt,
-        "multihost": {name: {k: rec[k] for k in (
-            "backend", "modes", "calls", "barrier", "plan_load_s")}
+        "multihost": {name: {k: rec.get(k) for k in (
+            "backend", "modes", "calls", "edge_calls", "edge_check",
+            "barrier", "plan_load_s")}
             for name, rec in multihost.items()},
         "am_shape": am}),
           flush=True)

@@ -49,8 +49,10 @@ def build_device_graph(graph: Graph, device, mesh=None,
     unchanged. ``reorder`` (halo only): relabel nodes by label-propagation
     clustering (``parallel/reorder.py``) before partitioning, which shrinks
     the halo exchange on community-structured graphs; ``node_perm`` keeps
-    the relabeling. ``plan_cache``: a directory where the edge plans are
-    kept and reused (``utils/plancache.py``)."""
+    the relabeling. On a mesh of several processes every process builds
+    (or loads) the plan of all ``mesh.size`` shards and places only its
+    own. ``plan_cache``: a directory where the edge plans are kept and
+    reused (``utils/plancache.py``)."""
     idx = lambda a: None if a is None else torch.as_tensor(
         np.asarray(a), dtype=torch.int64).to(device)
     lab = lambda a: None if a is None else torch.as_tensor(

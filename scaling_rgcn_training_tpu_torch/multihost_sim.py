@@ -1,64 +1,100 @@
-"""Halo training across processes: P processes x k shards against the
-single-process run of the same S = P * k shards.
+"""Training across processes, in the halo partition or the edge
+partition: P processes x k shards against the single-process run of the
+same S = P * k shards.
 
 Counterpart of the JAX package's ``scripts/multihost_sim.py``:
 
     python -m scaling_rgcn_training_tpu_torch.multihost_sim \\
         [--device cpu|cuda] [--procs P] [--shards-per-proc k] [--cards C] \\
-        [--modes library,kernel,fused-bf16,...] [--widths D,HL,C] \\
+        [--modes library,kernel,fused-bf16,edge-f32,...] [--widths D,HL,C] \\
         [--check] [--time-calls] [--ckpt DIR] [--workdir DIR]
 
 The parent makes the graph from numpy seed 0 as the JAX script does
 (``src``, ``dst`` uniform over N, the relation over 2R; locality reorder
-with ``MH_REORDER``), builds the halo partition of S shards once into a
-plan cache in its work directory, runs the single-process S-shard run of
-each mode (the oracle), then spawns P children (``--child r``). Each joins
-the process group (``parallel/mesh.py`` ``initialize_multihost``: gloo on
-the CPU and when the processes share a card, NCCL with a card each; the
-rendezvous is ``tcp://localhost:MH_PORT`` with ``MH_PORT`` set, else a
-file in the work directory), loads the partition from the plan cache and
-runs the same loop with its k shards, the exchange crossing the
+with ``MH_REORDER``), builds the partitions the modes need once, S shards
+each, into a plan cache in its work directory (the halo partition,
+``pad_to_multiple=64``; the edge partition, ``shard_rel_edges``' default
+512), runs the single-process S-shard run of each mode (the oracle), then
+spawns P children (``--child r``). Each joins the process group
+(``parallel/mesh.py`` ``initialize_multihost``: gloo on the CPU and when
+the processes share a card, NCCL with a card each; the rendezvous is
+``tcp://localhost:MH_PORT`` with ``MH_PORT`` set, else a file in the work
+directory), loads the partitions from the plan cache and runs the same
+loop with its k shards, the partition's collectives crossing the
 processes. The parent prints one JSON line: per mode both loss series and
 ``loss_parity`` (float32 ``np.allclose(rtol=1e-5, atol=1e-6)``, the JAX
 script's; bfloat16 streams ``rtol=5e-3`` with ``atol`` 5e-3 of the first
 loss: as the loop learns the labels the loss falls ~1000x, and a bf16
 rounding that the float32 sums' other order flips moves a loss of 0.002
-by a few percent while the difference stays ~1e-4 of the first loss),
-ms/step, peak memory and each process's kernel launches a step, and
-exits 1 unless every mode matches.
-A child that fails makes the run raise; the others are killed.
+by a few percent while the difference stays ~1e-4 of the first loss; in
+the edge partition also the first loss with the one-process run's bits,
+since the forward adds the shards' partials in the same order, and
+``loss_series_same_bits`` says whether every loss kept them: the backward
+adds the shards' cotangents in one order in both layouts), whether
+every process ended with the same bits of every replicated tensor and
+Adam moment (``replicated_bits_equal``), ms/step, peak memory and each
+process's kernel launches a step (the edge partition: also the MB each
+process contributes to the cross-process sums a step), and exits 1 unless
+every mode matches. A child that fails, or that is still running at
+``--timeout`` (a collective one process never entered), makes the run
+raise; the others are killed.
 
-The loop: embedding ``[S * n_per, D]`` -> halo conv -> ReLU -> halo conv
--> BCE over the labelled rows -> Adam 0.05 (no L2), the parameters drawn
-with ``np.random.default_rng`` (seed 1; the layers as ``init_rgcn_layer``
-draws them). A process's loss is the sum over its labelled rows, summed
-over the processes in rank order and divided by the global count; the
-layers' gradients are summed across processes
-(``mesh.sum_replicated_grads``). The labelled rows (``MH_LABELLED``,
-128 as in the JAX script) are spread evenly over the graph (the JAX
-script takes the first 128, which all lie on process 0).
+The loop: embedding -> conv -> ReLU -> conv -> BCE over the labelled rows
+-> Adam 0.05 (no L2), the parameters drawn with
+``np.random.default_rng`` (seed 1; the layers as ``init_rgcn_layer``
+draws them). The labelled rows (``MH_LABELLED``, 128 as in the JAX
+script) are spread evenly over the graph (the JAX script takes the first
+128, which all lie on process 0).
 
-``--modes``: ``library``, ``kernel`` (#6) or ``fused`` (#7), each with
-``-f32`` or ``-bf16`` for its edge streams (default ``MH_BF16``); by
-default the one mode ``RGCN_HALO_PALLAS_A2A`` picks, as in the JAX
-package. On the card every child must launch each of its mode's kernels
-the expected number of times on every step (#1 and #2, #3 for the send
-transposes, #6 or #7), or it fails.
+- Halo partition (``library``, ``kernel``, ``fused``): the embedding
+  ``[S * n_per, D]`` is sharded by rows, the conv is ``halo_rgcn_conv``.
+  A process's loss is the sum over its labelled rows, summed over the
+  processes in rank order and divided by the global count; the layers'
+  gradients are summed across processes (``mesh.sum_replicated_grads``).
+- Edge partition (``edge``): the embedding ``[N, D]`` is replicated, the
+  conv is ``parallel/spmd.py`` ``sharded_rgcn_conv`` with the kernels'
+  grouped matmul (``backend="pallas"``: #4, #3 and #5 on every process's
+  shards). Every process takes every labelled row; the loss is the
+  replicated mean. Only the aggregation's partial sums and cotangents
+  cross the processes (``spmd.SumShards``, ``spmd.ShardInputs``): each
+  process's per-shard partials forward and per-shard cotangents backward
+  are gathered and added in global shard order, as one process adds
+  them. The root term, the loss and Adam run on whole replicated
+  tensors, so their gradients are not summed again.
 
-``--check``: each child holds the library exchange, #6 and #7 across
-processes against the single-process plain versions on the whole data
-(the exchanges and the halo buffers bit for bit, #7's sums within f32
-1e-4 / bf16 2e-2 of max|ref|; two runs the same bits) at S = P and 2P
-over graphs where a shard has no halo edges and (from 3 shards) a peer
-ships no rows, float32 and bfloat16. ``--time-calls`` (card): each
-exchange and #7 per call at layer 1's width across processes, and by the
-parent in one process, beside their bounds (``fused_halo_cost`` with the
-``x_own`` copy), and the host barrier alone. ``--ckpt DIR``: each mode's
-state before its first step and after its last written through
+``--modes``: ``library``, ``kernel`` (#6), ``fused`` (#7) or ``edge``,
+each with ``-f32`` or ``-bf16`` for its edge streams (default
+``MH_BF16``); by default the one halo mode ``RGCN_HALO_PALLAS_A2A``
+picks, as in the JAX package. On the card every child must launch each of
+its mode's kernels the expected number of times on every step (halo: #1
+and #2, #3 for the send transposes, #6 or #7; edge: #4, #3, #5) and no
+other counted kernel, or it fails.
+
+``--check``: for the halo modes each child holds the library exchange,
+#6 and #7 across processes against the single-process plain versions on
+the whole data (the exchanges and the halo buffers bit for bit, #7's sums
+within f32 1e-4 / bf16 2e-2 of max|ref|; two runs the same bits) at S = P
+and 2P over graphs where a shard has no halo edges and (from 3 shards) a
+peer ships no rows, float32 and bfloat16; for the edge mode, one layer's
+aggregation across processes (the summed output and the ``x`` and ``w``
+cotangents) against the one-process ``sharded_aggregate`` of every shard
+on the same data, at S = P and 2P, on a random graph and on 600 edges cut
+into shards of 512 (from 3 shards the last shards hold only padding
+rows), float32 and bfloat16: all three bit for bit.
+``--time-calls`` (card): each exchange and #7 per call at
+layer 1's width across processes, and by the parent in one process,
+beside their bounds (``fused_halo_cost`` with the ``x_own`` copy), and
+the host barrier alone; for the edge mode the sums of a layer-1 forward
+(the shards' partials ``[N, HL]``) and of its backward (the shards'
+``[N, D]`` and ``w`` cotangents) per call, across processes beside the
+bytes a process contributes and receives, and in one process over its S
+shards. ``--ckpt DIR``: each
+mode's state before its first step and after its last written through
 ``utils/checkpoint.py`` by both layouts (``{single,multi}-{mode}-{step0,
-final}.npz``); every child reads the multi files back and checks its
-rows, and the parent reads the multi step-0 files into one process and
-checks their bits against its own.
+final}.npz``; the edge mode's state is replicated, so each child writes
+its own, ``multi-{mode}-{tag}-rank{r}.npz``); every child reads its files
+back and checks them, and the parent reads the multi step-0 files into
+one process and checks their bits against its own.
 
 Knobs, as the JAX script's: ``MH_NODES`` (2048), ``MH_EDGES`` (16384),
 ``MH_RELS`` (5), ``MH_STEPS`` (5), ``MH_BF16`` (1), ``MH_REORDER`` (1),
@@ -72,6 +108,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import hashlib
 import json
 import os
 import shutil
@@ -86,17 +123,26 @@ import numpy as np
 
 LR = 0.05
 CHILD_TAG = "MH_CHILD "
-MODES = {"library": None, "kernel": "1", "fused": "fused"}
-# per step and shard of a process: (forward) the local and halo span
+# the halo exchange RGCN_HALO_PALLAS_A2A selects for each mode (the edge
+# partition exchanges no halo)
+MODES = {"library": None, "kernel": "1", "fused": "fused", "edge": None}
+# per step and shard of a process: (halo forward) the local and halo span
 # forwards of both layers, (backward) their span backwards and the send
-# gathers' transposes (#3); #6 per exchange call, #7 per shard and layer
+# gathers' transposes (#3); #6 per exchange call, #7 per shard and layer;
+# (edge) #4 and #3 for both layers' messages and sums, then each layer's
+# d_lhs, dx sum and d_rhs (the embedding takes a gradient)
 EXPECTED = {
     "library": {"span_forward": 4, "span_backward": 4, "segment_sum": 2},
     "kernel": {"span_forward": 4, "span_backward": 4, "segment_sum": 2},
     "fused": {"fused_halo_aggregate": 2, "span_backward": 4,
-              "segment_sum": 2}}
-COUNTED = ("span_forward", "span_backward", "segment_sum", "halo_exchange",
-           "fused_halo_aggregate")
+              "segment_sum": 2},
+    "edge": {"grouped_matmul": 4, "segment_sum": 4, "grouped_drhs": 2}}
+COUNTED = ("span_forward", "span_backward", "segment_sum", "grouped_matmul",
+           "grouped_drhs", "halo_exchange", "fused_halo_aggregate")
+
+
+def partition_of(mode: str) -> str:
+    return "edge" if mode == "edge" else "halo"
 
 
 def knobs() -> Dict[str, int]:
@@ -150,7 +196,14 @@ def labels(num_nodes: int, classes: int, labelled: int):
     return rows, np.eye(classes, dtype=np.float32)[np.arange(count) % classes]
 
 
-def partition(src, dst, typ, n, slots, num_shards, cache_dir):
+def partition(kind: str, src, dst, typ, n, slots, num_shards, cache_dir):
+    """The host plan of the ``"halo"`` or ``"edge"`` partition."""
+    if kind == "edge":
+        from scaling_rgcn_training_tpu_torch.parallel.spmd import (
+            shard_rel_edges)
+
+        return shard_rel_edges(src, dst, typ, n, slots, num_shards,
+                               cache_dir=cache_dir)
     from scaling_rgcn_training_tpu_torch.parallel.halo import (
         halo_partition_edges)
 
@@ -159,12 +212,28 @@ def partition(src, dst, typ, n, slots, num_shards, cache_dir):
                                 cache_dir=cache_dir)
 
 
+def place(kind: str, host, mesh):
+    """The partition's plans of this process's shards on the mesh, and the
+    rows of the embedding its loop trains (halo: ``S * n_per``, edge:
+    N)."""
+    if kind == "edge":
+        from scaling_rgcn_training_tpu_torch.parallel.spmd import (
+            device_put_sharded_edges)
+
+        return device_put_sharded_edges(host, mesh), host.num_nodes
+    from scaling_rgcn_training_tpu_torch.parallel.halo import (
+        device_put_halo_edges, padded_num_nodes)
+
+    placed = device_put_halo_edges(host, mesh)
+    return placed, padded_num_nodes(placed)
+
+
 def parse_mode(item: str, bf16_default: bool):
     """``'fused-bf16'`` -> ``('fused', True)``."""
     name, _, dt = item.partition("-")
     if name not in MODES or dt not in ("", "f32", "bf16"):
-        raise ValueError(f"unknown mode {item!r}: library, kernel or fused, "
-                         "with -f32 or -bf16")
+        raise ValueError(f"unknown mode {item!r}: library, kernel, fused or "
+                         "edge, with -f32 or -bf16")
     return name, (dt == "bf16") if dt else bf16_default
 
 
@@ -179,13 +248,15 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def train(mesh, hedges, params, label_rows, targets, mode: str, bf16: bool,
+def train(mesh, edges, params, label_rows, targets, mode: str, bf16: bool,
           steps: int, save: Optional[Callable] = None) -> dict:
-    """``steps`` steps of the loop on ``mesh`` (this process's shards):
-    the loss series, ms/step (median after the first step), peak memory
-    and the kernel launches of each step; ``save(tag, arrays, sharded)``
-    is called with the state before the first step (``step0``) and after
-    the last (``final``)."""
+    """``steps`` steps of the loop on ``mesh`` (this process's shards of
+    the mode's partition ``edges``): the loss series, ms/step (median
+    after the first step), peak memory, the kernel launches and the
+    cross-process sums' bytes of each step, and a digest of the replicated
+    state after the last step; ``save(tag, arrays, sharded)`` is called
+    with the state before the first step (``step0``) and after the last
+    (``final``)."""
     import torch
     import torch.nn.functional as F
 
@@ -196,19 +267,31 @@ def train(mesh, hedges, params, label_rows, targets, mode: str, bf16: bool,
     from scaling_rgcn_training_tpu_torch.parallel.ipc import shared_bytes
     from scaling_rgcn_training_tpu_torch.parallel.mesh import (
         put_global, sum_across, sum_replicated_grads)
+    from scaling_rgcn_training_tpu_torch.parallel.spmd import (
+        CROSS_SUM, sharded_rgcn_conv)
     from scaling_rgcn_training_tpu_torch.train.optim import make_optimizer
 
+    edge = partition_of(mode) == "edge"
     dev = mesh.first
     emb_host, layers_host = params
-    emb = torch.nn.Parameter(put_global(emb_host, mesh))
     layers = [RGCNLayer(*[torch.tensor(a, device=dev) for a in layer])
               for layer in layers_host]
-    rows_per_proc = emb.shape[0]
-    lo = mesh.process_index * rows_per_proc
-    mine = (label_rows >= lo) & (label_rows < lo + rows_per_proc)
-    rows = torch.as_tensor(label_rows[mine] - lo, dtype=torch.int64).to(dev)
-    y = torch.as_tensor(targets[mine]).to(dev)
     count = targets.size
+    if edge:
+        # replicated: every process holds every row and every label
+        emb = torch.nn.Parameter(torch.tensor(emb_host, device=dev))
+        rows = torch.as_tensor(label_rows, dtype=torch.int64).to(dev)
+        y = torch.as_tensor(targets).to(dev)
+        conv = functools.partial(sharded_rgcn_conv, backend="pallas")
+    else:
+        emb = torch.nn.Parameter(put_global(emb_host, mesh))
+        rows_per_proc = emb.shape[0]
+        lo = mesh.process_index * rows_per_proc
+        mine = (label_rows >= lo) & (label_rows < lo + rows_per_proc)
+        rows = torch.as_tensor(label_rows[mine] - lo,
+                               dtype=torch.int64).to(dev)
+        y = torch.as_tensor(targets[mine]).to(dev)
+        conv = halo_rgcn_conv
     replicated = [p for layer in layers for p in layer.parameters()]
     opt = make_optimizer([emb, *replicated], LR, weight_decay=0.0)
     cd = torch.bfloat16 if bf16 else None
@@ -222,8 +305,8 @@ def train(mesh, hedges, params, label_rows, targets, mode: str, bf16: bool,
             for name, p in list(arrays.items()):
                 for moment in ("exp_avg", "exp_avg_sq"):
                     arrays[f"adam/{name}/{moment}"] = opt.state[p][moment]
-        sharded = [n for n in arrays
-                   if n == "emb" or n.startswith("adam/emb/")]
+        sharded = [] if edge else [n for n in arrays
+                                   if n == "emb" or n.startswith("adam/emb/")]
         return {n: v.detach() for n, v in arrays.items()}, sharded
 
     prev = os.environ.get(EXCHANGE_ENV)
@@ -233,30 +316,37 @@ def train(mesh, hedges, params, label_rows, targets, mode: str, bf16: bool,
         os.environ[EXCHANGE_ENV] = MODES[mode]
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    losses, step_ms, launches = [], [], []
+    losses, step_ms, launches, sum_bytes = [], [], [], []
     try:
         if save is not None:
             save("step0", *state(False))
         for _ in range(steps):
             before = {k: LAUNCHES[k] for k in COUNTED}
+            bytes0 = CROSS_SUM["bytes"]
             _sync(dev)
             t0 = time.perf_counter()
             opt.zero_grad(set_to_none=True)
-            z = torch.relu(halo_rgcn_conv(emb, hedges, layers[0], mesh,
-                                          compute_dtype=cd))
-            logits = halo_rgcn_conv(z, hedges, layers[1], mesh,
-                                    compute_dtype=cd)
+            z = torch.relu(conv(emb, edges, layers[0], mesh,
+                                compute_dtype=cd))
+            logits = conv(z, edges, layers[1], mesh, compute_dtype=cd)
             part = F.binary_cross_entropy_with_logits(
                 logits.index_select(0, rows), y, reduction="sum")
             (part / count).backward()
-            sum_replicated_grads(replicated, mesh)
+            if not edge:
+                # a halo process's layers saw its rows only; in the edge
+                # partition every gradient is already whole (summing it
+                # again would count root, bias and the root term P times)
+                sum_replicated_grads(replicated, mesh)
             opt.step()
-            losses.append(sum_across(float(part.detach()), mesh) / count)
+            losses.append((float(part.detach()) if edge else sum_across(
+                float(part.detach()), mesh)) / count)
             _sync(dev)
             step_ms.append((time.perf_counter() - t0) * 1e3)
             launches.append({k: LAUNCHES[k] - before[k] for k in COUNTED})
+            sum_bytes.append(CROSS_SUM["bytes"] - bytes0)
+        final, sharded = state(True)
         if save is not None:
-            save("final", *state(True))
+            save("final", final, sharded)
     finally:
         if prev is None:
             os.environ.pop(EXCHANGE_ENV, None)
@@ -264,7 +354,7 @@ def train(mesh, hedges, params, label_rows, targets, mode: str, bf16: bool,
             os.environ[EXCHANGE_ENV] = prev
     if dev.type == "cuda":
         k = mesh.local_size
-        want = {n: c * k for n, c in EXPECTED[mode].items()}
+        want = {n: EXPECTED[mode].get(n, 0) * k for n in COUNTED}
         if mode == "kernel":
             want["halo_exchange"] = 4
         for i, got in enumerate(launches):
@@ -273,12 +363,18 @@ def train(mesh, hedges, params, label_rows, targets, mode: str, bf16: bool,
                 raise RuntimeError(f"{mode_tag(mode, bf16)} step {i} on "
                                    f"process {mesh.process_index}: launches "
                                    f"(got, want) {bad}")
+    digest = hashlib.sha256()
+    for name in sorted(set(final) - set(sharded)):
+        digest.update(name.encode())
+        digest.update(final[name].cpu().numpy().tobytes())
     peak = torch.cuda.max_memory_allocated(dev) / 2**20 \
         if dev.type == "cuda" else None
     return {"losses": losses, "step_ms": step_ms,
             "ms_per_step": float(np.median(step_ms[1:] or step_ms)),
             "peak_mib": peak, "shared_mib": shared_bytes(mesh) / 2**20,
-            "launches": launches}
+            "launches": launches,
+            "gathered_mb_per_step": [b / 1e6 for b in sum_bytes],
+            "replicated_digest": digest.hexdigest()}
 
 
 def edge_case_partition(rng, s_n: int, n_nodes: int, e: int, slots: int):
@@ -386,6 +482,62 @@ def check_across(device, per_proc=(1, 2)) -> List[dict]:
     return out
 
 
+def check_edge_across(device, per_proc=(1, 2)) -> List[dict]:
+    """One layer of the edge partition across this process group at
+    ``S = P * k`` for each ``k`` in ``per_proc``: the summed output and
+    the ``x`` and ``w`` cotangents against the one-process
+    ``sharded_aggregate`` of every shard in this process, on a random
+    graph and on 600 edges in shards of 512 rows (from 3 shards on the
+    last ones hold only padding rows), float32 and bfloat16, bit for bit
+    (the same per-shard tensors added in the same order). Raises on a
+    mismatch."""
+    import torch
+
+    from scaling_rgcn_training_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from scaling_rgcn_training_tpu_torch.parallel.spmd import (
+        device_put_sharded_edges, shard_rel_edges, sharded_aggregate)
+
+    out = []
+    for k in per_proc:
+        mesh = make_mesh(devices=(device,) * k)
+        s_n = mesh.size
+        one = Mesh((device,) * s_n)
+        rng = np.random.default_rng(200 + s_n)
+        for n, e, pad in ((301 * s_n - 3, 2500 * s_n, 64), (300, 600, 512)):
+            slots = 7
+            host = shard_rel_edges(rng.integers(0, n, e), rng.integers(0, n, e),
+                                   rng.integers(0, slots, e), n, slots, s_n,
+                                   pad_to_multiple=pad)
+            whole = device_put_sharded_edges(host, one)
+            mine = device_put_sharded_edges(host, mesh)
+            for d_in, d_out in ((63, 4), (11, 63)):
+                for dtype in (torch.float32, torch.bfloat16):
+                    rng2 = np.random.default_rng(s_n * 1000 + d_in + e)
+                    t = lambda *shape: torch.as_tensor(rng2.standard_normal(
+                        shape).astype(np.float32)).to(device)
+                    x0, w0, g = t(n, d_in), t(slots, d_in, d_out) * 0.2, \
+                        t(n, d_out)
+                    res = []
+                    for m, edges in ((one, whole), (mesh, mine)):
+                        x = x0.to(dtype).requires_grad_()
+                        w = w0.to(dtype).requires_grad_()
+                        agg = sharded_aggregate(x, w, edges, m,
+                                                backend="pallas")
+                        res.append((agg.detach(),
+                                    *torch.autograd.grad(agg, (x, w), g)))
+                    _sync(device)
+                    for name, got, ref in zip(("output", "dx", "dw"), *res):
+                        if not (torch.equal(got, ref)
+                                and bool(torch.isfinite(got).all())):
+                            raise RuntimeError(
+                                f"edge S {s_n} E {e} {d_in}->{d_out} "
+                                f"{str(dtype)[6:]}: the {name} across "
+                                "processes differs from one process's")
+            out.append({"shards": s_n, "nodes": n, "edges": e,
+                        "local_edges": [sh.num_edges for sh in mine.shards]})
+    return out
+
+
 def time_calls(mesh, hedges, d_in: int, d_out: int, reps: int = 20) -> dict:
     """Per call at ``d_in -> d_out`` float32 over this process's shards
     (CUDA events, after one warm call): #6, the library exchange and #7
@@ -447,18 +599,71 @@ def time_calls(mesh, hedges, d_in: int, d_out: int, reps: int = 20) -> dict:
     return out
 
 
-def _run_modes(args, mesh, hedges, params, lab,
+def time_edge_sum(mesh, num_nodes: int, d_in: int, d_out: int,
+                  slots: int, reps: int = 20) -> dict:
+    """Per call (CUDA events, after one warm call): the edge partition's
+    sums of a layer (``spmd.sum_shards`` over every shard of the mesh):
+    forward, the shards' partials ``[N, d_out]`` float32; backward, the
+    shards' ``[N, d_in]`` and ``w`` cotangents; each beside the bytes
+    this process contributes to and receives from the other processes."""
+    import torch
+
+    from scaling_rgcn_training_tpu_torch.parallel.mesh import host_barrier
+    from scaling_rgcn_training_tpu_torch.parallel.spmd import sum_shards
+
+    dev, k = mesh.first, mesh.local_size
+    rng = np.random.default_rng(8)
+    t = lambda *shape: [torch.as_tensor(rng.standard_normal(shape).astype(
+        np.float32)).to(dev) for _ in range(k)]
+    parts, gx, gw = t(num_nodes, d_out), t(num_nodes, d_in), \
+        t(slots, d_in, d_out)
+    calls = {"forward_sum": (lambda: sum_shards(parts, mesh), [parts]),
+             "backward_sum": (lambda: (sum_shards(gx, mesh),
+                                       sum_shards(gw, mesh)), [gx, gw])}
+    out = {"d_in": d_in, "d_out": d_out, "shards": k}
+    for name, (fn, summed) in calls.items():
+        fn()
+        _sync(dev)
+        if mesh.multiprocess:
+            host_barrier(mesh)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize(dev)
+        sent = sum(v.numel() * v.element_size() for ts in summed for v in ts) \
+            if mesh.multiprocess else 0
+        out[name] = {"ms": start.elapsed_time(end) / reps,
+                     "mb_out": sent / 1e6,
+                     "mb_in": sent * (mesh.process_count - 1) / 1e6}
+    return out
+
+
+def _run_modes(args, mesh, placed, lab,
                save: Optional[Callable] = None) -> Dict[str, dict]:
-    """Every mode of ``--modes`` in turn; ``save(mode, tag, arrays,
-    sharded)`` gets each mode's state before its first step and after its
-    last."""
+    """Every mode of ``--modes`` in turn over ``placed`` (partition ->
+    its plans on the mesh and the embedding's rows); ``save(mode, tag,
+    arrays, sharded)`` gets each mode's state before its first step and
+    after its last."""
     steps = knobs()["steps"]
     res = {}
     for name, bf16 in args.mode_list:
         tag = mode_tag(name, bf16)
-        res[tag] = train(mesh, hedges, params, *lab, name, bf16, steps,
+        edges, rows = placed[partition_of(name)]
+        params = make_params(rows, args.width_list, edges.num_slots)
+        res[tag] = train(mesh, edges, params, *lab, name, bf16, steps,
                          save and functools.partial(save, tag))
     return res
+
+
+def multi_ckpt(tag: str, when: str, rank: int) -> str:
+    """The checkpoint a child writes for mode ``tag``: one for the process
+    group in the halo partition (rank 0 writes the gathered rows), one a
+    process in the edge partition (its replicated state)."""
+    name = f"multi-{tag}-{when}"
+    return f"{name}-rank{rank}" if tag.startswith("edge") else name
 
 
 def _device(args, rank: int):
@@ -477,8 +682,6 @@ def child(args) -> None:
     its record."""
     import torch.distributed as dist
 
-    from scaling_rgcn_training_tpu_torch.parallel.halo import (
-        device_put_halo_edges, padded_num_nodes)
     from scaling_rgcn_training_tpu_torch.parallel.ipc import close_peer_sets
     from scaling_rgcn_training_tpu_torch.parallel.mesh import (
         BARRIER, initialize_multihost, make_mesh)
@@ -494,35 +697,46 @@ def child(args) -> None:
     backend = "nccl" if dev.type == "cuda" and args.cards > 1 else "gloo"
     initialize_multihost(args.init_method, args.procs, rank, backend)
     mesh = make_mesh(devices=(dev,) * args.shards_per_proc)
+    if not mesh.multiprocess:
+        raise RuntimeError(f"process {rank}: the mesh spans one process")
     rec = {"rank": rank, "backend": backend, "device": str(dev)}
     if args.check:
-        rec["check"] = check_across(dev)
+        if "halo" in args.partitions:
+            rec["check"] = check_across(dev)
+        if "edge" in args.partitions:
+            rec["edge_check"] = check_edge_across(dev)
     g = np.load(work / "graph.npz")
-    t0 = time.perf_counter()
-    host = partition(g["src"], g["dst"], g["typ"], int(g["nodes"]),
-                     int(g["slots"]), mesh.size, str(work / "plans"))
-    rec["plan_load_s"] = time.perf_counter() - t0
-    hedges = device_put_halo_edges(host, mesh)
-    del host
-    params = make_params(padded_num_nodes(hedges), args.width_list,
-                         int(g["slots"]))
+    placed, rec["plan_load_s"] = {}, {}
+    for kind in args.partitions:
+        t0 = time.perf_counter()
+        host = partition(kind, g["src"], g["dst"], g["typ"], int(g["nodes"]),
+                         int(g["slots"]), mesh.size, str(work / "plans"))
+        rec["plan_load_s"][kind] = time.perf_counter() - t0
+        placed[kind] = place(kind, host, mesh)
+        del host
     lab = labels(int(g["nodes"]), args.width_list[-1], knobs()["labelled"])
 
     def save_for(mode, tag, arrays, sharded):
-        path = save_checkpoint(
-            os.path.join(args.ckpt, f"multi-{mode}-{tag}"), arrays,
-            mesh=mesh, node_sharded=sharded)
-        back, _ = load_checkpoint(path, mesh=mesh, node_sharded=sharded)
+        # the edge partition's state is replicated: each process writes
+        # its own file
+        group = None if mode.startswith("edge") else mesh
+        path = save_checkpoint(os.path.join(args.ckpt, multi_ckpt(
+            mode, tag, rank)), arrays, mesh=group, node_sharded=sharded)
+        back, _ = load_checkpoint(path, mesh=group, node_sharded=sharded)
         for name, v in arrays.items():
             if not np.array_equal(back[name], v.cpu().numpy()):
                 raise RuntimeError(f"process {rank}: {name} of {path} read "
                                    "back differs")
 
-    rec["modes"] = _run_modes(args, mesh, hedges, params, lab,
+    rec["modes"] = _run_modes(args, mesh, placed, lab,
                               save_for if args.ckpt else None)
     if args.time_calls:
-        rec["calls"] = time_calls(mesh, hedges, args.width_list[0],
-                                  args.width_list[1])
+        widths = args.width_list[0], args.width_list[1]
+        if "halo" in placed:
+            rec["calls"] = time_calls(mesh, placed["halo"][0], *widths)
+        if "edge" in placed:
+            rec["edge_calls"] = time_edge_sum(mesh, int(g["nodes"]), *widths,
+                                              int(g["slots"]))
     rec["barrier"] = dict(BARRIER)
     close_peer_sets(mesh)
     print(CHILD_TAG + json.dumps(rec), flush=True)
@@ -596,8 +810,6 @@ def run(argv: Optional[List[str]] = None) -> dict:
     (raises when a child fails)."""
     import torch
 
-    from scaling_rgcn_training_tpu_torch.parallel.halo import (
-        device_put_halo_edges, padded_num_nodes)
     from scaling_rgcn_training_tpu_torch.parallel.mesh import Mesh
     from scaling_rgcn_training_tpu_torch.utils.checkpoint import (
         load_checkpoint, save_checkpoint)
@@ -613,14 +825,29 @@ def run(argv: Optional[List[str]] = None) -> dict:
         src, dst, typ, slots = make_graph(k, s_n)
         np.savez(work / "graph.npz", src=src, dst=dst, typ=typ,
                  nodes=k["nodes"], slots=slots)
-        t0 = time.perf_counter()
-        host = partition(src, dst, typ, k["nodes"], slots, s_n,
-                         str(work / "plans"))
-        build_s = time.perf_counter() - t0
         dev = _device(args, 0)
         mesh = Mesh((dev,) * s_n)
-        hedges = device_put_halo_edges(host, mesh)
-        params = make_params(padded_num_nodes(hedges), args.width_list, slots)
+        rec = {"processes": args.procs,
+               "shards_per_process": args.shards_per_proc,
+               "global_shards": s_n, "steps": k["steps"],
+               "device": dev.type, "cards": args.cards,
+               "kind": torch.cuda.get_device_name(dev)
+               if dev.type == "cuda" else "cpu",
+               "nodes": k["nodes"], "edges": k["edges"], "slots": slots,
+               "widths": args.width_list, "reorder": k["reorder"],
+               "partition_build_s": {}}
+        placed = {}
+        for kind in args.partitions:
+            t0 = time.perf_counter()
+            host = partition(kind, src, dst, typ, k["nodes"], slots, s_n,
+                             str(work / "plans"))
+            rec["partition_build_s"][kind] = time.perf_counter() - t0
+            if kind == "halo":
+                rec["n_per"], rec["halo"] = host.n_per, host.halo
+            else:
+                rec["edge_shard_rows"] = int(host.src.shape[1])
+            placed[kind] = place(kind, host, mesh)
+            del host
         lab = labels(k["nodes"], args.width_list[-1], k["labelled"])
         step0 = {}
 
@@ -631,61 +858,74 @@ def run(argv: Optional[List[str]] = None) -> dict:
             save_checkpoint(os.path.join(args.ckpt, f"single-{mode}-{tag}"),
                             arrays)
 
-        single = _run_modes(args, mesh, hedges, params, lab,
+        single = _run_modes(args, mesh, placed, lab,
                             save_for if args.ckpt else None)
-        calls = time_calls(mesh, hedges, args.width_list[0],
-                           args.width_list[1]) if args.time_calls else None
-        rec = {"processes": args.procs,
-               "shards_per_process": args.shards_per_proc,
-               "global_shards": s_n, "steps": k["steps"],
-               "device": dev.type, "cards": args.cards,
-               "kind": torch.cuda.get_device_name(dev)
-               if dev.type == "cuda" else "cpu",
-               "nodes": k["nodes"], "edges": k["edges"], "slots": slots,
-               "widths": args.width_list, "n_per": host.n_per,
-               "halo": host.halo, "partition_build_s": build_s,
-               "reorder": k["reorder"]}
-        del hedges, host
+        widths = args.width_list[0], args.width_list[1]
+        calls = time_calls(mesh, placed["halo"][0], *widths) \
+            if args.time_calls and "halo" in placed else None
+        edge_calls = time_edge_sum(mesh, k["nodes"], *widths, slots) \
+            if args.time_calls and "edge" in placed else None
+        del placed
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         children = _spawn(args, work)
         rec["backend"] = children[0]["backend"]
         rec["modes"] = {}
         for tag, s in single.items():
-            multi = children[0]["modes"][tag]["losses"]
+            runs = [c["modes"][tag] for c in children]
+            multi = runs[0]["losses"]
             rtol, atol = (5e-3, 5e-3 * abs(s["losses"][0])) \
                 if tag.endswith("bf16") else (1e-5, 1e-6)
-            rec["modes"][tag] = {
+            m = rec["modes"][tag] = {
                 "single_process_losses": s["losses"],
                 "multi_process_losses": multi,
                 "loss_parity": bool(np.allclose(s["losses"], multi,
                                                 rtol=rtol, atol=atol)),
                 "rtol": rtol, "atol": atol,
+                # every process ended with the same loss series and the
+                # same bits of every replicated tensor and Adam moment
+                "replicated_bits_equal": all(
+                    r["losses"] == multi and r["replicated_digest"]
+                    == runs[0]["replicated_digest"] for r in runs),
                 "single_ms_per_step": s["ms_per_step"],
                 "single_peak_mib": s["peak_mib"],
-                "ms_per_step": [c["modes"][tag]["ms_per_step"]
-                                for c in children],
-                "peak_mib": [c["modes"][tag]["peak_mib"] for c in children],
-                "shared_mib": [c["modes"][tag]["shared_mib"]
-                               for c in children],
-                "launches": [c["modes"][tag]["launches"] for c in children]}
+                "ms_per_step": [r["ms_per_step"] for r in runs],
+                "peak_mib": [r["peak_mib"] for r in runs],
+                "shared_mib": [r["shared_mib"] for r in runs],
+                "launches": [r["launches"] for r in runs],
+                "gathered_mb_per_step": [max(r["gathered_mb_per_step"])
+                                         for r in runs]}
+            if tag.startswith("edge"):
+                # the forward adds the same partials in the same order (and
+                # the backward the same cotangents)
+                m["first_loss_same_bits"] = multi[0] == s["losses"][0]
+                m["loss_series_same_bits"] = multi == s["losses"]
+                m["loss_parity"] = m["loss_parity"] and \
+                    m["first_loss_same_bits"]
         first = next(iter(rec["modes"].values()))
         rec["single_process_losses"] = first["single_process_losses"]
         rec["multi_process_losses"] = first["multi_process_losses"]
         rec["loss_parity"] = all(m["loss_parity"]
                                  for m in rec["modes"].values())
+        rec["replicated_bits_equal"] = all(
+            m["replicated_bits_equal"] for m in rec["modes"].values())
         rec["plan_load_s"] = [c["plan_load_s"] for c in children]
         rec["barrier"] = [c["barrier"] for c in children]
         if args.check:
-            rec["check"] = [c["check"] for c in children]
+            for key in ("check", "edge_check"):
+                if key in children[0]:
+                    rec[key] = [c[key] for c in children]
         if calls is not None:
             rec["calls"] = {"single": calls,
                             "multi": [c["calls"] for c in children]}
+        if edge_calls is not None:
+            rec["edge_calls"] = {"single": edge_calls,
+                                 "multi": [c["edge_calls"] for c in children]}
         if args.ckpt:
             same = []
             for mode, state in step0.items():
                 arrays, _ = load_checkpoint(os.path.join(
-                    args.ckpt, f"multi-{mode}-step0"))
+                    args.ckpt, multi_ckpt(mode, "step0", 0)))
                 same.append(sorted(arrays) == sorted(state) and all(
                     np.array_equal(arrays[n], v) for n, v in state.items()))
             rec["ckpt_step0_bits_equal"] = all(same)
@@ -731,6 +971,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                       "fused": "fused"}[exchange_mode()]
     bf16 = knobs()["bf16"]
     args.mode_list = [parse_mode(m, bf16) for m in args.modes.split(",")]
+    args.partitions = list(dict.fromkeys(
+        partition_of(name) for name, _ in args.mode_list))
     # what a child is given again: every option but the parent's own
     args.forward = ["--device", args.device, "--procs", str(args.procs),
                     "--shards-per-proc", str(args.shards_per_proc),
@@ -749,7 +991,7 @@ def main() -> None:
         return
     rec = run(sys.argv[1:])
     print(json.dumps(rec), flush=True)
-    if not rec["loss_parity"]:
+    if not (rec["loss_parity"] and rec["replicated_bits_equal"]):
         sys.exit(1)
 
 

@@ -1,9 +1,11 @@
 """The CUDA kernels (span forward and backward on the tensor cores and
 their earlier routes, segment sum, grouped matmul, d_rhs, halo exchange,
 fused halo aggregate and the one-pass backward's variants) against their
-plain PyTorch versions, on the card; and halo training across processes
-(``multihost_sim``: #6 and #7 reading the other process's rows through
-CUDA IPC, 2 processes sharing the card, and over NCCL on 2 cards).
+plain PyTorch versions, on the card; and training across processes
+(``multihost_sim``: the halo partition, #6 and #7 reading the other
+process's rows through CUDA IPC, 2 processes sharing the card, and over
+NCCL on 2 cards; the edge partition, #3, #4 and #5 on every process's
+shards, 2 processes sharing the card).
 
 Needs a CUDA device and nvcc; skips without a card. Imports no jax (the
 card's machine has none), so on the card run it without the JAX test
@@ -799,6 +801,32 @@ def test_cuda_two_processes_on_one_card(tmp_path):
         kernel = {"library": "span_forward", "kernel": "halo_exchange",
                   "fused": "fused_halo_aggregate"}[tag.split("-")[0]]
         assert all(st[kernel] > 0 for proc in m["launches"] for st in proc)
+
+
+@pytest.mark.cuda
+def test_cuda_two_processes_edge_partition_on_one_card(tmp_path):
+    """2 processes x 2 shards sharing the card (gloo) in the edge
+    partition, float32 and bfloat16 streams: every child launches #4 and
+    #3 4 k times and #5 2 k times on every step and no span or halo
+    kernel, one layer's sums across processes have one process's bits
+    (``--check``), the losses have the single-process run's bits and both
+    processes end with the same bits of every replicated tensor and Adam
+    moment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rec = _multihost(tmp_path, "edge", "--shards-per-proc", "2", "--cards",
+                     "1", "--modes", "edge-f32,edge-bf16", "--check")
+    assert rec["backend"] == "gloo" and rec["loss_parity"] is True
+    assert rec["replicated_bits_equal"] is True
+    assert [c["shards"] for c in rec["edge_check"][0]] == [2, 2, 4, 4]
+    want = {"grouped_matmul": 8, "segment_sum": 8, "grouped_drhs": 4}
+    for tag, m in rec["modes"].items():
+        assert m["first_loss_same_bits"] is True, tag
+        assert m["loss_series_same_bits"] is True, tag
+        for proc in m["launches"]:
+            assert len(proc) == 3
+            assert all({n: c for n, c in st.items() if c} == want
+                       for st in proc), (tag, proc)
 
 
 @pytest.mark.cuda

@@ -1,24 +1,30 @@
-"""Halo training across processes: the port's 2 processes x 2 shards
-against its single-process 4-shard run and against the JAX package's halo
-loop, on the CPU.
+"""Training across processes, in the halo partition and the edge
+partition: the port's 2 processes x 2 shards against its single-process
+4-shard run and against the JAX package's loops, on the CPU.
 
 ``python -m scaling_rgcn_training_tpu_torch.multihost_sim`` runs the
 single-process oracle, then spawns 2 processes that join a gloo group
 through a ``file://`` rendezvous under the test's ``tmp_path`` (so xdist
 workers never share a port), each with 2 virtual CPU shards, for the
-library exchange, kernel #6 and kernel #7 (their plain versions across
-processes on the CPU), at the JAX test's size (N 512, E 4096, 3 steps,
+library exchange, kernel #6, kernel #7 (their plain versions across
+processes on the CPU) and the edge partition (#3, #4 and #5's plain
+versions on every process's shards, the cross-process sums of
+``parallel/spmd.py``), at the JAX test's size (N 512, E 4096, 3 steps,
 float32). Tolerances: between the port's two layouts the JAX script's
 (``rtol=1e-5, atol=1e-6``: the loss and the replicated gradients are
-summed in another order); against JAX the halo conv's test's float32
-tolerance, ``1e-5 * max|ref|`` (other summation order). The JAX side runs
-on 4 of the 8 virtual CPU devices of ``tests/conftest.py``.
+summed in another order; the edge partition's losses keep their bits,
+since it adds the same per-shard partials and cotangents in the same
+order in both layouts); against JAX
+the convs' tests' float32 tolerance, ``1e-5 * max|ref|`` (other summation
+order). The JAX side runs on 4 of the 8 virtual CPU devices of
+``tests/conftest.py``.
 """
 
 import json
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -29,16 +35,20 @@ import torch
 
 from scaling_rgcn_training_tpu.ops.rgcn_conv import RGCNLayerParams
 from scaling_rgcn_training_tpu.parallel import halo as jhalo
+from scaling_rgcn_training_tpu.parallel import spmd as jspmd
 from scaling_rgcn_training_tpu.parallel.mesh import make_mesh as j_make_mesh
 from scaling_rgcn_training_tpu.train.losses import bce_loss
 from scaling_rgcn_training_tpu_torch import multihost_sim as mh
+from scaling_rgcn_training_tpu_torch.graphs.device import build_device_graph
 from scaling_rgcn_training_tpu_torch.parallel import mesh as tmesh
+from scaling_rgcn_training_tpu_torch.parallel import spmd as tspmd
 from scaling_rgcn_training_tpu_torch.utils.checkpoint import load_checkpoint
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KNOBS = {"MH_NODES": "512", "MH_EDGES": "4096", "MH_STEPS": "3",
          "MH_BF16": "0", "MH_REORDER": "1", "MH_LABELLED": "128"}
-MODES = ("library", "kernel", "fused")
+HALO_MODES = ("library", "kernel", "fused")
+MODES = (*HALO_MODES, "edge")
 S, PROCS = 4, 2
 TIMEOUT = 240
 
@@ -53,7 +63,7 @@ def _env():
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """One parent run: the oracle, then 2 processes x 2 shards for every
-    mode, with the cross-process kernel checks and the checkpoints."""
+    mode, with the cross-process checks and the checkpoints."""
     tmp = tmp_path_factory.mktemp("multihost")
     ckpt = tmp / "ckpt"
     res = subprocess.run(
@@ -68,47 +78,74 @@ def run(tmp_path_factory):
     return rec, ckpt
 
 
+def _jax_loop(conv, params, rows, y, steps=3):
+    """``steps`` steps of embedding -> ``conv`` -> ReLU -> ``conv`` -> BCE
+    -> ``optax.adam(0.05)`` in JAX: the loss series."""
+    opt = optax.adam(mh.LR)
+    state = opt.init(params)
+
+    def loss_of(p):
+        e, a, b = p
+        logits = conv(jax.nn.relu(conv(e, a)), b)
+        return bce_loss(logits[jnp.asarray(rows)], jnp.asarray(y))
+
+    @jax.jit
+    def step(p, st):
+        loss, grads = jax.value_and_grad(loss_of)(p)
+        updates, st = opt.update(grads, st)
+        return optax.apply_updates(p, updates), st, loss
+
+    losses = []
+    for _ in range(steps):
+        params, state, loss = step(params, state)
+        losses.append(float(loss))
+    return losses
+
+
+def _jax_graph():
+    if len(jax.devices()) < S:
+        pytest.skip(f"needs {S} virtual JAX devices")
+    knobs = {"nodes": 512, "edges": 4096, "rels": 5, "reorder": True}
+    src, dst, typ, slots = mh.make_graph(knobs, S)
+    rows, y = mh.labels(knobs["nodes"], 4, 128)
+    return src, dst, typ, slots, knobs["nodes"], rows, y, j_make_mesh(S)
+
+
+def _jax_params(emb, layers):
+    return (jnp.asarray(emb),
+            *[RGCNLayerParams(*map(jnp.asarray, layer)) for layer in layers])
+
+
 @pytest.fixture(scope="module")
 def jax_losses():
     """The JAX package's halo loop (``halo_partition_edges``,
     ``halo_rgcn_conv`` with ``backend="gather"``, ``bce_loss``,
     ``optax.adam(0.05)``) over 4 virtual devices, on the port's graph and
     numpy-made parameters."""
-    if len(jax.devices()) < S:
-        pytest.skip(f"needs {S} virtual JAX devices")
-    knobs = {"nodes": 512, "edges": 4096, "rels": 5, "reorder": True}
-    src, dst, typ, slots = mh.make_graph(knobs, S)
-    n = knobs["nodes"]
-    jmesh = j_make_mesh(S)
+    src, dst, typ, slots, n, rows, y, jmesh = _jax_graph()
     he = jhalo.device_put_halo_edges(jhalo.halo_partition_edges(
         src, dst, typ, n, slots, S, pad_to_multiple=64, halo_multiple=8),
         jmesh)
     emb, layers = mh.make_params(jhalo.padded_num_nodes(he), [16, 8, 4],
                                  slots)
-    rows, y = mh.labels(n, 4, 128)
-    params = (jax.device_put(jnp.asarray(emb), jhalo.node_sharding(jmesh)),
-              *[RGCNLayerParams(*map(jnp.asarray, layer)) for layer in layers])
-    opt = optax.adam(mh.LR)
-    state = opt.init(params)
+    emb, *rest = _jax_params(emb, layers)
+    params = (jax.device_put(emb, jhalo.node_sharding(jmesh)), *rest)
+    return _jax_loop(lambda x, p: jhalo.halo_rgcn_conv(
+        x, he, p, jmesh, backend="gather"), params, rows, y)
 
-    def loss_of(p):
-        e, a, b = p
-        z = jax.nn.relu(jhalo.halo_rgcn_conv(e, he, a, jmesh,
-                                             backend="gather"))
-        logits = jhalo.halo_rgcn_conv(z, he, b, jmesh, backend="gather")
-        return bce_loss(logits[jnp.asarray(rows)], jnp.asarray(y))
 
-    @jax.jit
-    def step(p, st):
-        loss, grads = jax.value_and_grad(loss_of)(p, )
-        updates, st = opt.update(grads, st)
-        return optax.apply_updates(p, updates), st, loss
-
-    losses = []
-    for _ in range(3):
-        params, state, loss = step(params, state)
-        losses.append(float(loss))
-    return losses
+@pytest.fixture(scope="module")
+def jax_edge_losses():
+    """The JAX package's edge partition loop (``shard_rel_edges``,
+    ``sharded_rgcn_conv`` with ``backend="gather"``, ``bce_loss``,
+    ``optax.adam(0.05)``) over 4 virtual devices, the embedding
+    replicated, on the port's graph and numpy-made parameters."""
+    src, dst, typ, slots, n, rows, y, jmesh = _jax_graph()
+    se = jspmd.device_put_sharded_edges(
+        jspmd.shard_rel_edges(src, dst, typ, n, slots, S), jmesh)
+    params = _jax_params(*mh.make_params(n, [16, 8, 4], slots))
+    return _jax_loop(lambda x, p: jspmd.sharded_rgcn_conv(
+        x, se, p, jmesh, backend="gather"), params, rows, y)
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -124,12 +161,21 @@ def test_two_processes_match_one_process(run, mode):
                                m["single_process_losses"], rtol=1e-5,
                                atol=1e-6)
     assert m["loss_parity"] is True
+    # both processes ended with the same loss series and the same bits of
+    # every replicated tensor and Adam moment
+    assert m["replicated_bits_equal"] is True
+    if mode == "edge":
+        # the forward adds the same 4 partials in the same order, and the
+        # backward the same 4 shards' cotangents: every loss keeps its bits
+        assert m["first_loss_same_bits"] is True
+        assert m["loss_series_same_bits"] is True
+        assert m["multi_process_losses"] == m["single_process_losses"]
     # each process launched nothing (plain versions on the CPU)
     assert all(not any(step.values()) for proc in m["launches"]
                for step in proc)
 
 
-@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("mode", HALO_MODES)
 def test_port_matches_jax_halo_loop(run, jax_losses, mode):
     """Both of the port's layouts against the JAX halo loop: float32,
     ``1e-5 * max|ref|``."""
@@ -139,6 +185,135 @@ def test_port_matches_jax_halo_loop(run, jax_losses, mode):
     for series in ("single_process_losses", "multi_process_losses"):
         np.testing.assert_allclose(m[series], jax_losses, rtol=0, atol=atol,
                                    err_msg=series)
+
+
+def test_port_matches_jax_edge_partition_loop(run, jax_edge_losses):
+    """Both of the port's edge-partition layouts (2 processes x 2 shards,
+    and 4 shards in one process) against the JAX ``sharded_rgcn_conv``
+    loop: float32, ``1e-5 * max|ref|``."""
+    rec, _ = run
+    m = rec["modes"]["edge-f32"]
+    atol = 1e-5 * max(abs(v) for v in jax_edge_losses)
+    for series in ("single_process_losses", "multi_process_losses"):
+        np.testing.assert_allclose(m[series], jax_edge_losses, rtol=0,
+                                   atol=atol, err_msg=series)
+
+
+def _edge_final(ckpt):
+    ranks = [load_checkpoint(str(ckpt / f"multi-edge-f32-final-rank{r}"))[0]
+             for r in range(PROCS)]
+    single, _ = load_checkpoint(str(ckpt / "single-edge-f32-final"))
+    return ranks, single
+
+
+def test_edge_partition_replicated_state_bit_equal_across_processes(run):
+    """After the last step every replicated tensor (the embedding, each
+    layer's weight, root and bias) and each of their Adam moments has the
+    same bits on both processes, read from each process's own
+    checkpoint: a missing cross-process sum would split them."""
+    _, ckpt = run
+    ranks, _ = _edge_final(ckpt)
+    names = sorted(ranks[0])
+    assert names == sorted(ranks[1])
+    assert {"emb", "adam/emb/exp_avg", "adam/emb/exp_avg_sq"} <= set(names)
+    for i in range(2):
+        for p in ("weight", "root", "bias"):
+            assert {f"layer{i}/{p}", f"adam/layer{i}/{p}/exp_avg",
+                    f"adam/layer{i}/{p}/exp_avg_sq"} <= set(names)
+    assert ranks[0]["emb"].shape == (512, 16)    # every row, not sharded
+    for name in names:
+        assert ranks[0][name].dtype == ranks[1][name].dtype
+        np.testing.assert_array_equal(ranks[1][name], ranks[0][name],
+                                      err_msg=name)
+
+
+def test_edge_partition_counts_replicated_gradients_once(run):
+    """The replicated gradients (root, bias, the embedding's root term)
+    are whole on every process and are not summed across processes again:
+    after the last step the processes' parameters and Adam moments have
+    the single-process run's bits (its shards' sums in the same order). A
+    second sum would scale the first moments by P and the second by P^2,
+    which Adam's normalised step hides from the losses."""
+    _, ckpt = run
+    ranks, single = _edge_final(ckpt)
+    assert sorted(single) == sorted(ranks[0])
+    for name, want in single.items():
+        np.testing.assert_array_equal(ranks[0][name], want, err_msg=name)
+
+
+def test_edge_sums_across_processes_match_one_process(run):
+    """Each process held one layer of the edge partition across processes
+    against the one-process ``sharded_aggregate`` of all shards, at S = 2
+    and 4, float32 and bfloat16: the summed output and the ``x`` and
+    ``w`` cotangents bit for bit (``multihost_sim`` raises otherwise)."""
+    rec, _ = run
+    assert len(rec["edge_check"]) == PROCS
+    for proc in rec["edge_check"]:
+        assert [(c["shards"], c["edges"]) for c in proc] == [
+            (2, 5000), (2, 600), (4, 10000), (4, 600)]
+
+
+def test_edge_partition_gathers_each_shards_tensors_once_a_step(run):
+    """The bytes each process contributes to the cross-process sums a
+    step: its 2 shards' partial sums ``[N, h]`` of both layers (float32)
+    and, backward, its 2 shards' ``x`` and ``w`` cotangents of both
+    layers; every process receives as much from the other."""
+    rec, _ = run
+    m = rec["modes"]["edge-f32"]
+    n, (d, hl, c), slots, k = 512, rec["widths"], rec["slots"], S // PROCS
+    partials = k * n * (hl + c)
+    cotangents = k * (n * (d + hl) + slots * (d * hl + hl * c))
+    assert m["gathered_mb_per_step"] == [(partials + cotangents) * 4 / 1e6] \
+        * PROCS
+    assert all(not any(m["gathered_mb_per_step"])
+               for tag, m in rec["modes"].items() if tag != "edge-f32")
+
+
+def test_edge_partition_padding_only_shards_do_not_hang(run):
+    """600 edges in shards of 512 over 4 shards leave shards 2 and 3 with
+    only padding rows, so process 1 aggregates nothing: it still entered
+    every gather, forward and backward (the run ended within its
+    ``--timeout``), and its output and gradients had one process's bits
+    (the check raises otherwise)."""
+    rec, _ = run
+    by_proc = [[c for c in proc if (c["shards"], c["edges"]) == (4, 600)]
+               for proc in rec["edge_check"]]
+    assert [[c["local_edges"] for c in cs] for cs in by_proc] == [
+        [[512, 88]], [[0, 0]]]
+
+
+def test_device_put_sharded_edges_keeps_this_process_shards():
+    """On a mesh of several processes the edge partition's placement (and
+    ``build_device_graph(partition="edge")``) keeps the plans of this
+    process's global shards only; in one process every shard's."""
+    rng = np.random.default_rng(3)
+    n, e, slots = 90, 3000, 5
+    src, dst, typ = (rng.integers(0, n, e).astype(np.int32),
+                     rng.integers(0, n, e).astype(np.int32),
+                     rng.integers(0, slots, e).astype(np.int32))
+    host = tspmd.shard_rel_edges(src, dst, typ, n, slots, S)
+    graph = SimpleNamespace(edge_src=src, edge_dst=dst, edge_type=typ,
+                            num_nodes=n, num_relation_slots=slots,
+                            x_train=np.arange(4), y_train=np.eye(4),
+                            x_val=None, y_val=None, x_test=None, y_test=None)
+    one = tmesh.Mesh((torch.device("cpu"),) * S)
+    placed = tspmd.device_put_sharded_edges(host, one)
+    assert [sh.num_edges for sh in placed.shards] == \
+        [sh.num_edges for sh in host.shards]
+    for p in range(PROCS):
+        mesh = tmesh.Mesh((torch.device("cpu"),) * (S // PROCS),
+                          process_index=p, process_count=PROCS)
+        for edges in (tspmd.device_put_sharded_edges(host, mesh),
+                      build_device_graph(graph, "cpu", mesh=mesh,
+                                         partition="edge").edges):
+            assert edges.num_shards == S and len(edges.shards) == S // PROCS
+            for got, want in zip(edges.shards, host.shards[p * 2:p * 2 + 2]):
+                assert torch.equal(got.src, want.src)
+                assert torch.equal(got.dst, want.dst)
+                assert got.group_offsets == want.group_offsets
+    with pytest.raises(ValueError, match="shards"):
+        tspmd.device_put_sharded_edges(host, tmesh.Mesh(
+            (torch.device("cpu"),) * 3, process_index=0, process_count=2))
 
 
 def test_cross_process_exchanges_match_plain_versions(run):
@@ -223,6 +398,9 @@ for _ in range(2):
 total = m.sum_across(0.25 * (rank + 1), mesh)
 rows = m.gather_global(np.full((2, 3), rank, np.float32), mesh)
 np.savez(out, *runs[0], *runs[1], total=total, rows=rows)
+# leave the group before exiting: a gloo group torn down by the exit
+# itself can abort the process while its peer closes the connection
+torch.distributed.destroy_process_group()
 """
 
 
