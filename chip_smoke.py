@@ -196,7 +196,31 @@ Phases, in order; any failure exits non-zero:
    float32, ``AM_HALO_STEPS`` steps, every step launching its mode's
    kernels and no other counted kernel, each run's losses within 1e-4
    relative (bfloat16: 5e-3, phase 8's criteria) of the same loop from the
-   same parameters and dtype unpartitioned through the fused conv.
+   same parameters and dtype unpartitioned through the fused conv;
+14. the port's timing entry point ``bench`` (the JAX ``bench.py``; its
+   own graph, typ in ``[0, 90)``, not ``bench_shape``'s) at its defaults
+   as ``python -m scaling_rgcn_training_tpu_torch.bench``, with bfloat16
+   streams and in float32: its JSON line (the JAX keys, finite), #1 and #2
+   at 2 launches a timed step and no other kernel; the float32 steps again
+   in this process, each step through the kernels and through their plain
+   versions from the same parameters (losses within 1e-4 relative, the
+   gradients' relative L2 distances printed), the last loss with the
+   subprocess's bits, and the plain versions' own chain beside it
+   (reported); ``utils/tracing.py`` ``determinism_check`` on two float32
+   steps (``bench_phase``);
+15. the port's scaling entry point ``bench_scaling`` (the JAX
+   ``scripts/bench_scaling.py``: the SBM graph, N 100,000, E 2,000,000)
+   over k = 1, 2 and 4 shards of the card (2 and 4 as virtual shards),
+   with the library exchange and again with ``RGCN_HALO_PALLAS_A2A=fused``
+   on the same partitions: the JAX keys, finite numbers,
+   ``measures_hardware_scaling`` false for virtual shards, every timed
+   step launching its exchange's kernels, each count's losses against
+   k = 1's (``scaling_phase``).
+
+``--only 14,15`` runs the named phases and the earlier ones they read
+(``NEEDS``; 1 and 2 always), then prints their numbers and the last line,
+with no kernels line. With no argument every phase runs. The seconds of
+the whole run are printed before the JSON lines.
 
 Tolerances: float32 within rtol 1e-4 and atol 1e-4 * max|ref| (summation
 order differs), bfloat16 inputs within 2e-2 * max|ref|.
@@ -207,8 +231,11 @@ routes' times in the same run; #3's, #4's, #5's, #7's and #8's with the
 CUDA kernels they launch; #6's and #7's with ``cross_process``, phase 12's
 per-call times across processes and the launches of each child; #3's,
 #4's and #5's with ``cross_process``, the launches of each child in phase
-12's float32 edge-partition run); the line
-before it holds the run's other numbers (phase 13's under ``am_shape``);
+12's float32 edge-partition run; #1's and #2's with
+``bench_launches_per_step``, phase 14's; #1's, #2's, #3's and #7's with
+``bench_scaling_launches``, phase 15's over both exchanges); the line
+before it holds the run's other numbers (phase 13's under ``am_shape``,
+phase 14's under ``bench``, phase 15's under ``bench_scaling``);
 the last line is ``{"ok": true, "device":
 {...}}``.
 """
@@ -238,6 +265,10 @@ WARMUP = 3
 # cut toward zero on every call gave -4e-8 and moved phase 5's losses)
 MAX_BIAS = 1e-8
 JAX_PKG = "scaling_rgcn_training_tpu/"
+PHASES = tuple(range(1, 16))
+# the earlier phases whose results a phase reads (``--only``)
+NEEDS = {4: (3,), 5: (3,), 6: (3,), 8: (3, 5), 9: (3,), 10: (3,),
+         11: (3, 5, 8)}
 DEV = "cuda"
 # entities of the CLI's synthetic graph (phases 7 and 11) and of phase 11's
 # parse of the native parser against the Python one
@@ -407,7 +438,7 @@ def compare_span_kernels(sk, plan, d_in, d_out, dtype, rng, tag, timing=False,
         res["fwd"] = time_kernel(lambda: sk.span_forward(x, w, plan),
                                  lambda: sk.span_forward_plain(x, w, plan),
                                  lambda: sk.span_forward_rows(x, w, plan),
-                                 reps=20, plain_reps=20)
+                                 reps=20, plain_reps=5)
         res["fwd"]["previous_ms"] = res["fwd"]["library_ms"]
         res["fwd"]["library_ms"] = None
         res["fwd"].update(bound(*sk.forward_cost(x, w, plan)))
@@ -419,7 +450,7 @@ def compare_span_kernels(sk, plan, d_in, d_out, dtype, rng, tag, timing=False,
         res["bwd"] = time_kernel(lambda: sk.span_backward(g, x, w, plan),
                                  lambda: sk.span_backward_plain(g, x, w, plan),
                                  lambda: sk.span_backward_rows(g, x, w, plan),
-                                 reps=20, plain_reps=20)
+                                 reps=20, plain_reps=5)
         res["bwd"]["previous_ms"] = res["bwd"]["library_ms"]
         res["bwd"]["library_ms"] = None
         res["bwd"].update(bound(*sk.backward_cost(g, x, w, plan)))
@@ -1037,7 +1068,7 @@ def check_halo_kernels(he, d_in, d_out, dtype, tag, timing=False) -> dict:
         r = res["fused"] = time_kernel(
             over_shards(fh.fused_halo_aggregate),
             over_shards(fh.fused_halo_aggregate_plain),
-            over_shards(fh.fused_halo_aggregate_rows), reps=10, plain_reps=2)
+            over_shards(fh.fused_halo_aggregate_rows), reps=10, plain_reps=1)
         r["previous_ms"], r["library_ms"] = r["library_ms"], None
         # the validation forward's call: no halo buffer
         r["no_buffer_ms"] = cuda_time_ms(
@@ -1269,7 +1300,7 @@ def check_bwd_variants(plan, d_in, d_out, dtype, rng, tag, variants=None,
         res["peak_mib"] = peak_mib(new)
         res["shipped_peak_mib"] = peak_mib(shipped)
         res.update(time_kernel(new, lambda: bk.span_backward_variant_plain(
-            g, x, w, buckets), reps=20, plain_reps=20))
+            g, x, w, buckets), reps=20, plain_reps=5))
         # in turns: redesign, #2, earlier route, earlier route, #2, redesign
         turns = [cuda_time_ms(f, 20) for f in (new, shipped, earlier, earlier,
                                                shipped, new)]
@@ -1328,7 +1359,7 @@ def bwd_variant_phase(small, wide, bench_plan, rng, launches, reset) -> dict:
     for d_in, d_out in ((D, HL), (HL, C)):
         for dtype in ("float32", "bfloat16"):
             out = bwv.main(["--d-in", str(d_in), "--d-out", str(d_out),
-                            "--dtype", dtype])
+                            "--dtype", dtype, "--inner", "5"])
             rows[f"{d_in}->{d_out} {dtype}"] = out["rows"]
     counts = dict(launches)
     print(f"  microbench launches {counts}", flush=True)
@@ -2060,7 +2091,294 @@ def am_phase(launches, reset) -> dict:
     return out
 
 
-def main() -> None:
+def bench_phase() -> dict:
+    """Phase 14: the port's ``bench`` at its defaults (the JAX ``bench.py``
+    graph: N 200,000, E 4,000,000, 45 relations -> 91 slots, typ in
+    ``[0, 90)``, 4,096 labelled rows from the same generator; 64 -> 16 ->
+    8; 40 steps a call, the best of 8 calls; the per-relation baseline
+    loop) in a subprocess, with bfloat16 streams and in float32: its JSON
+    line must parse, carry the JAX line's keys with finite numbers, and
+    read #1 and #2 at 2 launches a timed step and every other kernel at 0.
+    Then the float32 run's 360 steps again in this process (the same
+    graph and model), each step's loss and gradients through the kernels
+    and through their plain versions (``span_forward_plain``,
+    ``span_backward_plain``, one pass a relation) from the same
+    parameters, the kernels' gradients taking the step: every loss within
+    1e-4 relative (the gradients' relative L2 distances printed), and the
+    last loss with the subprocess's bits. The plain
+    versions' own 360-step chain is reported beside it, not held: two
+    chains that round their sums differently drift apart as Adam carries
+    each step's rounding into the next. Last,
+    ``tracing.determinism_check`` on two float32 steps from the same state
+    (their losses and every parameter after them, through the kernels)
+    must return true."""
+    import re
+
+    import torch
+
+    from scaling_rgcn_training_tpu_torch import bench
+    from scaling_rgcn_training_tpu_torch import rehearse_am as ra
+    from scaling_rgcn_training_tpu_torch.ops import rgcn_conv
+    from scaling_rgcn_training_tpu_torch.ops import span_kernels as sk
+    from scaling_rgcn_training_tpu_torch.train.losses import bce_loss
+    from scaling_rgcn_training_tpu_torch.train.optim import make_optimizer
+    from scaling_rgcn_training_tpu_torch.utils import tracing
+
+    jax_keys = ("metric", "value", "unit", "vs_baseline", "compute_dtype",
+                "ms_per_step", "baseline_ms_per_step",
+                "hbm_bytes_per_step_est", "achieved_gbps_est")
+    for key in [k for k in os.environ if k.startswith("BENCH_")]:
+        os.environ.pop(key)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", f"{PKG}.bench"], cwd=ROOT,
+            env=dict(env, BENCH_COMPUTE_DTYPE=dtype), capture_output=True,
+            text=True, timeout=600)
+        if res.returncode != 0:
+            fail(f"bench {dtype} exited {res.returncode}: "
+                 f"{res.stderr[-3000:]}")
+        try:
+            line = json.loads(res.stdout.strip().splitlines()[-1])
+        except (IndexError, json.JSONDecodeError):
+            fail(f"bench {dtype}: no JSON line last: {res.stdout[-2000:]}")
+        missing = [k for k in jax_keys + ("device", "peak_mib",
+                                          "launches_per_step")
+                   if k not in line]
+        if missing:
+            fail(f"bench {dtype}: keys {missing} missing from {line}")
+        nums = [line[k] for k in jax_keys if k not in ("metric", "unit",
+                                                        "compute_dtype")]
+        if not all(np.isfinite(v) and v > 0 for v in nums):
+            fail(f"bench {dtype}: a number not finite and positive: {line}")
+        got = {k: v for k, v in line["launches_per_step"].items() if v}
+        if got != {"span_forward": 2, "span_backward": 2}:
+            fail(f"bench {dtype}: launches a step {got}, want span_forward "
+                 "2 and span_backward 2 and no other")
+        found = re.findall(r"^optimized: .* loss=(\S+)$", res.stderr, re.M)
+        if not found:
+            fail(f"bench {dtype}: no loss in its log: {res.stderr[-2000:]}")
+        line["final_loss"] = float(found[-1])
+        line["wall_s"] = time.perf_counter() - t0
+        print(f"  bench {dtype}: {line['ms_per_step']:.4f} ms/step, "
+              f"{line['value'] / 1e6:.2f} M edges/s, vs_baseline "
+              f"{line['vs_baseline']:.3f} (baseline "
+              f"{line['baseline_ms_per_step']:.3f} ms/step), "
+              f"{line['achieved_gbps_est']:.1f} GB/s est, peak "
+              f"{line['peak_mib']} MiB, final loss "
+              f"{line['final_loss']!r}; {line['wall_s']:.1f} s", flush=True)
+        out[dtype] = line
+
+    # the float32 run's steps in this process, each step's loss and
+    # gradients by the kernels and by the plain versions bound in their
+    # place (rgcn_conv's names: the fused dataflow calls no other) from the
+    # same parameters; the kernels' gradients take the step
+    k = dict(bench.knobs(), compute_dtype=None, dtype_name="float32")
+    edges, rows, targets, slots = bench.build(k, DEV)
+    shipped = rgcn_conv.span_forward, rgcn_conv.span_backward
+    plain_fns = sk.span_forward_plain, sk.span_backward_plain
+
+    def bind(fns):
+        rgcn_conv.span_forward, rgcn_conv.span_backward = fns
+
+    model = bench.init_model(k, slots, DEV)
+    layers = (model.rgcn1, model.rgcn2)
+    params = [model.embedding, *(p for l in layers for p in l.parameters())]
+    opt = make_optimizer(params, bench.LR, bench.WEIGHT_DECAY)
+    conv = bench.step_conv(edges, k)
+
+    def loss_and_grads():
+        z = torch.relu(conv(model.embedding, layers[0]))
+        loss = bce_loss(conv(z, layers[1]).index_select(0, rows), targets)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    t0 = time.perf_counter()
+    worst_loss = worst_grad = 0.0
+    steps = k["inner"] * (1 + k["steps"])
+    for step in range(steps):
+        loss, grads = loss_and_grads()
+        bind(plain_fns)
+        try:
+            p_loss, p_grads = loss_and_grads()
+        finally:
+            bind(shipped)
+        rel = float((loss - p_loss).abs() / p_loss.abs())
+        # each gradient's relative L2 distance (reported: an element-wise
+        # bound fails wherever the two sums put a pre-activation on either
+        # side of the ReLU's kink)
+        grad = max(float((g - r).norm() / r.norm().clamp_min(1e-30))
+                   for g, r in zip(grads, p_grads))
+        worst_loss, worst_grad = max(worst_loss, rel), max(worst_grad, grad)
+        if not rel <= 1e-4:
+            fail(f"bench float32 step {step}: the kernels' loss {float(loss)} "
+                 f"is {rel:.2e} from the plain versions' {float(p_loss)}")
+        for p, g in zip(params, grads):
+            p.grad = g
+        opt.step()
+    final = float(loss)
+    same = final == out["float32"]["final_loss"]
+    print(f"  bench float32, {steps} steps in this process, each from the "
+          f"same parameters through the kernels and the plain versions: "
+          f"losses within {worst_loss:.2e} relative (limit 1e-4), gradients "
+          f"within {worst_grad:.2e} relative L2 distance; the "
+          f"last loss {final!r} has the subprocess's bits: {same} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not same:
+        fail(f"bench float32: the last loss in this process {final!r} is "
+             f"not the subprocess's {out['float32']['final_loss']!r}")
+    del model, params, opt
+    # the plain versions' own chain from the same start (reported: Adam
+    # carries the sums' rounding from step to step)
+    bind(plain_fns)
+    try:
+        t0 = time.perf_counter()
+        plain = bench.run(k, edges, rows, targets, slots, k["steps"])
+    finally:
+        bind(shipped)
+    plain_loss = plain["losses"][-1]
+    free_rel = abs(final - plain_loss) / abs(plain_loss)
+    print(f"  bench float32, the plain versions' own {len(plain['losses'])} "
+          f"steps: last loss {plain_loss!r}, {free_rel:.2e} from the "
+          f"kernels' ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    def two_steps():
+        model = bench.init_model(k, slots, DEV)
+        res = ra.train(model.embedding, (model.rgcn1, model.rgcn2),
+                       bench.step_conv(edges, k), rows, targets,
+                       bench.WEIGHT_DECAY, 2, 0)
+        return res["losses"], [p.detach() for p in model.parameters()]
+
+    deterministic = tracing.determinism_check(two_steps)
+    print(f"  determinism_check of two float32 steps from one state: "
+          f"{deterministic}", flush=True)
+    if not deterministic:
+        fail("two float32 bench steps from one state gave different bits")
+    torch.cuda.empty_cache()
+    return {"lines": out, "stepwise_loss_rel_diff": worst_loss,
+            "stepwise_grad_rel_l2": worst_grad,
+            "final_loss_bits_as_subprocess": same,
+            "plain_chain_final_loss": plain_loss,
+            "plain_chain_final_rel_diff": free_rel,
+            "deterministic": deterministic}
+
+
+def scaling_phase(launches, reset) -> dict:
+    """Phase 15: the port's ``bench_scaling`` at its defaults (the JAX
+    script's SBM graph: N 100,000, E 2,000,000, 20 relations -> 41 slots,
+    64 communities, 90% of the edges inside one, the locality reorder for
+    k > 1; 64 -> 16 -> 8, float32; 5 steps a call, 3 timed calls) over k
+    = 1, 2 and 4 shards of the card (``--max-shards 4``: k beyond the card
+    count as virtual shards), with the library exchange, then again with
+    ``RGCN_HALO_PALLAS_A2A=fused`` (#7) on the same partitions. Every line
+    must carry the JAX script's keys with finite numbers,
+    ``measures_hardware_scaling`` true only where the k shards lie on k
+    cards, every timed step must launch the exchange's kernels (library:
+    #1, #2 and, for k > 1, #3, the send gathers' transpose; #7: #7, #2
+    and, for k > 1, #3), and every count's losses must match k = 1's
+    within rtol 1e-5 and atol 1e-6 (phase 12's float32 criterion: the
+    loss falls below 1e-4 within the 25 steps, so a relative bound alone
+    would hold rounding noise to 1e-8 absolute)."""
+    import torch
+
+    from scaling_rgcn_training_tpu_torch import bench_scaling as bsc
+    from scaling_rgcn_training_tpu_torch.parallel.halo import EXCHANGE_ENV
+
+    jax_keys = ("devices", "ms_per_step", "edges_per_s", "efficiency",
+                "throughput_retention", "hardware", "halo_rows_per_shard",
+                "measures_hardware_scaling")
+    want = {"library": ("span_forward", "span_backward", "segment_sum"),
+            "#7": ("fused_halo_aggregate", "span_backward", "segment_sum")}
+    cards = torch.cuda.device_count()
+    for key in [k for k in os.environ if k.startswith("BENCH_")]:
+        os.environ.pop(key)
+    kept, out, counts = {}, {}, {}
+    try:
+        for exchange in (None, "fused"):
+            if exchange:
+                os.environ[EXCHANGE_ENV] = exchange
+            else:
+                os.environ.pop(EXCHANGE_ENV, None)
+            t0 = time.perf_counter()
+            reset()
+            recs = bsc.main(["--max-shards", "4"], partitions=kept)
+            name = recs[0]["exchange"]
+            counts[name] = dict(launches)
+            if [r["devices"] for r in recs] != [1, 2, 4]:
+                fail(f"bench_scaling {name}: counts "
+                     f"{[r['devices'] for r in recs]}")
+            for rec in recs:
+                k = rec["devices"]
+                missing = [key for key in jax_keys if key not in rec]
+                if missing:
+                    fail(f"bench_scaling {name} k={k}: keys {missing} "
+                         "missing")
+                if not all(np.isfinite(rec[key]) for key in jax_keys
+                           if key != "hardware") or \
+                        not np.isfinite(rec["losses"]).all():
+                    fail(f"bench_scaling {name} k={k}: a number not finite: "
+                         f"{rec}")
+                if rec["measures_hardware_scaling"] is not (k <= cards):
+                    fail(f"bench_scaling {name} k={k}: "
+                         f"measures_hardware_scaling "
+                         f"{rec['measures_hardware_scaling']} on {cards} "
+                         "card(s)")
+                # one shard ships no rows: no send transpose (#3)
+                short = [n for n in want[name]
+                         if not rec["launches_per_step"][n] > 0
+                         and (k > 1 or n != "segment_sum")]
+                if short:
+                    fail(f"bench_scaling {name} k={k}: no launch of {short}")
+                if not np.allclose(rec["losses"], recs[0]["losses"],
+                                   rtol=1e-5, atol=1e-6):
+                    fail(f"bench_scaling {name} k={k}: losses "
+                         f"{rec['losses']} differ from k=1's "
+                         f"{recs[0]['losses']}")
+                rel = max(abs(a - b) / abs(b) for a, b in
+                          zip(rec["losses"], recs[0]["losses"]))
+                print(f"  bench_scaling {name} k={k}: "
+                      f"{rec['ms_per_step']:.4f} ms/step, "
+                      f"{rec['edges_per_s'] / 1e6:.2f} M edges/s, efficiency "
+                      f"{rec['efficiency']:.3f}, retention "
+                      f"{rec['throughput_retention']:.3f}, halo rows "
+                      f"{rec['halo_rows_per_shard']}, hardware scaling "
+                      f"{rec['measures_hardware_scaling']}, peak "
+                      f"{rec['peak_mib']} MiB, losses within "
+                      f"{rel:.2e} of k=1's", flush=True)
+            print(f"  bench_scaling {name}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            out[name] = recs
+    finally:
+        os.environ.pop(EXCHANGE_ENV, None)
+    return {"records": out, "launches": counts}
+
+
+def phases_to_run(argv) -> set:
+    """The phases of ``--only N,M,...`` (every phase without it), with the
+    phases whose results they read (``NEEDS``); 1 and 2 always run."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", default=None, help="comma-separated phases "
+                    "(with the phases they need; default: all)")
+    only = ap.parse_args(argv).only
+    if only is None:
+        return set(PHASES)
+    want = {1, 2}
+    todo = [int(v) for v in only.split(",")]
+    while todo:
+        n = todo.pop()
+        if n not in PHASES:
+            ap.error(f"no phase {n}")
+        if n not in want:
+            want.add(n)
+            todo.extend(NEEDS.get(n, ()))
+    return want
+
+
+def main(argv=None) -> None:
+    want = phases_to_run(argv)
     phase("1 environment")
     try:
         import torch
@@ -2096,262 +2414,296 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}:", line.strip(), flush=True)
     launches, reset = cuda_build.LAUNCHES, cuda_build.reset_launch_counts
-
-    phase("3 span kernels vs plain versions")
-    from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import build_rel_edges
-
-    rng = np.random.default_rng(0)
-    # edge cases: nodes 400..499 have no edges, relations 1, 4, 6, 8 none
-    src, dst, typ = random_graph(rng, 500, 3000, 9, n_live=400,
-                                 live_rels=[0, 2, 3, 5, 7])
-    small = build_rel_edges(src, dst, typ, 500, 9, device=DEV).span
-    for d_in, d_out in ((63, 4), (63, 11), (11, 63)):
-        for dtype in (torch.float32, torch.bfloat16):
-            compare_span_kernels(sk, small, d_in, d_out, dtype, rng,
-                                 f"small {d_in}->{d_out} {dtype_name(dtype)}",
-                                 tiled=True)
-    # wide rows and 30 relations: W takes several shared-memory passes
-    src, dst, typ = random_graph(rng, 400, 6000, 30)
-    wide = build_rel_edges(src, dst, typ, 400, 30, device=DEV).span
-    for dtype in (torch.float32, torch.bfloat16):
-        compare_span_kernels(sk, wide, 128, 32, dtype, rng,
-                             f"small 128->32 30 slots {dtype_name(dtype)}",
-                             tiled=True)
-    t0 = time.perf_counter()
-    src, dst, typ = bs.bench_edges()
-    edges = build_rel_edges(src, dst, typ, bs.N, bs.SLOTS, device=DEV)
-    print(f"bench-shape edges built in {time.perf_counter() - t0:.2f} s",
-          flush=True)
-    bench = {}
-    for d_in, d_out, layer in ((bs.D, bs.HL, "layer1"), (bs.HL, bs.C, "layer2")):
-        for dtype in (torch.float32, torch.bfloat16):
-            bench[(layer, dtype_name(dtype))] = compare_span_kernels(
-                sk, edges.span, d_in, d_out, dtype, rng,
-                f"bench {layer} {d_in}->{d_out} {dtype_name(dtype)}", timing=True)
-    conv_autograd_check(rng)
-
-    phase("4 segment-sum, grouped-matmul and d_rhs kernels vs plain versions")
-    from scaling_rgcn_training_tpu_torch.ops.segment_kernels import segment_rowptr
-
-    errs = {"segment_sum": 0.0, "grouped_matmul": 0.0, "grouped_drhs": 0.0}
-
-    def note(res):
-        for kname, key in (("grouped_matmul", "gmm"), ("grouped_drhs", "drhs"),
-                           ("segment_sum", "seg")):
-            if key in res:
-                errs[kname] = max(errs[kname], res[key]["err"])
-        return res
-
-    keys = np.sort(np.concatenate([rng.integers(0, 600, 3000) * 2,
-                                   np.full(700, 901)])).astype(np.int32)
-    rowptr = torch.as_tensor(segment_rowptr(keys, 1301)).to(DEV)
-    sizes = torch.tensor([0, 1500, 3, 0, 2049, 1, 0, 777], device=DEV)
-    m = int(sizes.sum())
-    gen = torch.Generator(device=DEV).manual_seed(0)
-    new_bench = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        name = dtype_name(dtype)
-        t = lambda *shape, s=1.0: (torch.randn(
-            shape, generator=gen, device=DEV) * s).to(dtype)
-        # every width class of the kernels' dispatch (csrc/*.cu): #3 with
-        # and without the gather and the scale, and with the values one
-        # element off an aligned address (a narrower load width)
-        e_small = len(keys)
-        perm = torch.randperm(e_small, generator=gen, device=DEV).int()
-        scale = torch.rand(e_small, generator=gen, device=DEV) + 0.1
-        for h in (4, 8, 11, 16, 32, 64, 130):
-            v = t(e_small * h + 1)
-            note({"seg": check_segment(v[:-1].view(e_small, h), rowptr,
-                                       f"small h {h} {name}")})
-            note({"seg": check_segment(v[:-1].view(e_small, h), rowptr,
-                                       f"small h {h} {name} perm+scale",
-                                       perm=perm, scale=scale)})
-            note({"seg": check_segment(v[1:].view(e_small, h), rowptr,
-                                       f"small h {h} {name} perm+scale offset",
-                                       perm=perm, scale=scale)})
-        # every width class of the tensor-core kernels (column tiles past
-        # 64, depth chunks past GMM_DEPTH) and of the earlier routes
-        for k, n in ((63, 4), (16, 8), (8, 16), (63, 11), (24, 32), (256, 64),
-                     (8, 130), (300, 11)):
-            note(check_grouped(t(m, k), t(len(sizes), k, n, s=0.2), t(m, n),
-                               sizes, f"small {k}->{n} {name}", tiled=True))
-        # every product of an edge-mode step at the bench shape, each timed:
-        # layer 1 (D -> HL) and layer 2 (HL -> C) with their dW, then their
-        # d_lhs (HL -> D, C -> HL); layer 1's also against the dataflows
-        for k, n in ((bs.D, bs.HL), (bs.HL, bs.C)):
-            r = note(check_grouped(
-                t(bs.E, k), t(bs.SLOTS, k, n, s=0.2), t(bs.E, n),
-                edges.group_sizes, f"bench {k}->{n} {name}", timing=True,
-                tiled=k == bs.D))
-            new_bench[("grouped_matmul", f"{k}->{n}", name)] = r["gmm"]
-            new_bench[("grouped_drhs", f"{k}x{n}", name)] = r["drhs"]
-        for k, n in ((bs.HL, bs.D), (bs.C, bs.HL)):
-            r = note(check_grouped(t(bs.E, k), t(bs.SLOTS, k, n, s=0.2), None,
-                                   edges.group_sizes,
-                                   f"bench d_lhs {k}->{n} {name}",
-                                   timing=True))
-            new_bench[("grouped_matmul", f"d_lhs {k}->{n}", name)] = r["gmm"]
-        # every sum of an edge-mode step, on the edges' own permutations
-        # (computed as RelEdges computes them, and not cached on `edges`,
-        # so phase 5's fused runs do not hold them): the forward onto dst
-        # rows (h HL, C) with norm, dx onto src rows (h D, HL); layer 1's
-        # are timed, and so is each without the gather (values already in
-        # key order), the shape the kernel was timed at before it gathered
-        for h, side, timed in ((bs.HL, "dst", True), (bs.C, "dst", False),
-                               (bs.D, "src", True), (bs.HL, "src", False)):
-            rp = edges.dst_rowptr if side == "dst" else edges.src_rowptr
-            perm = getattr(type(edges), f"{side}_perm").func(edges)
-            kw = {"perm": perm, "scale": edges.norm if side == "dst" else None}
-            vals = t(bs.E, h)
-            r = note({"seg": check_segment(
-                vals, rp, f"bench [E, {h}] -> {side} rows {name} "
-                f"perm{'+scale' if side == 'dst' else ''}", timing=timed,
-                **kw)})["seg"]
-            if timed:
-                key = "segment_sum" if side == "dst" else "segment_sum dx"
-                new_bench[(key, f"[E, {h}]", name)] = r
-                new_bench[(key, f"[E, {h}] no perm", name)] = note(
-                    {"seg": check_segment(
-                        vals, rp, f"bench [E, {h}] -> {side} rows {name} "
-                        "no perm", timing=True)})["seg"]
-            del vals, perm, kw   # phase 5's peak memory holds none of them
-
-    phase("5 trainer at the bench shape")
     from scaling_rgcn_training_tpu_torch.graphs.device import DeviceGraph
 
-    splits = bs.bench_splits(DEV)
-    fits = {}
-    reset()
-    for cd in (None, "bfloat16"):
-        fits[("fused", cd)] = run_fit(DeviceGraph(edges=edges, **splits), cd,
-                                      EPOCHS, launches)
-        require_per_step(f"fused {cd}", fits[("fused", cd)]["steps"],
-                         {"span_forward": 4, "span_backward": 2})
-    fused_launches = dict(launches)
-    # the end-to-end effect of #1's and #2's redesigns
-    swap = {}
-    for kernel in ("span_forward", "span_backward"):
-        swap[kernel] = s = route_swap(DeviceGraph(edges=edges, **splits),
-                                      launches, kernel)
-        print(f"  fused f32 ms/step, {kernel} on the tensor cores "
-              f"{s['redesigned']} vs its earlier route {s['earlier route']} "
-              "(order: redesigned, earlier, earlier, redesigned)",
+    splits, fits = bs.bench_splits(DEV), {}
+
+    if 3 in want:
+        phase("3 span kernels vs plain versions")
+        from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import build_rel_edges
+
+        rng = np.random.default_rng(0)
+        # edge cases: nodes 400..499 have no edges, relations 1, 4, 6, 8 none
+        src, dst, typ = random_graph(rng, 500, 3000, 9, n_live=400,
+                                     live_rels=[0, 2, 3, 5, 7])
+        small = build_rel_edges(src, dst, typ, 500, 9, device=DEV).span
+        for d_in, d_out in ((63, 4), (63, 11), (11, 63)):
+            for dtype in (torch.float32, torch.bfloat16):
+                compare_span_kernels(sk, small, d_in, d_out, dtype, rng,
+                                     f"small {d_in}->{d_out} {dtype_name(dtype)}",
+                                     tiled=True)
+        # wide rows and 30 relations: W takes several shared-memory passes
+        src, dst, typ = random_graph(rng, 400, 6000, 30)
+        wide = build_rel_edges(src, dst, typ, 400, 30, device=DEV).span
+        for dtype in (torch.float32, torch.bfloat16):
+            compare_span_kernels(sk, wide, 128, 32, dtype, rng,
+                                 f"small 128->32 30 slots {dtype_name(dtype)}",
+                                 tiled=True)
+        t0 = time.perf_counter()
+        src, dst, typ = bs.bench_edges()
+        edges = build_rel_edges(src, dst, typ, bs.N, bs.SLOTS, device=DEV)
+        print(f"bench-shape edges built in {time.perf_counter() - t0:.2f} s",
               flush=True)
+        bench = {}
+        for d_in, d_out, layer in ((bs.D, bs.HL, "layer1"), (bs.HL, bs.C, "layer2")):
+            for dtype in (torch.float32, torch.bfloat16):
+                bench[(layer, dtype_name(dtype))] = compare_span_kernels(
+                    sk, edges.span, d_in, d_out, dtype, rng,
+                    f"bench {layer} {d_in}->{d_out} {dtype_name(dtype)}", timing=True)
+        conv_autograd_check(rng)
 
-    t0 = time.perf_counter()
-    plain_edges = build_rel_edges(src, dst, typ, bs.N, bs.SLOTS, device=DEV,
-                                  span=False)
-    print(f"bench-shape edges without the span plan built in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    non_fused = DeviceGraph(edges=plain_edges, **splits)
-    reset()
-    for cd in (None, "bfloat16"):
-        fits[("edge", cd)] = run_fit(non_fused, cd, EPOCHS, launches,
-                                     backend="pallas")
-        require_per_step(f"edge mode {cd}", fits[("edge", cd)]["steps"],
-                         {"grouped_matmul": 4, "segment_sum": 4,
-                          "grouped_drhs": 2})
-    edge_launches = dict(launches)
-    if edge_launches["span_forward"] or edge_launches["span_backward"]:
-        fail(f"edge-mode trainer launched span kernels: {edge_launches}")
-    # the end-to-end effect of #4's and #5's redesigns
-    swap["grouped"] = s = route_swap(non_fused, launches, "grouped",
-                                     backend="pallas")
-    print(f"  edge-mode f32 ms/step, gmm and gmm_drhs on the tensor cores "
-          f"{s['redesigned']} vs their earlier routes {s['earlier route']} "
-          "(order: redesigned, earlier, earlier, redesigned)", flush=True)
-    # the end-to-end effect of #3's redesign (the gather and the scale
-    # inside the kernel); its sums are the earlier route's, bit for bit
-    swap["segment_sum"] = s = route_swap(non_fused, launches, "segment_sum",
-                                         backend="pallas")
-    print(f"  edge-mode f32 ms/step, segment_sum with the gather inside "
-          f"{s['redesigned']} vs its earlier route {s['earlier route']} "
-          "(order: redesigned, earlier, earlier, redesigned); the same loss "
-          f"bits on both routes: {s['same_losses']}; as the first edge-mode "
-          f"run's: {s['losses'] == fits[('edge', None)]['losses']}",
-          flush=True)
-    fused_l, edge_l = (fits[(k, None)]["losses"] for k in ("fused", "edge"))
-    if not np.allclose(edge_l, fused_l, rtol=1e-4, atol=0):
-        fail(f"edge-mode f32 losses {edge_l} differ from fused {fused_l}")
-    print(f"  edge-mode f32 losses match the fused run's (max rel diff "
-          f"{max(abs(a - b) / abs(b) for a, b in zip(edge_l, fused_l)):.2e})",
-          flush=True)
-    # where the fused/edge loss gap starts: one step's gradients, per layer
-    grads = layer_gradients(edges, plain_edges, splits)
-    reset()
-    fits[("attention", None)] = run_fit(non_fused, None, ATT_EPOCHS, launches,
-                                        backend="pallas", aggr="attention")
-    require_per_step("attention", fits[("attention", None)]["steps"],
-                     {"grouped_matmul": 1, "grouped_drhs": 1})
-    att_launches = dict(launches)
+    if 4 in want:
+        phase("4 segment-sum, grouped-matmul and d_rhs kernels vs plain versions")
+        from scaling_rgcn_training_tpu_torch.ops.segment_kernels import segment_rowptr
 
-    phase("6 auto mode on a layer too wide for the span kernels")
-    wide_auto_check(edges, rng, launches, reset)
+        errs = {"segment_sum": 0.0, "grouped_matmul": 0.0, "grouped_drhs": 0.0}
 
-    phase("7 CLI on the GPU")
-    # layer 1 (128 -> 64) is wider than the span kernels take: auto mode
-    # runs it non-fused
-    run_cli(["-emb", "128", "-hl", "64"], "summation -emb 128 -hl 64")
-    run_cli(["-backend", "pallas", "-aggr", "attention"],
-            "summation -backend pallas -aggr attention")
-    run_cli([], "no -exp", exps=("summation", "mlp", "attention"))
+        def note(res):
+            for kname, key in (("grouped_matmul", "gmm"), ("grouped_drhs", "drhs"),
+                               ("segment_sum", "seg")):
+                if key in res:
+                    errs[kname] = max(errs[kname], res[key]["err"])
+            return res
 
-    phase(f"8 halo partition on {HALO_SHARDS} virtual shards of the card")
-    halo = halo_phase(src, dst, typ, splits, fits, launches, reset)
+        keys = np.sort(np.concatenate([rng.integers(0, 600, 3000) * 2,
+                                       np.full(700, 901)])).astype(np.int32)
+        rowptr = torch.as_tensor(segment_rowptr(keys, 1301)).to(DEV)
+        sizes = torch.tensor([0, 1500, 3, 0, 2049, 1, 0, 777], device=DEV)
+        m = int(sizes.sum())
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        new_bench = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            name = dtype_name(dtype)
+            t = lambda *shape, s=1.0: (torch.randn(
+                shape, generator=gen, device=DEV) * s).to(dtype)
+            # every width class of the kernels' dispatch (csrc/*.cu): #3 with
+            # and without the gather and the scale, and with the values one
+            # element off an aligned address (a narrower load width)
+            e_small = len(keys)
+            perm = torch.randperm(e_small, generator=gen, device=DEV).int()
+            scale = torch.rand(e_small, generator=gen, device=DEV) + 0.1
+            for h in (4, 8, 11, 16, 32, 64, 130):
+                v = t(e_small * h + 1)
+                note({"seg": check_segment(v[:-1].view(e_small, h), rowptr,
+                                           f"small h {h} {name}")})
+                note({"seg": check_segment(v[:-1].view(e_small, h), rowptr,
+                                           f"small h {h} {name} perm+scale",
+                                           perm=perm, scale=scale)})
+                note({"seg": check_segment(v[1:].view(e_small, h), rowptr,
+                                           f"small h {h} {name} perm+scale offset",
+                                           perm=perm, scale=scale)})
+            # every width class of the tensor-core kernels (column tiles past
+            # 64, depth chunks past GMM_DEPTH) and of the earlier routes
+            for k, n in ((63, 4), (16, 8), (8, 16), (63, 11), (24, 32), (256, 64),
+                         (8, 130), (300, 11)):
+                note(check_grouped(t(m, k), t(len(sizes), k, n, s=0.2), t(m, n),
+                                   sizes, f"small {k}->{n} {name}", tiled=True))
+            # every product of an edge-mode step at the bench shape, each timed:
+            # layer 1 (D -> HL) and layer 2 (HL -> C) with their dW, then their
+            # d_lhs (HL -> D, C -> HL); layer 1's also against the dataflows
+            for k, n in ((bs.D, bs.HL), (bs.HL, bs.C)):
+                r = note(check_grouped(
+                    t(bs.E, k), t(bs.SLOTS, k, n, s=0.2), t(bs.E, n),
+                    edges.group_sizes, f"bench {k}->{n} {name}", timing=True,
+                    tiled=k == bs.D))
+                new_bench[("grouped_matmul", f"{k}->{n}", name)] = r["gmm"]
+                new_bench[("grouped_drhs", f"{k}x{n}", name)] = r["drhs"]
+            for k, n in ((bs.HL, bs.D), (bs.C, bs.HL)):
+                r = note(check_grouped(t(bs.E, k), t(bs.SLOTS, k, n, s=0.2), None,
+                                       edges.group_sizes,
+                                       f"bench d_lhs {k}->{n} {name}",
+                                       timing=True))
+                new_bench[("grouped_matmul", f"d_lhs {k}->{n}", name)] = r["gmm"]
+            # every sum of an edge-mode step, on the edges' own permutations
+            # (computed as RelEdges computes them, and not cached on `edges`,
+            # so phase 5's fused runs do not hold them): the forward onto dst
+            # rows (h HL, C) with norm, dx onto src rows (h D, HL); layer 1's
+            # are timed, and so is each without the gather (values already in
+            # key order), the shape the kernel was timed at before it gathered
+            for h, side, timed in ((bs.HL, "dst", True), (bs.C, "dst", False),
+                                   (bs.D, "src", True), (bs.HL, "src", False)):
+                rp = edges.dst_rowptr if side == "dst" else edges.src_rowptr
+                perm = getattr(type(edges), f"{side}_perm").func(edges)
+                kw = {"perm": perm, "scale": edges.norm if side == "dst" else None}
+                vals = t(bs.E, h)
+                r = note({"seg": check_segment(
+                    vals, rp, f"bench [E, {h}] -> {side} rows {name} "
+                    f"perm{'+scale' if side == 'dst' else ''}", timing=timed,
+                    **kw)})["seg"]
+                if timed:
+                    key = "segment_sum" if side == "dst" else "segment_sum dx"
+                    new_bench[(key, f"[E, {h}]", name)] = r
+                    new_bench[(key, f"[E, {h}] no perm", name)] = note(
+                        {"seg": check_segment(
+                            vals, rp, f"bench [E, {h}] -> {side} rows {name} "
+                            "no perm", timing=True)})["seg"]
+                del vals, perm, kw   # phase 5's peak memory holds none of them
 
-    phase("9 kernel #8, the one-pass backward, and its microbench")
-    bwd = bwd_variant_phase(small, wide, edges.span, rng, launches, reset)
-
-    phase("10 MLP and attention heads at the bench shape")
-    head_launches = {}
-    for head in ("mlp", "attention"):
+    if 5 in want:
+        phase("5 trainer at the bench shape")
         reset()
-        f = fits[(f"{head} head", None)] = run_fit(
-            DeviceGraph(edges=edges, **splits), None, EPOCHS, launches,
-            head=head)
-        require_per_step(f"{head} head", f["steps"],
-                         {"span_forward": 4, "span_backward": 2})
-        head_launches[f"{head} head"] = dict(launches)
+        for cd in (None, "bfloat16"):
+            fits[("fused", cd)] = run_fit(DeviceGraph(edges=edges, **splits), cd,
+                                          EPOCHS, launches)
+            require_per_step(f"fused {cd}", fits[("fused", cd)]["steps"],
+                             {"span_forward": 4, "span_backward": 2})
+        fused_launches = dict(launches)
+        # the end-to-end effect of #1's and #2's redesigns
+        swap = {}
+        for kernel in ("span_forward", "span_backward"):
+            swap[kernel] = s = route_swap(DeviceGraph(edges=edges, **splits),
+                                          launches, kernel)
+            print(f"  fused f32 ms/step, {kernel} on the tensor cores "
+                  f"{s['redesigned']} vs its earlier route {s['earlier route']} "
+                  "(order: redesigned, earlier, earlier, redesigned)",
+                  flush=True)
 
-    phase("11 checkpoint, resume, plan cache, summary writers and the "
-          "native parser")
-    from scaling_rgcn_training_tpu_torch.parallel.halo import EXCHANGE_ENV
+        t0 = time.perf_counter()
+        plain_edges = build_rel_edges(src, dst, typ, bs.N, bs.SLOTS, device=DEV,
+                                      span=False)
+        print(f"bench-shape edges without the span plan built in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        non_fused = DeviceGraph(edges=plain_edges, **splits)
+        reset()
+        for cd in (None, "bfloat16"):
+            fits[("edge", cd)] = run_fit(non_fused, cd, EPOCHS, launches,
+                                         backend="pallas")
+            require_per_step(f"edge mode {cd}", fits[("edge", cd)]["steps"],
+                             {"grouped_matmul": 4, "segment_sum": 4,
+                              "grouped_drhs": 2})
+        edge_launches = dict(launches)
+        if edge_launches["span_forward"] or edge_launches["span_backward"]:
+            fail(f"edge-mode trainer launched span kernels: {edge_launches}")
+        # the end-to-end effect of #4's and #5's redesigns
+        swap["grouped"] = s = route_swap(non_fused, launches, "grouped",
+                                         backend="pallas")
+        print(f"  edge-mode f32 ms/step, gmm and gmm_drhs on the tensor cores "
+              f"{s['redesigned']} vs their earlier routes {s['earlier route']} "
+              "(order: redesigned, earlier, earlier, redesigned)", flush=True)
+        # the end-to-end effect of #3's redesign (the gather and the scale
+        # inside the kernel); its sums are the earlier route's, bit for bit
+        swap["segment_sum"] = s = route_swap(non_fused, launches, "segment_sum",
+                                             backend="pallas")
+        print(f"  edge-mode f32 ms/step, segment_sum with the gather inside "
+              f"{s['redesigned']} vs its earlier route {s['earlier route']} "
+              "(order: redesigned, earlier, earlier, redesigned); the same loss "
+              f"bits on both routes: {s['same_losses']}; as the first edge-mode "
+              f"run's: {s['losses'] == fits[('edge', None)]['losses']}",
+              flush=True)
+        fused_l, edge_l = (fits[(k, None)]["losses"] for k in ("fused", "edge"))
+        if not np.allclose(edge_l, fused_l, rtol=1e-4, atol=0):
+            fail(f"edge-mode f32 losses {edge_l} differ from fused {fused_l}")
+        print(f"  edge-mode f32 losses match the fused run's (max rel diff "
+              f"{max(abs(a - b) / abs(b) for a, b in zip(edge_l, fused_l)):.2e})",
+              flush=True)
+        # where the fused/edge loss gap starts: one step's gradients, per layer
+        grads = layer_gradients(edges, plain_edges, splits)
+        reset()
+        fits[("attention", None)] = run_fit(non_fused, None, ATT_EPOCHS, launches,
+                                            backend="pallas", aggr="attention")
+        require_per_step("attention", fits[("attention", None)]["steps"],
+                         {"grouped_matmul": 1, "grouped_drhs": 1})
+        att_launches = dict(launches)
 
-    # the plans at the bench shape cold and warm; the fused and halo #7
-    # resumes below train on the warm (cached) plans
-    ckpt = {"resume": {}}
-    ckpt["plan_cache"], warm = plan_cache_check(src, dst, typ, halo["mesh"])
-    ckpt["resume"]["fused"] = resume_check(
-        "fused f32", DeviceGraph(edges=warm["build_rel_edges (span plan)"],
-                                 **splits), EPOCHS, 4,
-        fits[("fused", None)]["losses"], launches, reset,
-        ("span_forward", "span_backward"))
-    ckpt["resume"]["edge"] = resume_check(
-        "edge-mode f32", non_fused, EPOCHS, 4, fits[("edge", None)]["losses"],
-        launches, reset, ("grouped_matmul", "segment_sum", "grouped_drhs"),
-        backend="pallas")
-    os.environ[EXCHANGE_ENV] = "fused"
-    try:
-        ckpt["resume"]["halo #7"] = resume_check(
-            f"halo #7 f32 ({HALO_SHARDS} shards)", DeviceGraph(
-                edges=warm[f"halo partition ({HALO_SHARDS} shards)"],
-                **splits), HALO_EPOCHS, 2, fits[("halo #7", None)]["losses"],
-            launches, reset, ("fused_halo_aggregate", "span_backward"),
-            mesh=halo["mesh"], partition="halo")
-    finally:
-        os.environ.pop(EXCHANGE_ENV, None)
-    del warm
-    ckpt["cli"] = cli_checkpoint_phase()
-    ckpt["native_parse"] = native_parse_check()
+    if 6 in want:
+        phase("6 auto mode on a layer too wide for the span kernels")
+        wide_auto_check(edges, rng, launches, reset)
 
-    phase("12 training across processes (multihost_sim: halo and edge "
-          "partitions) at the bench shape")
-    multihost = multihost_phase(torch.cuda.device_count())
-    shared = multihost["2 processes x 2 shards, one card"]
+    if 7 in want:
+        phase("7 CLI on the GPU")
+        # layer 1 (128 -> 64) is wider than the span kernels take: auto mode
+        # runs it non-fused
+        run_cli(["-emb", "128", "-hl", "64"], "summation -emb 128 -hl 64")
+        run_cli(["-backend", "pallas", "-aggr", "attention"],
+                "summation -backend pallas -aggr attention")
+        run_cli([], "no -exp", exps=("summation", "mlp", "attention"))
 
-    phase("13 the AM shape (rehearse_am, rehearse_am_dist) on the card")
-    torch.cuda.empty_cache()
-    am = am_phase(launches, reset)
+    if 8 in want:
+        phase(f"8 halo partition on {HALO_SHARDS} virtual shards of the card")
+        halo = halo_phase(src, dst, typ, splits, fits, launches, reset)
+
+    if 9 in want:
+        phase("9 kernel #8, the one-pass backward, and its microbench")
+        bwd = bwd_variant_phase(small, wide, edges.span, rng, launches, reset)
+
+    if 10 in want:
+        phase("10 MLP and attention heads at the bench shape")
+        head_launches = {}
+        for head in ("mlp", "attention"):
+            reset()
+            f = fits[(f"{head} head", None)] = run_fit(
+                DeviceGraph(edges=edges, **splits), None, EPOCHS, launches,
+                head=head)
+            require_per_step(f"{head} head", f["steps"],
+                             {"span_forward": 4, "span_backward": 2})
+            head_launches[f"{head} head"] = dict(launches)
+
+    if 11 in want:
+        phase("11 checkpoint, resume, plan cache, summary writers and the "
+              "native parser")
+        from scaling_rgcn_training_tpu_torch.parallel.halo import EXCHANGE_ENV
+
+        # the plans at the bench shape cold and warm; the fused and halo #7
+        # resumes below train on the warm (cached) plans
+        ckpt = {"resume": {}}
+        ckpt["plan_cache"], warm = plan_cache_check(src, dst, typ, halo["mesh"])
+        ckpt["resume"]["fused"] = resume_check(
+            "fused f32", DeviceGraph(edges=warm["build_rel_edges (span plan)"],
+                                     **splits), EPOCHS, 4,
+            fits[("fused", None)]["losses"], launches, reset,
+            ("span_forward", "span_backward"))
+        ckpt["resume"]["edge"] = resume_check(
+            "edge-mode f32", non_fused, EPOCHS, 4, fits[("edge", None)]["losses"],
+            launches, reset, ("grouped_matmul", "segment_sum", "grouped_drhs"),
+            backend="pallas")
+        os.environ[EXCHANGE_ENV] = "fused"
+        try:
+            ckpt["resume"]["halo #7"] = resume_check(
+                f"halo #7 f32 ({HALO_SHARDS} shards)", DeviceGraph(
+                    edges=warm[f"halo partition ({HALO_SHARDS} shards)"],
+                    **splits), HALO_EPOCHS, 2, fits[("halo #7", None)]["losses"],
+                launches, reset, ("fused_halo_aggregate", "span_backward"),
+                mesh=halo["mesh"], partition="halo")
+        finally:
+            os.environ.pop(EXCHANGE_ENV, None)
+        del warm
+        ckpt["cli"] = cli_checkpoint_phase()
+        ckpt["native_parse"] = native_parse_check()
+
+    if 12 in want:
+        phase("12 training across processes (multihost_sim: halo and edge "
+              "partitions) at the bench shape")
+        multihost = multihost_phase(torch.cuda.device_count())
+        shared = multihost["2 processes x 2 shards, one card"]
+
+    if 13 in want:
+        phase("13 the AM shape (rehearse_am, rehearse_am_dist) on the card")
+        torch.cuda.empty_cache()
+        am = am_phase(launches, reset)
+
+    if 14 in want:
+        phase("14 bench (the JAX bench's timing entry point) at its defaults")
+        torch.cuda.empty_cache()
+        bench_res = bench_phase()
+
+    if 15 in want:
+        phase("15 bench_scaling (halo scaling over 1, 2 and 4 shards) on "
+              "the card")
+        torch.cuda.empty_cache()
+        scaling = scaling_phase(launches, reset)
+
+    print(f"chip_smoke: phases {sorted(want)} in "
+          f"{time.perf_counter() - _T0:.1f} s", flush=True)
+    if want != set(PHASES):
+        # a partial run (--only): the new phases' numbers, no kernels line
+        print(json.dumps({"card": card, "only": sorted(want),
+                          **({"bench": bench_res} if 14 in want else {}),
+                          **({"bench_scaling": scaling} if 15 in want
+                             else {})}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
 
     kernels = []
     b = bench[("layer1", "float32")]
@@ -2438,6 +2790,16 @@ def main() -> None:
         "library_ms": None,
         "kernels": ["bwd_wsplit_kernel", "bwd_tc_kernel",
                     "bwd_tc_reduce_kernel"]})
+    # the launches of this slice's paths: bench's per timed step (phase
+    # 14's float32 line), bench_scaling's over phase 15's drive
+    for entry in kernels:
+        kname = entry["name"]
+        if kname in ("span_forward", "span_backward"):
+            entry["bench_launches_per_step"] = \
+                bench_res["lines"]["float32"]["launches_per_step"][kname]
+        ran = sum(c[kname] for c in scaling["launches"].values())
+        if ran:
+            entry["bench_scaling_launches"] = ran
     print(json.dumps({
         "card": card,
         "bench_shape_ms": {
@@ -2466,7 +2828,7 @@ def main() -> None:
             "backend", "modes", "calls", "edge_calls", "edge_check",
             "barrier", "plan_load_s")}
             for name, rec in multihost.items()},
-        "am_shape": am}),
+        "am_shape": am, "bench": bench_res, "bench_scaling": scaling}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -818,8 +818,10 @@ def run(argv: Optional[List[str]] = None) -> dict:
     k = knobs()
     s_n = args.procs * args.shards_per_proc
     made = args.workdir is None
+    # absolute: the rendezvous file's URL and the children's --workdir
+    # must not depend on the directory they are read from
     work = Path(tempfile.mkdtemp(prefix="multihost_") if made
-                else args.workdir)
+                else args.workdir).resolve()
     work.mkdir(parents=True, exist_ok=True)
     try:
         src, dst, typ, slots = make_graph(k, s_n)

@@ -317,6 +317,12 @@ def exchange_mode() -> Optional[str]:
     return "fused" if value == "fused" else "kernel"
 
 
+def exchange_name() -> str:
+    """The exchange :func:`exchange_mode` picks, as the records name it:
+    ``library``, ``#6`` or ``#7``."""
+    return {None: "library", "kernel": "#6", "fused": "#7"}[exchange_mode()]
+
+
 def halo_aggregate(x: torch.Tensor, w: torch.Tensor, edges: HaloShardedEdges,
                    mesh: Mesh, backend: Optional[str] = None) -> torch.Tensor:
     """``sum_e norm_e * (x[src_e] @ w[rel_e])`` onto ``dst_e``, shard by

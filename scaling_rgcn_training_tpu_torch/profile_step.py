@@ -24,7 +24,10 @@ names hold one of the comma-separated ``OPS`` (``index_select``: the row
 gathers) by their input shapes (``record_shapes``), with each group's
 device time and calls per step: a gather of ``[E, h]`` rows is a
 permutation of the edge stream, one of ``[N, h]`` rows a node table's.
-``--trace`` also writes a Chrome trace. Needs a CUDA device.
+``--trace DIR`` also writes a Chrome trace into ``DIR`` (``utils/tracing.py``
+``trace``; the timed window is the region ``bench_train_step``, the name
+the JAX package's ``scripts/trace_step.py`` gives its traced step). Needs
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import time
 import torch
 
 from scaling_rgcn_training_tpu_torch import rehearse_am as ra
+from scaling_rgcn_training_tpu_torch.utils import tracing
 
 
 def _device_time(evt) -> float:
@@ -66,7 +70,8 @@ def main(argv=None) -> None:
                     "window (at least 2)")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--top", type=int, default=25)
-    ap.add_argument("--trace", type=str, default=None)
+    ap.add_argument("--trace", type=str, default=None,
+                    help="a directory for the Chrome trace")
     ap.add_argument("--shapes", type=str, default=None,
                     help="comma-separated operator names to split by input "
                     "shape, e.g. index_select")
@@ -93,19 +98,21 @@ def main(argv=None) -> None:
     else:
         run = _bench_run(args, compute_dtype)
     stamps = []
-    prof = torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA],
-        schedule=torch.profiler.schedule(wait=args.warmup - 1, warmup=1,
-                                         active=args.steps, repeat=1),
-        record_shapes=args.shapes is not None)
+    window = tracing.annotate("bench_train_step")
 
     def on_epoch(epoch):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
+        # the timed window, a named region of the trace
+        if len(stamps) == args.warmup + args.steps:
+            window.__exit__(None, None, None)
         prof.step()
+        if len(stamps) == args.warmup:
+            window.__enter__()
 
-    with prof:
+    with tracing.trace(args.trace, schedule=torch.profiler.schedule(
+            wait=args.warmup - 1, warmup=1, active=args.steps, repeat=1),
+            record_shapes=args.shapes is not None) as prof:
         run(on_epoch)
     wall = (stamps[-1] - stamps[args.warmup - 1]) * 1e3 / args.steps
     # device events, without the annotated ranges laid over the kernels
@@ -128,7 +135,7 @@ def main(argv=None) -> None:
     if args.shapes:
         _print_by_shape(prof, args.shapes.split(","), args.steps)
     if args.trace:
-        prof.export_chrome_trace(args.trace)
+        print(f"trace written: {prof.trace_path}", flush=True)
 
 
 def _bench_run(args, compute_dtype):

@@ -261,12 +261,6 @@ def unpartitioned_conv(src, dst, typ, n_pad: int, slots: int, device,
                                       compute_dtype=compute_dtype)
 
 
-def exchange_name() -> str:
-    from scaling_rgcn_training_tpu_torch.parallel.halo import exchange_mode
-
-    return {None: "library", "kernel": "#6", "fused": "#7"}[exchange_mode()]
-
-
 def executed_step(src, dst, typ, k: Dict[str, object], device, steps: int,
                   compute_dtype, scale: float) -> dict:
     """The executed step's record: the partition of ``(src, dst, typ)``
@@ -274,7 +268,7 @@ def executed_step(src, dst, typ, k: Dict[str, object], device, steps: int,
     import torch
 
     from scaling_rgcn_training_tpu_torch.parallel.halo import (
-        device_put_halo_edges, padded_num_nodes)
+        device_put_halo_edges, exchange_name, padded_num_nodes)
     from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh
 
     n, slots = int(k["nodes"] * scale), 2 * k["rels"] + 1

@@ -906,3 +906,29 @@ def test_cuda_rehearse_am_dist_step_matches_unpartitioned(exchange,
     want = 4 if exchange == "1" else 2 * rd.S
     assert all(st[kernel] == want and st["span_backward"] == 4 * rd.S
                for st in res["launches"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_bench_launches_the_span_kernels(dtype, monkeypatch):
+    """``bench`` at a small shape (N 20,000, E 200,000, 10 relations) on
+    the card: #1 and #2 twice a timed step, no other kernel, a finite
+    line."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scaling_rgcn_training_tpu_torch import bench
+
+    for name, value in (("BENCH_NODES", "20000"), ("BENCH_EDGES", "200000"),
+                        ("BENCH_RELS", "10"), ("BENCH_INNER", "3"),
+                        ("BENCH_STEPS", "3"), ("BENCH_DEVICE", "cuda"),
+                        ("BENCH_COMPUTE_DTYPE", dtype)):
+        monkeypatch.setenv(name, value)
+    monkeypatch.delenv("BENCH_SKIP_BASELINE", raising=False)
+    rec = bench.main()
+    lps = rec["launches_per_step"]
+    assert {n: c for n, c in lps.items() if c} == {"span_forward": 2,
+                                                   "span_backward": 2}
+    assert rec["compute_dtype"] == dtype and rec["peak_mib"] > 0
+    assert all(np.isfinite(rec[k]) for k in (
+        "value", "vs_baseline", "ms_per_step", "baseline_ms_per_step",
+        "achieved_gbps_est"))

@@ -437,3 +437,19 @@ def test_gradient_sum_across_two_processes(tmp_path):
         np.testing.assert_array_equal(out["rows"],
                                       np.repeat([0.0, 1.0], 2)[:, None]
                                       * np.ones((1, 3)))
+
+
+def test_relative_workdir(tmp_path):
+    """A ``--workdir`` relative to the current directory: the children's
+    rendezvous file lies inside it (a relative path once made the
+    ``file://`` URL name a host, and both children failed to start)."""
+    res = subprocess.run(
+        [sys.executable, "-m", "scaling_rgcn_training_tpu_torch.multihost_sim",
+         "--device", "cpu", "--procs", "2", "--shards-per-proc", "1",
+         "--modes", "library", "--workdir", "rel/work", "--timeout", "120"],
+        cwd=tmp_path, env=dict(_env(), MH_STEPS="1"), capture_output=True,
+        text=True, timeout=180)
+    assert res.returncode == 0, res.stderr[-3000:]
+    rec = json.loads(res.stdout.strip().splitlines()[-1])
+    assert rec["loss_parity"] is True
+    assert list((tmp_path / "rel" / "work").glob("child0.err"))
