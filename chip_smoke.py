@@ -174,7 +174,9 @@ Phases, in order; any failure exits non-zero:
    padding rows), ms/step and peak memory of each process, the MB each
    process gathers a step in the edge partition, and per call at layer
    1's width #6, #7 and the library exchange across processes and in one
-   process beside their bounds, the host barrier, and the edge
+   process beside their bounds, the whole aggregation's forward with the
+   library exchange and with #6, each overlapped and blocked
+   (``RGCN_HALO_BLOCK_OVERLAP``), the host barrier, and the edge
    partition's cross-process sums beside their bytes; with 2 cards or
    more also 2 processes x 1 card over NCCL;
 13. the AM shape (``bench_shape.AM_*``: N 1,600,000, E 12,000,000, 267
@@ -215,7 +217,22 @@ Phases, in order; any failure exits non-zero:
    on the same partitions: the JAX keys, finite numbers,
    ``measures_hardware_scaling`` false for virtual shards, every timed
    step launching its exchange's kernels, each count's losses against
-   k = 1's (``scaling_phase``).
+   k = 1's (``scaling_phase``);
+16. the halo exchange's overlap with the owner-local aggregation
+   (``overlap_phase``): ``measure_overlap`` at the JAX script's defaults
+   (N 100,000, E 1,000,000, 25 slots, 64 -> 16, 8 virtual shards of the
+   card) with the library exchange and with #6, both arms
+   (``RGCN_HALO_BLOCK_OVERLAP`` unset and set): ms per aggregation,
+   forward and forward + backward, the arms' outputs and gradients bit for
+   bit, and from a trace of one forward and one backward per arm the
+   compute-stream kernels that ran inside the exchange stream's window
+   (the blocked arm's must be 0), as ``python -m`` (its traces in a
+   process of its own); then one step of ``multihost_sim``'s loop on
+   phase 8's graph and widths (4 virtual shards, 4,096 labelled rows)
+   with each exchange, float32 and bfloat16 streams, in both arms: the
+   loss and every gradient bit for bit, two overlapped steps repeating
+   their bits (``determinism_check``), ms/step of each arm (in turns);
+   with 2 cards or more the same on the real cards.
 
 ``--only 14,15`` runs the named phases and the earlier ones they read
 (``NEEDS``; 1 and 2 always), then prints their numbers and the last line,
@@ -235,7 +252,8 @@ per-call times across processes and the launches of each child; #3's,
 ``bench_launches_per_step``, phase 14's; #1's, #2's, #3's and #7's with
 ``bench_scaling_launches``, phase 15's over both exchanges); the line
 before it holds the run's other numbers (phase 13's under ``am_shape``,
-phase 14's under ``bench``, phase 15's under ``bench_scaling``);
+phase 14's under ``bench``, phase 15's under ``bench_scaling``, phase
+16's under ``overlap``);
 the last line is ``{"ok": true, "device":
 {...}}``.
 """
@@ -265,7 +283,7 @@ WARMUP = 3
 # cut toward zero on every call gave -4e-8 and moved phase 5's losses)
 MAX_BIAS = 1e-8
 JAX_PKG = "scaling_rgcn_training_tpu/"
-PHASES = tuple(range(1, 16))
+PHASES = tuple(range(1, 17))
 # the earlier phases whose results a phase reads (``--only``)
 NEEDS = {4: (3,), 5: (3,), 6: (3,), 8: (3, 5), 9: (3,), 10: (3,),
          11: (3, 5, 8)}
@@ -1855,6 +1873,15 @@ def multihost_phase(cards: int) -> dict:
                       f"{calls['multi'][0][key]['bound_ms']:.4f}), one "
                       f"process {calls['single'][key]['ms']:.4f} ms (bound "
                       f"{calls['single'][key]['bound_ms']:.4f})", flush=True)
+            one = calls["single"]["halo_aggregate"]
+            for key in one:
+                multi = [round(c["halo_aggregate"][key], 4)
+                         for c in calls["multi"]]
+                print(f"  multihost {name} halo_aggregate {key} forward per "
+                      f"call at {calls['single']['d_in']}->"
+                      f"{calls['single']['d_out']} f32: across processes "
+                      f"{multi} ms, one process {one[key]:.4f} ms",
+                      flush=True)
             ec = rec["edge_calls"]
             for key in ("forward_sum", "backward_sum"):
                 multi = [c[key] for c in ec["multi"]]
@@ -2354,6 +2381,107 @@ def scaling_phase(launches, reset) -> dict:
     return {"records": out, "launches": counts}
 
 
+def overlap_phase(launches, reset) -> dict:
+    """Phase 16: the halo exchange's overlap with the owner-local
+    aggregation, both arms (the module docstring). ``measure_overlap``
+    runs as ``python -m``, its traces taken in a process of its own: a
+    trace taken late in this process held no exchange-stream work."""
+    import torch
+    from scaling_rgcn_training_tpu_torch import bench_shape as bs
+    from scaling_rgcn_training_tpu_torch import measure_overlap as mo
+    from scaling_rgcn_training_tpu_torch import multihost_sim as mh
+    from scaling_rgcn_training_tpu_torch.parallel.halo import (
+        EXCHANGE_ENV, device_put_halo_edges, halo_partition_edges,
+        padded_num_nodes)
+    from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh
+    from scaling_rgcn_training_tpu_torch.parallel.ring_halo import (
+        exchange_stream)
+
+    cards = torch.cuda.device_count()
+    layouts = [(f"{mo.knobs()['devices']} virtual shards", [])]
+    if cards >= 2:
+        layouts.append((f"{cards} cards", ["--cards"]))
+    else:
+        print("  real cards: skipped (1 card)", flush=True)
+    out = {"measure_overlap": {}, "step": {}}
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("OV_") and k != EXCHANGE_ENV}
+    env["PYTHONPATH"] = ROOT
+    for name, extra in layouts:
+        for exchange in ("library", "kernel"):
+            tag = f"measure_overlap {name} {exchange}"
+            run_env = dict(env)
+            if mo.EXCHANGES[exchange] is not None:
+                run_env[EXCHANGE_ENV] = mo.EXCHANGES[exchange]
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, "-m",
+                                  f"{PKG}.measure_overlap", *extra],
+                                 cwd=ROOT, env=run_env, capture_output=True,
+                                 text=True, timeout=600)
+            if res.returncode != 0:
+                fail(f"{tag} exited {res.returncode}: {res.stderr[-3000:]}")
+            rec = json.loads(res.stdout.strip().splitlines()[-1])
+            if not rec["same_bits"]:
+                fail(f"{tag}: the arms' outputs or gradients differ")
+            for arm, a in rec["arms"].items():
+                for way, win in a["window"].items():
+                    if arm == "blocked" and win["inside"]:
+                        fail(f"{tag} blocked {way}: {win['inside']} compute "
+                             f"kernels inside the exchange window "
+                             f"{win['kernels']}")
+                print(f"  {tag} {arm}: {a['ms_per_agg']:.4f} ms/agg "
+                      f"forward, {a['ms_per_agg_fwd_bwd']:.4f} forward + "
+                      "backward; compute kernels inside the exchange "
+                      f"window: forward {mo.describe(a['window']['forward'])}"
+                      f" {a['window']['forward']['kernels']}, backward "
+                      f"{mo.describe(a['window']['backward'])} "
+                      f"{a['window']['backward']['kernels']}", flush=True)
+            print(f"  {tag}: H {rec['halo_rows']}, {rec['card']}, "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            out["measure_overlap"][f"{name} {exchange}"] = rec
+    dev = torch.device(DEV, torch.cuda.current_device())
+    if torch.cuda.current_stream(dev) == exchange_stream(dev):
+        fail("this process's current stream is the halo exchange stream")
+    src, dst, typ = bs.bench_edges()
+    steps = [("4 virtual shards", make_mesh(devices=(DEV,) * HALO_SHARDS))]
+    if cards >= 2:
+        steps.append((f"{cards} cards", make_mesh(cards)))
+    for name, mesh in steps:
+        t0 = time.perf_counter()
+        he = device_put_halo_edges(halo_partition_edges(
+            src, dst, typ, bs.N, bs.SLOTS, mesh.size), mesh)
+        print(f"  bench-shape halo partition over {name} built in "
+              f"{time.perf_counter() - t0:.2f} s (H {he.halo})", flush=True)
+        params = mh.make_params(padded_num_nodes(he), (bs.D, bs.HL, bs.C),
+                                bs.SLOTS)
+        rows, y = mh.labels(bs.N, bs.C, bs.N_TRAIN)
+        for cd in (None, torch.bfloat16):
+            step = mo.make_step(mesh, he, params, rows, y, cd)
+            for exchange in ("library", "kernel"):
+                tag = (f"bench-shape halo step {name} {exchange} "
+                       f"{dtype_name(cd or torch.float32)}")
+                reset()
+                res = mo.compare_step(step, mesh.devices, exchange)
+                if not (res["same_bits"] and res["repeats_bits"]):
+                    fail(f"{tag}: the arms' bits equal {res['same_bits']}, "
+                         f"two overlapped steps repeat {res['repeats_bits']}")
+                if not launches["span_forward"] or not launches[
+                        "span_backward"] or (exchange == "kernel" and
+                                             not launches["halo_exchange"]):
+                    fail(f"{tag}: its kernels did not run {dict(launches)}")
+                print(f"  {tag}: loss {res['loss']!r} and every gradient the "
+                      "same bits in both arms, repeated by two overlapped "
+                      "steps; ms/step overlapped "
+                      f"{res['ms_per_step']['overlapped']:.3f}, blocked "
+                      f"{res['ms_per_step']['blocked']:.3f} (in turns)",
+                      flush=True)
+                out["step"][tag] = res
+            del step
+        del he
+        torch.cuda.empty_cache()
+    return out
+
+
 def phases_to_run(argv) -> set:
     """The phases of ``--only N,M,...`` (every phase without it), with the
     phases whose results they read (``NEEDS``); 1 and 2 always run."""
@@ -2692,6 +2820,11 @@ def main(argv=None) -> None:
         torch.cuda.empty_cache()
         scaling = scaling_phase(launches, reset)
 
+    if 16 in want:
+        phase("16 halo overlap (measure_overlap)")
+        torch.cuda.empty_cache()
+        overlap = overlap_phase(launches, reset)
+
     print(f"chip_smoke: phases {sorted(want)} in "
           f"{time.perf_counter() - _T0:.1f} s", flush=True)
     if want != set(PHASES):
@@ -2699,7 +2832,9 @@ def main(argv=None) -> None:
         print(json.dumps({"card": card, "only": sorted(want),
                           **({"bench": bench_res} if 14 in want else {}),
                           **({"bench_scaling": scaling} if 15 in want
-                             else {})}), flush=True)
+                             else {}),
+                          **({"overlap": overlap} if 16 in want else {})}),
+              flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -2828,7 +2963,8 @@ def main(argv=None) -> None:
             "backend", "modes", "calls", "edge_calls", "edge_check",
             "barrier", "plan_load_s")}
             for name, rec in multihost.items()},
-        "am_shape": am, "bench": bench_res, "bench_scaling": scaling}),
+        "am_shape": am, "bench": bench_res, "bench_scaling": scaling,
+        "overlap": overlap}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -83,10 +83,13 @@ into shards of 512 (from 3 shards the last shards hold only padding
 rows), float32 and bfloat16: all three bit for bit.
 ``--time-calls`` (card): each exchange and #7 per call at
 layer 1's width across processes, and by the parent in one process,
-beside their bounds (``fused_halo_cost`` with the ``x_own`` copy), and
-the host barrier alone; for the edge mode the sums of a layer-1 forward
-(the shards' partials ``[N, HL]``) and of its backward (the shards'
-``[N, D]`` and ``w`` cotangents) per call, across processes beside the
+beside their bounds (``fused_halo_cost`` with the ``x_own`` copy), the
+whole aggregation's forward with the library exchange and with #6, each
+with the exchange overlapping the owner-local segment and blocked
+(``RGCN_HALO_BLOCK_OVERLAP``), and the host barrier alone; for the edge
+mode the sums of a layer-1 forward (the shards' partials ``[N, HL]``) and
+of its backward (the shards' ``[N, D]`` and ``w`` cotangents) per call,
+across processes beside the
 bytes a process contributes and receives, and in one process over its S
 shards. ``--ckpt DIR``: each
 mode's state before its first step and after its last written through
@@ -538,14 +541,21 @@ def check_edge_across(device, per_proc=(1, 2)) -> List[dict]:
     return out
 
 
-def time_calls(mesh, hedges, d_in: int, d_out: int, reps: int = 20) -> dict:
+def time_calls(mesh, hedges, d_in: int, d_out: int, reps: int = 20,
+               agg_reps: int = 10) -> dict:
     """Per call at ``d_in -> d_out`` float32 over this process's shards
     (CUDA events, after one warm call): #6, the library exchange and #7
-    (with its halo buffer), each beside its bound; across processes also
-    the host barrier alone (host clock)."""
+    (with its halo buffer), each beside its bound; ``halo_aggregate``'s
+    forward with the library exchange and with #6, each overlapped and
+    blocked (``RGCN_HALO_BLOCK_OVERLAP``); across processes also the host
+    barrier alone (host clock)."""
     import torch
 
     from scaling_rgcn_training_tpu_torch.bwd_variants import bound
+    from scaling_rgcn_training_tpu_torch.measure_overlap import (
+        ARMS, EXCHANGES, env_set)
+    from scaling_rgcn_training_tpu_torch.parallel.halo import (
+        BLOCK_OVERLAP_ENV, EXCHANGE_ENV, halo_aggregate)
     from scaling_rgcn_training_tpu_torch.parallel import fused_halo as fh
     from scaling_rgcn_training_tpu_torch.parallel import ring_halo as rh
     from scaling_rgcn_training_tpu_torch.parallel.mesh import (
@@ -577,7 +587,8 @@ def time_calls(mesh, hedges, d_in: int, d_out: int, reps: int = 20) -> dict:
                                             sum(c[1] for c in costs),
                                             costs[0][2])}
     out = {"d_in": d_in, "d_out": d_out, "shards": k}
-    for name, fn in calls.items():
+
+    def per_call(fn, n: int) -> float:
         fn()
         _sync(dev)
         if across:
@@ -585,11 +596,24 @@ def time_calls(mesh, hedges, d_in: int, d_out: int, reps: int = 20) -> dict:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(reps):
+        for _ in range(n):
             fn()
         end.record()
         torch.cuda.synchronize(dev)
-        out[name] = {"ms": start.elapsed_time(end) / reps, **bounds[name]}
+        return start.elapsed_time(end) / n
+
+    for name, fn in calls.items():
+        out[name] = {"ms": per_call(fn, reps), **bounds[name]}
+    # the whole aggregation (send gathers, exchange, both segments), the
+    # exchange overlapping the owner-local segment and blocked
+    out["halo_aggregate"] = {}
+    with torch.no_grad():
+        for exchange in ("library", "kernel"):
+            for arm, blocked in ARMS:
+                with env_set(EXCHANGE_ENV, EXCHANGES[exchange]), \
+                        env_set(BLOCK_OVERLAP_ENV, "1" if blocked else None):
+                    out["halo_aggregate"][f"{exchange} {arm}"] = per_call(
+                        lambda: halo_aggregate(x, w, hedges, mesh), agg_reps)
     if across:
         calls0, secs0 = BARRIER["calls"], BARRIER["seconds"]
         for _ in range(reps):

@@ -41,6 +41,31 @@ read by :func:`exchange_mode` only):
   kernels') a warning, then the library exchange;
 - any other value: kernel #6 (``halo_exchange``).
 
+With the library exchange or #6 the exchange overlaps the owner-local
+aggregation on the cards, as the JAX package's ``shard_map`` body lets
+XLA's scheduler overlap them (the counterpart of its
+``async_collective_options``), in its order: the send gathers on each
+card's compute stream (its current stream), the exchange on the card's
+exchange stream (``ring_halo.Overlap``) once they are written, the
+owner-local segment of every shard on the compute stream while the halo
+rows are in flight, then the join (the compute stream waits for the
+exchange stream) and the halo segments. Backward, autograd runs the
+owner-local segments' backward (their nodes are younger) before the
+reverse exchange, which waits for the halo segments' backward only. The
+order holds where the exchange blocks the host for the other processes
+(#6's host barriers, the library exchange through the host over gloo):
+the owner-local backward is then queued on the card while the host
+blocks in the reverse exchange. ``RGCN_HALO_BLOCK_OVERLAP``
+(:func:`overlap_blocked`, a measuring arm: ``measure_overlap.py``) joins
+before the owner-local segment, in both directions, as the JAX package's
+``optimization_barrier``. On the CPU no stream exists and both arms run
+the same ops in the same order. Kernel #7 exchanges and aggregates in one
+kernel and reads no barrier. Every arm gives the same bits: the weight's
+cotangents of the shards' segments are added in one fixed order
+(:class:`SegmentWeights`), and each ``x_own`` collects two (its local
+segment's and its send gather's), whose sum does not depend on their
+order.
+
 A kernel that fails to build or launch raises; nothing falls back.
 """
 
@@ -63,11 +88,12 @@ from scaling_rgcn_training_tpu_torch.parallel.fused_halo import (
     FusedHaloPlan, fused_halo_apply, plan_fused_halo)
 from scaling_rgcn_training_tpu_torch.parallel.mesh import Mesh
 from scaling_rgcn_training_tpu_torch.parallel.ring_halo import (
-    HaloExchange, send_transpose)
+    HaloExchange, Overlap, on_cards, send_transpose)
 from scaling_rgcn_training_tpu_torch.utils.plancache import get_or_build
 from scaling_rgcn_training_tpu_torch.utils.plantree import to_device
 
 EXCHANGE_ENV = "RGCN_HALO_PALLAS_A2A"
+BLOCK_OVERLAP_ENV = "RGCN_HALO_BLOCK_OVERLAP"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +132,29 @@ class SendGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return send_transpose(g, ctx.shard).to(g.dtype), None
+
+
+class SegmentWeights(torch.autograd.Function):
+    """``w`` as the S shards' owner-local and halo segments read it: ``2S``
+    aliases (the identity), the local segments' first. Backward: their
+    cotangents added in one fixed order, the order in which autograd
+    added them when each shard's ``local + halo`` ran in turn (shard S - 1
+    first, its halo segment's before its local's), so every arm and every
+    issue order gives those bits."""
+
+    @staticmethod
+    def forward(ctx, w, num_shards: int):
+        return tuple(w.view_as(w) for _ in range(2 * num_shards))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        s_n = len(grads) // 2
+        total = None
+        for s in reversed(range(s_n)):
+            for g in (grads[s_n + s], grads[s]):
+                if g is not None:
+                    total = g if total is None else total + g
+        return total, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -317,6 +366,12 @@ def exchange_mode() -> Optional[str]:
     return "fused" if value == "fused" else "kernel"
 
 
+def overlap_blocked() -> bool:
+    """``RGCN_HALO_BLOCK_OVERLAP`` set (non-empty): the blocked arm, the
+    join before the owner-local segment (a measuring arm)."""
+    return bool(os.environ.get(BLOCK_OVERLAP_ENV))
+
+
 def exchange_name() -> str:
     """The exchange :func:`exchange_mode` picks, as the records name it:
     ``library``, ``#6`` or ``#7``."""
@@ -328,7 +383,7 @@ def halo_aggregate(x: torch.Tensor, w: torch.Tensor, edges: HaloShardedEdges,
     """``sum_e norm_e * (x[src_e] @ w[rel_e])`` onto ``dst_e``, shard by
     shard: this process's rows ``x [k * n_per, d_in]`` -> ``[k * n_per,
     d_out]`` float32 on the mesh's first device."""
-    s_n, n_per, h = edges.num_shards, edges.n_per, edges.halo
+    s_n, n_per = edges.num_shards, edges.n_per
     k = mesh.local_size
     if mesh.size != s_n or len(edges.shards) != k or \
             edges.shards[0].fused.shard != mesh.first_shard:
@@ -349,22 +404,46 @@ def halo_aggregate(x: torch.Tensor, w: torch.Tensor, edges: HaloShardedEdges,
     x, w = x.contiguous(), w.contiguous()
     xs = [x[s * n_per:(s + 1) * n_per].to(dev)
           for s, dev in enumerate(mesh.devices)]
-    ws = [w.to(dev) for dev in mesh.devices]
-    across = mesh if mesh.multiprocess else None
     if mode == "fused":
-        aggs = fused_halo_apply(xs, ws, edges.shards, across)
+        aggs = fused_halo_apply(xs, [w.to(dev) for dev in mesh.devices],
+                                edges.shards,
+                                mesh if mesh.multiprocess else None)
     else:
-        sends = [SendGather.apply(xs[s], sh).view(s_n, h, d_in)
-                 for s, sh in enumerate(edges.shards)]
-        recvs = HaloExchange.apply(mode or "library", across, *sends)
-        agg_mode = "fused" if use_span else "edge"
-        aggs: List[torch.Tensor] = []
-        for s, sh in enumerate(edges.shards):
-            hbuf = recvs[s].reshape(s_n * h, d_in)
-            aggs.append(
-                relational_aggregate(xs[s], ws[s], sh.local, agg_mode, backend)
-                + relational_aggregate(hbuf, ws[s], sh.halo, agg_mode, backend))
+        aggs = _exchanged_aggregate(xs, w, edges, mesh, mode or "library",
+                                    "fused" if use_span else "edge", backend)
     return torch.cat([a.to(mesh.first) for a in aggs])
+
+
+def _exchanged_aggregate(xs: List[torch.Tensor], w: torch.Tensor,
+                         edges: HaloShardedEdges, mesh: Mesh, mode: str,
+                         agg_mode: str, backend: Optional[str]
+                         ) -> List[torch.Tensor]:
+    """Each shard's ``local + halo`` aggregation around the library
+    exchange or #6, the exchange overlapping the owner-local segments on
+    the cards (the module's docstring)."""
+    s_n, h, d_in = edges.num_shards, edges.halo, w.shape[1]
+    views = SegmentWeights.apply(w, len(xs))
+    w_local = [v.to(x.device) for v, x in zip(views[:len(xs)], xs)]
+    w_halo = [v.to(x.device) for v, x in zip(views[len(xs):], xs)]
+    sends = [SendGather.apply(xs[s], sh).view(s_n, h, d_in)
+             for s, sh in enumerate(edges.shards)]
+    overlap = Overlap.on([x.device for x in xs], overlap_blocked()) \
+        if on_cards(xs) else None
+    across = mesh if mesh.multiprocess else None
+    if overlap is None:
+        recvs = HaloExchange.apply(mode, across, None, *sends)
+    else:
+        with overlap.issue():
+            recvs = HaloExchange.apply(mode, across, overlap, *sends)
+        if overlap.blocked:
+            overlap.join()
+    local = [relational_aggregate(x, wl, sh.local, agg_mode, backend)
+             for x, wl, sh in zip(xs, w_local, edges.shards)]
+    if overlap is not None and not overlap.blocked:
+        overlap.join()
+    return [loc + relational_aggregate(recv.reshape(s_n * h, d_in), wh,
+                                       sh.halo, agg_mode, backend)
+            for loc, recv, wh, sh in zip(local, recvs, w_halo, edges.shards)]
 
 
 def halo_rgcn_conv(x: torch.Tensor, edges: HaloShardedEdges, layer: RGCNLayer,

@@ -19,8 +19,11 @@ block ``p`` prepared for it (its own block included), as
 
 :class:`HaloExchange` makes either exchange differentiable: the exchange
 is its own transpose (exchanging twice restores the layout), so its
-gradient is the exchange of the cotangents, as in the JAX package.
-:func:`send_transpose` is the transpose of the gather that fills a
+gradient is the exchange of the cotangents, as in the JAX package. On the
+cards it runs on each card's exchange stream (:func:`exchange_stream`,
+:class:`Overlap`), both ways, so that ``parallel/halo.py`` can run the
+owner-local aggregation on the compute streams while the halo rows are in
+flight. :func:`send_transpose` is the transpose of the gather that fills a
 shard's sends, shared by both halo backwards (``parallel/halo.py``, and
 kernel #7's in ``parallel/fused_halo.py``).
 
@@ -43,8 +46,10 @@ processes.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import List, Optional, Sequence
+import dataclasses
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import torch
 
@@ -258,16 +263,116 @@ def send_transpose(g_send: torch.Tensor, shard) -> torch.Tensor:
                               perm=shard.send_perm)
 
 
+# each card's exchange stream, made at its first use (exchange_stream)
+_EXCHANGE_STREAMS: Dict[int, torch.cuda.Stream] = {}
+
+
+def exchange_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream the halo exchange runs on, one per card for the
+    process, made at its first use; raises where no stream can be made."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    stream = _EXCHANGE_STREAMS.get(index)
+    if stream is None:
+        stream = _EXCHANGE_STREAMS[index] = torch.cuda.Stream(device=index)
+    return stream
+
+
+@dataclasses.dataclass(frozen=True)
+class Overlap:
+    """The streams of one halo exchange on the cards of a mesh:
+    ``compute[dev]``, each card's stream current at the call (the send
+    gathers and both aggregation segments run there), ``exchange[dev]``,
+    its exchange stream (:func:`exchange_stream`), and ``blocked``
+    (``RGCN_HALO_BLOCK_OVERLAP``: the join before the owner-local work, as
+    the JAX package's ``optimization_barrier``, in both directions)."""
+
+    compute: Dict[torch.device, torch.cuda.Stream]
+    exchange: Dict[torch.device, torch.cuda.Stream]
+    blocked: bool
+
+    @classmethod
+    def on(cls, devices: Sequence[torch.device], blocked: bool) -> "Overlap":
+        """The streams of ``devices``; raises where a card's current stream
+        is its exchange stream (nothing could overlap)."""
+        devs = list(dict.fromkeys(devices))
+        ov = cls({d: torch.cuda.current_stream(d) for d in devs},
+                 {d: exchange_stream(d) for d in devs}, blocked)
+        for dev, ex in ov.exchange.items():
+            if ov.compute[dev] == ex:
+                raise RuntimeError(f"the current stream of {dev} is its "
+                                   "halo exchange stream")
+        return ov
+
+    @contextlib.contextmanager
+    def issue(self, *after: Dict[torch.device, torch.cuda.Stream]
+              ) -> Iterator[None]:
+        """Each card's exchange stream waits for the work queued so far on
+        its streams in ``after`` (default: its compute stream), then is the
+        card's current stream inside the block."""
+        with contextlib.ExitStack() as stack:
+            for dev, ex in self.exchange.items():
+                for streams in after or (self.compute,):
+                    if streams[dev] != ex:
+                        ex.wait_stream(streams[dev])
+                stack.enter_context(torch.cuda.stream(ex))
+            yield
+
+    def join(self, into: Optional[Dict[torch.device, torch.cuda.Stream]]
+             = None) -> None:
+        """Each card's stream in ``into`` (default: its compute stream)
+        waits for its exchange stream."""
+        for dev, ex in self.exchange.items():
+            stream = (into or self.compute)[dev]
+            if stream != ex:
+                stream.wait_stream(ex)
+
+
 class HaloExchange(torch.autograd.Function):
     """``EXCHANGES[mode]`` over this process's sends on ``mesh`` (None:
-    one process); its gradient is the same exchange of the cotangents."""
+    one process); its gradient is the same exchange of the cotangents.
+
+    With an :class:`Overlap` (the cards) the caller applies it inside
+    ``overlap.issue()``, right after the send gathers: the exchange runs
+    on the exchange streams once the sends are written, the
+    received buffers come back there unjoined, and autograd records the
+    exchange streams as this node's, so the engine makes them wait for the
+    cotangents' producers as each arrives and makes the send gathers'
+    backwards wait for the reverse exchange. The backward runs the reverse
+    exchange on every card's exchange stream (the engine sets one card's
+    stream only); in the blocked arm it first waits for the compute
+    streams, so the reverse exchange follows the owner-local backward.
+    Tensors read on the other stream are recorded there for the caching
+    allocator."""
 
     @staticmethod
-    def forward(ctx, mode: str, mesh: Optional[Mesh], *sends):
-        ctx.mode, ctx.mesh = mode, mesh
-        return tuple(EXCHANGES[mode](sends, mesh))
+    def forward(ctx, mode: str, mesh: Optional[Mesh],
+                overlap: Optional[Overlap], *sends):
+        ctx.mode, ctx.mesh, ctx.overlap = mode, mesh, overlap
+        recvs = EXCHANGES[mode](sends, mesh)
+        if overlap is not None:
+            for t in sends:
+                t.record_stream(overlap.exchange[t.device])
+            for t in recvs:
+                t.record_stream(overlap.compute[t.device])
+        return tuple(recvs)
 
     @staticmethod
     def backward(ctx, *grads):
-        return (None, None, *EXCHANGES[ctx.mode](
-            [g.contiguous() for g in grads], ctx.mesh))
+        ov = ctx.overlap
+        if ov is None:
+            return (None, None, None, *EXCHANGES[ctx.mode](
+                [g.contiguous() for g in grads], ctx.mesh))
+        # the streams the engine runs this node on: the exchange stream of
+        # one card, the current (accumulating) stream of the others
+        current = {d: torch.cuda.current_stream(d) for d in ov.exchange}
+        with ov.issue(current, *((ov.compute,) if ov.blocked else ())):
+            outs = EXCHANGES[ctx.mode]([g.contiguous() for g in grads],
+                                       ctx.mesh)
+        for g in grads:
+            g.record_stream(ov.exchange[g.device])
+        for t in outs:
+            t.record_stream(ov.compute[t.device])
+        ov.join(current)
+        return (None, None, None, *outs)

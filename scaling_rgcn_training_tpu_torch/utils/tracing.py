@@ -10,15 +10,22 @@ Counterpart of the JAX package's ``utils/tracing.py``:
 - ``throughput(edges, layers, seconds)``: edge traversals per second.
 - ``determinism_check(fn, *args)``: runs ``fn`` several times and compares
   every tensor of its outputs bit for bit, the run-to-run determinism audit
-  of a step.
+  of a step; ``same_bits(a, b)``: the same comparison of two outputs.
+- ``gpu_events(trace_path)`` and ``stream_overlap(events)``: the card's
+  kernels and copies of a written trace, by card and stream, and how many
+  of one stream's kernels run while another stream of their card works
+  (``measure_overlap.py``).
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
+import json
 import os
 import time
-from typing import Any, Callable, Iterator, List, Optional
+from collections import Counter
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -86,14 +93,133 @@ def _same_bits(a: Any, b: Any) -> bool:
     return torch.equal(a, b)
 
 
+def same_bits(ref: Any, got: Any) -> bool:
+    """True when two outputs have the same structure and every tensor (and
+    number, and array) leaf the same bits."""
+    ref, got = _leaves(ref), _leaves(got)
+    return len(got) == len(ref) and \
+        all(_same_bits(a, b) for a, b in zip(ref, got))
+
+
 def determinism_check(fn: Callable, *args, tries: int = 2) -> bool:
     """True when ``tries`` runs of ``fn(*args)`` give outputs with the
-    same structure and every tensor (and number, and array) leaf the same
-    bits."""
-    ref = _leaves(fn(*args))
-    for _ in range(tries - 1):
-        got = _leaves(fn(*args))
-        if len(got) != len(ref) or \
-                not all(_same_bits(a, b) for a, b in zip(ref, got)):
-            return False
-    return True
+    same structure and every leaf the same bits (:func:`same_bits`)."""
+    ref = fn(*args)
+    return all(same_bits(ref, fn(*args)) for _ in range(tries - 1))
+
+
+# the card's activities in a Chrome trace: kernels, copies and fills
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+# the host's calls that launch them (their correlation ids link the two)
+_LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+
+
+def gpu_events(trace_path: str) -> List[Dict[str, Any]]:
+    """The card's kernels, copies and fills in a Chrome trace that
+    :func:`trace` wrote, in start order: ``name``, ``cat`` (``kernel``,
+    ``gpu_memcpy``, ``gpu_memset``), ``device``, ``stream``, ``start``,
+    ``end`` and ``launch`` (microseconds; ``launch``: when the host's
+    runtime or driver call that queued it began, None where the trace
+    links none)."""
+    with open(trace_path) as f:
+        doc = json.load(f)
+    events = doc["traceEvents"] if isinstance(doc, dict) else doc
+    launched = {}
+    for e in events:
+        if e.get("ph") == "X" and str(e.get("cat", "")).lower() in \
+                _LAUNCH_CATS and "correlation" in e.get("args", {}):
+            launched[e["args"]["correlation"]] = float(e["ts"])
+    out = []
+    for e in events:
+        cat = str(e.get("cat", "")).lower()
+        if e.get("ph") != "X" or cat not in _DEVICE_CATS:
+            continue
+        args = e.get("args", {})
+        start = float(e["ts"])
+        out.append({"name": e["name"], "cat": cat,
+                    "device": int(args.get("device", e.get("pid", 0))),
+                    "stream": int(args.get("stream", e.get("tid", 0))),
+                    "start": start, "end": start + float(e.get("dur", 0.0)),
+                    "launch": launched.get(args.get("correlation"))})
+    return sorted(out, key=lambda e: e["start"])
+
+
+def kernel_name(name: str) -> str:
+    """A kernel's name without its namespace, template arguments and
+    parameter list."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = name.split("(")[0].split("<")[0].strip()
+    return name[5:] if name.startswith("void ") else name
+
+
+def _union(intervals: List[tuple]) -> List[List[float]]:
+    merged: List[List[float]] = []
+    for lo, hi in sorted(intervals):
+        if merged and lo <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    return merged
+
+
+def stream_overlap(events: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
+    """On each card of :func:`gpu_events`, the stream with the most events
+    is its compute stream and the other streams' events are the window
+    (the halo exchange's stream, ``parallel/ring_halo.py``). Returns
+    ``inside``: the compute stream's kernels that run while the window
+    works (their intervals meet), ``kernels``: those kernels by name,
+    ``window_ms``: the window's busy ms (its events' union),
+    ``overlap_ms``: the ms in which a compute kernel runs beside it;
+    ``windows``: the window's separate busy intervals, ``host_late``: how
+    many of them ended before the host had launched the next compute
+    kernel (the first one still to run when the interval began): there
+    the host's pace, not a stream's wait, kept the streams apart;
+    ``busy_ms`` and ``span_ms``: every stream's union of events and the
+    first start to the last end, summed over the cards (idle share ``1 -
+    busy / span``); ``streams``: each card's compute and window
+    streams."""
+    by_dev: Dict[int, List[Dict[str, Any]]] = {}
+    for e in events:
+        by_dev.setdefault(e["device"], []).append(e)
+    inside, names = 0, Counter()
+    window_us = overlap_us = busy_us = span_us = 0.0
+    windows = host_late = 0
+    streams = {}
+    for dev, evs in sorted(by_dev.items()):
+        compute = Counter(e["stream"] for e in evs).most_common(1)[0][0]
+        window = _union([(e["start"], e["end"]) for e in evs
+                         if e["stream"] != compute])
+        streams[str(dev)] = {"compute": compute, "window": sorted(
+            {e["stream"] for e in evs if e["stream"] != compute})}
+        window_us += sum(hi - lo for lo, hi in window)
+        busy_us += sum(hi - lo for lo, hi in
+                       _union([(e["start"], e["end"]) for e in evs]))
+        span_us += max(e["end"] for e in evs) - min(e["start"] for e in evs)
+        kernels = [e for e in evs
+                   if e["stream"] == compute and e["cat"] == "kernel"]
+        starts = [lo for lo, _ in window]
+        for e in kernels:
+            met = 0.0
+            i = max(bisect.bisect_right(starts, e["start"]) - 1, 0)
+            for lo, hi in window[i:]:
+                if lo >= e["end"]:
+                    break
+                met += max(0.0, min(hi, e["end"]) - max(lo, e["start"]))
+            if met > 0:
+                inside += 1
+                names[kernel_name(e["name"])] += 1
+                overlap_us += met
+        for lo, hi in window:
+            nxt = next((e for e in kernels if e["end"] > lo), None)
+            if nxt is None:
+                continue
+            windows += 1
+            if nxt["launch"] is not None and nxt["launch"] >= hi:
+                host_late += 1
+    return {"inside": inside, "kernels": dict(names.most_common()),
+            "window_ms": window_us / 1e3, "overlap_ms": overlap_us / 1e3,
+            "windows": windows, "host_late": host_late,
+            "busy_ms": busy_us / 1e3, "span_ms": span_us / 1e3,
+            "streams": streams}

@@ -152,7 +152,8 @@ def test_port_imports_no_jax_optax_or_sklearn():
         "          'parallel.ring_halo', 'parallel.fused_halo',\n"
         "          'parallel.halo', 'parallel.spmd', 'parallel.ipc',\n"
         "          'multihost_sim', 'rehearse_am', 'rehearse_am_dist',\n"
-        "          'bench', 'bench_scaling', 'utils.tracing'):\n"
+        "          'bench', 'bench_scaling', 'utils.tracing',\n"
+        "          'measure_overlap'):\n"
         "    assert 'scaling_rgcn_training_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('scaling_rgcn_training_tpu', 'jax', 'jaxlib', 'optax', 'sklearn')]\n"

@@ -759,6 +759,128 @@ def test_cuda_halo_kernels_on_two_cards():
         torch.testing.assert_close(agg, ref, **_tol("float32", ref))
 
 
+def _overlap_run(mesh, he, x, w, gout, backend=None):
+    """``halo_aggregate``'s value and ``x``, ``w`` gradients (synchronised)."""
+    from scaling_rgcn_training_tpu_torch.parallel import halo as hp
+
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    out = hp.halo_aggregate(xg, wg, he, mesh, backend=backend)
+    grads = torch.autograd.grad(out, (xg, wg), gout)
+    torch.cuda.synchronize()
+    return (out.detach(), *grads)
+
+
+def _overlap_arms(mesh, he, exchange, dtype, backend=None):
+    """Both arms of the overlapped exchange on ``mesh``: whether they give
+    the same bits, whether two overlapped runs repeat theirs, the
+    overlapped run and its inputs ``(x, w, gout)``."""
+    from scaling_rgcn_training_tpu_torch import measure_overlap as mo
+    from scaling_rgcn_training_tpu_torch.parallel import halo as hp
+    from scaling_rgcn_training_tpu_torch.utils import tracing
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = hp.padded_num_nodes(he)
+    dt = getattr(torch, dtype)
+    inputs = (torch.randn(rows, 16, generator=gen, device="cuda").to(dt),
+              (torch.randn(7, 16, 8, generator=gen, device="cuda")
+               * 0.3).to(dt),
+              torch.randn(rows, 8, generator=gen, device="cuda"))
+    inputs = tuple(t.to(mesh.first) for t in inputs)
+    with mo.env_set(hp.EXCHANGE_ENV, mo.EXCHANGES[exchange]):
+        with mo.env_set(hp.BLOCK_OVERLAP_ENV, "1"):
+            blocked = _overlap_run(mesh, he, *inputs, backend)
+        with mo.env_set(hp.BLOCK_OVERLAP_ENV, None):
+            over = _overlap_run(mesh, he, *inputs, backend)
+            repeats = tracing.determinism_check(
+                _overlap_run, mesh, he, *inputs, backend)
+    return tracing.same_bits(over, blocked), repeats, over, inputs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", [None, "pallas"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("exchange", ["library", "kernel"])
+def test_cuda_overlap_arms_same_bits(exchange, dtype, backend):
+    """``halo_aggregate`` on 4 virtual shards of the card with
+    ``RGCN_HALO_BLOCK_OVERLAP`` unset (the exchange on the exchange stream
+    while the owner-local segment runs) and set: the same bits of the value
+    and the ``x`` and ``w`` gradients, for the library exchange and #6, span
+    and edge mode; two overlapped runs repeat their bits; the overlapped
+    run within the tolerance of the CPU run (plain versions)."""
+    from scaling_rgcn_training_tpu_torch import measure_overlap as mo
+    from scaling_rgcn_training_tpu_torch.parallel import halo as hp
+    from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    host = _halo_graph(np.random.default_rng(11), 4, 1201, 10000, 7)
+    mesh = make_mesh(devices=("cuda",) * 4)
+    he = hp.device_put_halo_edges(host, mesh)
+    same, repeats, over, inputs = _overlap_arms(mesh, he, exchange, dtype,
+                                                backend)
+    assert same and repeats
+    cpu = make_mesh(devices=("cpu",) * 4)
+    with mo.env_set(hp.EXCHANGE_ENV, mo.EXCHANGES[exchange]):
+        ref = _overlap_run(cpu, hp.device_put_halo_edges(host, cpu),
+                           *(t.cpu() for t in inputs), backend)
+    for a, b in zip(over, ref):
+        torch.testing.assert_close(a.float().cpu(), b.float(),
+                                   **_tol(dtype, b.float()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ["library", "kernel"])
+def test_cuda_overlap_on_two_cards(exchange):
+    """A mesh of two real cards (an exchange stream on each): both arms
+    give the same bits of the value and gradients, float32 and bfloat16,
+    and two overlapped runs repeat theirs."""
+    from scaling_rgcn_training_tpu_torch.parallel import halo as hp
+    from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    mesh = make_mesh(2)
+    he = hp.device_put_halo_edges(
+        _halo_graph(np.random.default_rng(12), 2, 901, 8000, 7), mesh)
+    for dtype in ("float32", "bfloat16"):
+        same, repeats, _, _ = _overlap_arms(mesh, he, exchange, dtype)
+        assert same and repeats, dtype
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ["library", "kernel"])
+def test_cuda_measure_overlap_windows(exchange, tmp_path, monkeypatch):
+    """``measure_overlap`` on 4 virtual shards of the card at a small size:
+    the arms' bits equal, each traced forward and backward shows the
+    exchange stream's work, and no compute kernel runs inside it in the
+    blocked arm; one step of ``multihost_sim``'s loop in both arms with the
+    same bits, repeating them, none inside the window when blocked."""
+    from scaling_rgcn_training_tpu_torch import measure_overlap as mo
+    from scaling_rgcn_training_tpu_torch import multihost_sim as mh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for name, value in (("OV_NODES", "20000"), ("OV_EDGES", "200000"),
+                        ("OV_DEVICES", "4"), ("OV_INNER", "2")):
+        monkeypatch.setenv(name, value)
+    s = mo.setup(mo.knobs(), "cuda")
+    rec = mo.measure(s, exchange, str(tmp_path))
+    assert rec["same_bits"]
+    for arm in ("overlapped", "blocked"):
+        for way in ("forward", "backward"):
+            win = rec["arms"][arm]["window"][way]
+            assert win["window_ms"] > 0
+            if arm == "blocked":
+                assert win["inside"] == 0, (way, win)
+    params = mh.make_params(s["x"].shape[0], (64, 16, 8), s["slots"])
+    rows, y = mh.labels(s["nodes"], 8, 512)
+    step = mo.make_step(s["mesh"], s["plan"], params, rows, y)
+    res = mo.compare_step(step, s["mesh"].devices, exchange, steps=2,
+                          trace_dir=str(tmp_path))
+    assert res["same_bits"] and res["repeats_bits"]
+    assert res["window"]["blocked"]["inside"] == 0
+
+
 def _multihost(tmp_path, tag, *extra):
     """``multihost_sim`` on the card at N 4096, E 32768, 3 float32 steps;
     its record (the run raises, and exits non-zero, when a child fails, a
