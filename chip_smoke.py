@@ -232,7 +232,17 @@ Phases, in order; any failure exits non-zero:
    with each exchange, float32 and bfloat16 streams, in both arms: the
    loss and every gradient bit for bit, two overlapped steps repeating
    their bits (``determinism_check``), ms/step of each arm (in turns);
-   with 2 cards or more the same on the real cards.
+   with 2 cards or more the same on the real cards;
+17. the step as one graph (``train/step_graph.py``, ``step_graph_phase``):
+   ``Trainer.fit`` at the bench shape, 10 epochs, fused f32 and bf16, edge
+   mode f32, the attention head (its dropout on), and the halo partition
+   over 4 virtual shards with the library exchange, #6 and #7, each with
+   ``RGCN_EAGER_STEP=1`` and unset in the order eager, graph, graph,
+   eager: the same loss, validation and parameter bits in all four runs,
+   the same launches a step, each route's ms/step, host ms/step and peak
+   MiB (allocated and reserved). Every ``Trainer.fit``, ``rehearse_am``,
+   ``bench`` and ``bench_scaling`` run of the earlier phases takes the
+   graph route (one card), its replays counted in ``LAUNCHES``.
 
 ``--only 14,15`` runs the named phases and the earlier ones they read
 (``NEEDS``; 1 and 2 always), then prints their numbers and the last line,
@@ -253,7 +263,7 @@ per-call times across processes and the launches of each child; #3's,
 ``bench_scaling_launches``, phase 15's over both exchanges); the line
 before it holds the run's other numbers (phase 13's under ``am_shape``,
 phase 14's under ``bench``, phase 15's under ``bench_scaling``, phase
-16's under ``overlap``);
+16's under ``overlap``, phase 17's under ``step_graph``);
 the last line is ``{"ok": true, "device":
 {...}}``.
 """
@@ -283,7 +293,7 @@ WARMUP = 3
 # cut toward zero on every call gave -4e-8 and moved phase 5's losses)
 MAX_BIAS = 1e-8
 JAX_PKG = "scaling_rgcn_training_tpu/"
-PHASES = tuple(range(1, 17))
+PHASES = tuple(range(1, 18))
 # the earlier phases whose results a phase reads (``--only``)
 NEEDS = {4: (3,), 5: (3,), 6: (3,), 8: (3, 5), 9: (3,), 10: (3,),
          11: (3, 5, 8)}
@@ -689,20 +699,24 @@ def conv_autograd_check(rng):
 
 
 def run_fit(graph, compute_dtype, epochs, launches, head="summation",
-            **trainer_kw):
+            keep=False, **trainer_kw):
     """One ``Trainer.fit`` from the seed-0 parameters of ``head`` (the
     MLP and attention heads with their transferred embedding frozen, as
-    the CLI's default); returns losses, median ms/step, peak MiB and the
-    launch counts of each step."""
+    the CLI's default); returns losses, validation accuracies, median
+    ms/step and host ms/step (the time to issue a step, before the
+    synchronisation that ends it), peak MiB allocated and reserved, the
+    launch counts of each step and, with ``keep``, the parameters after
+    the fit (on the card)."""
     import torch
     from scaling_rgcn_training_tpu_torch.bench_shape import bench_trainer
     from scaling_rgcn_training_tpu_torch.train.losses import bce_loss
 
     trainer, model = bench_trainer(epochs, DEV, compute_dtype, head,
                                    **trainer_kw)
-    stamps, per_step = [], []
+    stamps, per_step, host = [], [], []
 
     def on_epoch(epoch):
+        host.append(time.perf_counter() - stamps[-1])
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
         per_step.append(dict(launches))
@@ -718,15 +732,22 @@ def run_fit(graph, compute_dtype, epochs, launches, head="summation",
     name = f"{head} {compute_dtype or 'float32'} {trainer_kw}"
     if len(losses) != epochs or not all(np.isfinite(losses)):
         fail(f"trainer {name}: losses {losses}")
-    step = statistics.median((np.diff(stamps) * 1e3)[min(WARMUP, epochs - 1):])
+    first = min(WARMUP, epochs - 1)
+    step = statistics.median((np.diff(stamps) * 1e3)[first:])
+    host_ms = statistics.median(np.asarray(host[first:]) * 1e3)
     peak = torch.cuda.max_memory_allocated() / 2**20
-    print(f"  trainer {name}: {step:.3f} ms/step (median from step "
-          f"{min(WARMUP, epochs - 1)}; each step = validation eval + "
-          f"loss/grad + Adam), loss {losses[0]:.7f} -> {losses[-1]:.7f}, "
-          f"val acc {accs[0]:.4f} -> {accs[-1]:.4f}, peak {peak:.0f} MiB",
-          flush=True)
+    reserved = torch.cuda.max_memory_reserved() / 2**20
+    print(f"  trainer {name} ({trainer.step_route()}): {step:.3f} ms/step, "
+          f"host {host_ms:.3f} (median from step {first}; each step = "
+          f"validation eval + loss/grad + Adam), loss {losses[0]:.7f} -> "
+          f"{losses[-1]:.7f}, val acc {accs[0]:.4f} -> {accs[-1]:.4f}, peak "
+          f"{peak:.0f} MiB (reserved {reserved:.0f})", flush=True)
     steps = [{k: b[k] - a[k] for k in a} for a, b in zip(per_step, per_step[1:])]
-    return {"losses": losses, "step_ms": step, "peak_mib": peak, "steps": steps}
+    return {"losses": losses, "accs": accs, "step_ms": step,
+            "host_ms": host_ms, "peak_mib": peak, "reserved_mib": reserved,
+            "steps": steps, "route": trainer.step_route(),
+            "params": [p.detach().clone() for p in model.parameters()]
+            if keep else None}
 
 
 def layer_gradients(edges, plain_edges, splits) -> dict:
@@ -1251,7 +1272,8 @@ def halo_phase(bench_src, bench_dst, bench_typ, splits, fits, launches,
               f"fused run's (max rel diff {rel:.2e}, limit {rtol:.0e})",
               flush=True)
     return {"bench": bench, "errs": errs, "counts": counts,
-            "swap": halo_swap, "per_call": per_call, "mesh": mesh}
+            "swap": halo_swap, "per_call": per_call, "mesh": mesh,
+            "graph": halo_graph}
 
 
 def check_bwd_variants(plan, d_in, d_out, dtype, rng, tag, variants=None,
@@ -1977,14 +1999,17 @@ def am_phase(launches, reset) -> dict:
             off = ("span_forward", "span_backward")
         if any(st[n] for st in res["launches"] for n in off):
             fail(f"AM {name} launched one of {off}: {res['launches'][0]}")
-        print(f"  AM {name}: {res['ms_per_step']:.3f} ms/step over "
+        print(f"  AM {name} ({res['step']}): {res['ms_per_step']:.3f} "
+              f"ms/step (host {res['host_ms_per_step']:.3f}) over "
               f"{kk['calls'] * kk['inner']} steps after a first call of "
               f"{kk['inner']} ({res['first_call_s']:.2f} s), peak "
-              f"{res['peak_mib']:.0f} MiB, loss {res['losses'][0]:.7f} -> "
+              f"{res['peak_mib']:.0f} MiB (reserved "
+              f"{res['reserved_mib']:.0f}), loss {res['losses'][0]:.7f} -> "
               f"{res['losses'][-1]:.7f}, launches a step "
               f"{res['launches'][-1]}", flush=True)
         out["runs"][name] = {key: res[key] for key in (
-            "ms_per_step", "first_call_s", "peak_mib", "losses", "call_ms")}
+            "ms_per_step", "host_ms_per_step", "first_call_s", "peak_mib",
+            "reserved_mib", "step", "losses", "call_ms")}
         out["runs"][name]["launches_step"] = res["launches"][-1]
     fused_l = out["runs"]["fused f32"]["losses"][:AM_EDGE_STEPS]
     edge_l = out["runs"]["edge f32"]["losses"]
@@ -2149,6 +2174,7 @@ def bench_phase() -> dict:
     from scaling_rgcn_training_tpu_torch.ops import span_kernels as sk
     from scaling_rgcn_training_tpu_torch.train.losses import bce_loss
     from scaling_rgcn_training_tpu_torch.train.optim import make_optimizer
+    from scaling_rgcn_training_tpu_torch.train.step_graph import EAGER_ENV
     from scaling_rgcn_training_tpu_torch.utils import tracing
 
     jax_keys = ("metric", "value", "unit", "vs_baseline", "compute_dtype",
@@ -2257,13 +2283,16 @@ def bench_phase() -> dict:
              f"not the subprocess's {out['float32']['final_loss']!r}")
     del model, params, opt
     # the plain versions' own chain from the same start (reported: Adam
-    # carries the sums' rounding from step to step)
+    # carries the sums' rounding from step to step), eagerly: the plain
+    # versions read the plan's offsets on the host, which no capture takes
     bind(plain_fns)
+    os.environ[EAGER_ENV] = "1"
     try:
         t0 = time.perf_counter()
         plain = bench.run(k, edges, rows, targets, slots, k["steps"])
     finally:
         bind(shipped)
+        os.environ.pop(EAGER_ENV, None)
     plain_loss = plain["losses"][-1]
     free_rel = abs(final - plain_loss) / abs(plain_loss)
     print(f"  bench float32, the plain versions' own {len(plain['losses'])} "
@@ -2482,6 +2511,113 @@ def overlap_phase(launches, reset) -> dict:
     return out
 
 
+# phase 17's configurations: (name, graph, compute dtype, head, halo
+# exchange)
+STEP_CONFIGS = (("fused f32", "fused", None, "summation", None),
+                ("fused bf16", "fused", "bfloat16", "summation", None),
+                ("edge f32", "edge", None, "summation", None),
+                ("attention head", "fused", None, "attention", None),
+                ("halo library", "halo", None, "summation", None),
+                ("halo #6", "halo", None, "summation", "1"),
+                ("halo #7", "halo", None, "summation", "fused"))
+
+
+def step_graph_phase(graphs, launches, reset) -> dict:
+    """Phase 17: the step as one graph (``train/step_graph.py``). Each of
+    ``STEP_CONFIGS`` at the bench shape (``graphs``: the fused and
+    edge-mode ``DeviceGraph`` s and the halo partition over
+    ``HALO_SHARDS`` virtual shards with its mesh; each built here when
+    absent), ``EPOCHS`` epochs of ``Trainer.fit`` from one seed with
+    ``RGCN_EAGER_STEP=1`` (eager) and unset (the graph), in the order
+    eager, graph, graph, eager: every run's losses, validation accuracies
+    and parameters with the first run's bits, the same launches a step in
+    both routes, each route's median ms/step and host ms/step (the time to
+    issue a step), peak MiB allocated and reserved."""
+    import torch
+    from scaling_rgcn_training_tpu_torch import bench_shape as bs
+    from scaling_rgcn_training_tpu_torch.graphs.device import DeviceGraph
+    from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import build_rel_edges
+    from scaling_rgcn_training_tpu_torch.parallel.halo import (
+        EXCHANGE_ENV, device_put_halo_edges, halo_partition_edges)
+    from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh
+    from scaling_rgcn_training_tpu_torch.train.step_graph import EAGER_ENV
+
+    splits = bs.bench_splits(DEV)
+    edges = bs.bench_edges()
+    if "fused" not in graphs:
+        graphs["fused"] = DeviceGraph(edges=build_rel_edges(
+            *edges, bs.N, bs.SLOTS, device=DEV), **splits)
+    if "edge" not in graphs:
+        graphs["edge"] = DeviceGraph(edges=build_rel_edges(
+            *edges, bs.N, bs.SLOTS, device=DEV, span=False), **splits)
+    if "halo" not in graphs:
+        graphs["mesh"] = make_mesh(devices=(DEV,) * HALO_SHARDS)
+        graphs["halo"] = DeviceGraph(edges=device_put_halo_edges(
+            halo_partition_edges(*edges, bs.N, bs.SLOTS, HALO_SHARDS),
+            graphs["mesh"]), **splits)
+    out = {}
+    try:
+        for name, kind, cd, head, exchange in STEP_CONFIGS:
+            kw = {"edge": {"backend": "pallas"},
+                  "halo": {"mesh": graphs.get("mesh"), "partition": "halo"},
+                  "fused": {}}[kind]
+            if exchange is None:
+                os.environ.pop(EXCHANGE_ENV, None)
+            else:
+                os.environ[EXCHANGE_ENV] = exchange
+            runs, ref = {"eager": [], "graph": []}, None
+            for route in ("eager", "graph", "graph", "eager"):
+                if route == "eager":
+                    os.environ[EAGER_ENV] = "1"
+                else:
+                    os.environ.pop(EAGER_ENV, None)
+                torch.cuda.empty_cache()
+                reset()
+                f = run_fit(graphs[kind], cd, EPOCHS, launches, head=head,
+                            keep=True, **kw)
+                if f["route"] != route:
+                    fail(f"step {name}: the {route} run took the "
+                         f"{f['route']} route")
+                if ref is None:
+                    ref = f
+                elif not (f["losses"] == ref["losses"]
+                          and f["accs"] == ref["accs"]
+                          and all(torch.equal(a, b) for a, b in
+                                  zip(f["params"], ref["params"]))):
+                    fail(f"step {name}: a {route} run's losses, accuracies or "
+                         f"parameters differ from the first eager run's "
+                         f"bits: {f['losses']} vs {ref['losses']}")
+                if f["steps"] != ref["steps"]:
+                    fail(f"step {name}: {route} launches a step "
+                         f"{f['steps']} differ from eager's {ref['steps']}")
+                if f is not ref:
+                    f["params"] = None
+                runs[route].append(f)
+            ref["params"] = None
+            rec = {"launches_step": {k: v for k, v in
+                                     ref["steps"][-1].items() if v},
+                   "loss_last": ref["losses"][-1]}
+            for route, fs in runs.items():
+                rec[route] = {key: [float(f[key]) for f in fs] for key in (
+                    "step_ms", "host_ms", "peak_mib", "reserved_mib")}
+            out[name] = rec
+            ms = lambda v: "/".join(f"{x:.3f}" for x in v)
+            mib = lambda v: "/".join(f"{x:.0f}" for x in v)
+            e, g = rec["eager"], rec["graph"]
+            print(f"  step {name}: ms/step eager {ms(e['step_ms'])}, graph "
+                  f"{ms(g['step_ms'])}; host ms/step eager "
+                  f"{ms(e['host_ms'])}, graph {ms(g['host_ms'])}; peak MiB "
+                  f"eager {mib(e['peak_mib'])} (reserved "
+                  f"{mib(e['reserved_mib'])}), graph {mib(g['peak_mib'])} "
+                  f"(reserved {mib(g['reserved_mib'])}); launches a step "
+                  f"{rec['launches_step']}; the same loss, accuracy and "
+                  f"parameter bits in all 4 runs", flush=True)
+    finally:
+        os.environ.pop(EXCHANGE_ENV, None)
+        os.environ.pop(EAGER_ENV, None)
+    return out
+
+
 def phases_to_run(argv) -> set:
     """The phases of ``--only N,M,...`` (every phase without it), with the
     phases whose results they read (``NEEDS``); 1 and 2 always run."""
@@ -2524,6 +2660,9 @@ def main(argv=None) -> None:
         capture_output=True, text=True, check=True).stdout.strip()
     card = smi.splitlines()[0]
     print(card, flush=True)
+    from scaling_rgcn_training_tpu_torch.train.step_graph import EAGER_ENV
+    print(f"{EAGER_ENV}={os.environ.get(EAGER_ENV)!r} (unset: every train "
+          "step on one card runs as a captured CUDA graph)", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
@@ -2825,6 +2964,20 @@ def main(argv=None) -> None:
         torch.cuda.empty_cache()
         overlap = overlap_phase(launches, reset)
 
+    if 17 in want:
+        phase("17 the step as one graph (eager and graph routes in turns)")
+        torch.cuda.empty_cache()
+        graphs = {}
+        if 5 in want:
+            graphs.update(fused=DeviceGraph(edges=edges, **splits),
+                          edge=non_fused)
+        if 8 in want:
+            graphs.update(halo=halo["graph"], mesh=halo["mesh"])
+        t0 = time.perf_counter()
+        step_graph = step_graph_phase(graphs, launches, reset)
+        del graphs
+        print(f"  phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
+
     print(f"chip_smoke: phases {sorted(want)} in "
           f"{time.perf_counter() - _T0:.1f} s", flush=True)
     if want != set(PHASES):
@@ -2833,7 +2986,9 @@ def main(argv=None) -> None:
                           **({"bench": bench_res} if 14 in want else {}),
                           **({"bench_scaling": scaling} if 15 in want
                              else {}),
-                          **({"overlap": overlap} if 16 in want else {})}),
+                          **({"overlap": overlap} if 16 in want else {}),
+                          **({"step_graph": step_graph} if 17 in want
+                             else {})}),
               flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -2964,7 +3119,7 @@ def main(argv=None) -> None:
             "barrier", "plan_load_s")}
             for name, rec in multihost.items()},
         "am_shape": am, "bench": bench_res, "bench_scaling": scaling,
-        "overlap": overlap}),
+        "overlap": overlap, "step_graph": step_graph}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

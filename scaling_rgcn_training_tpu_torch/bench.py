@@ -25,11 +25,14 @@ Prints ONE JSON line last, with the JAX line's keys:
   on the TPU; the port's kernels gather inside, so the two estimates
   differ by design.
 
-and three keys of the port's own: ``device`` (``nvidia-smi``'s name and
+and four keys of the port's own: ``device`` (``nvidia-smi``'s name and
 power limit of the card, ``cpu`` on the CPU), ``peak_mib`` (peak device
-memory of the timed run) and ``launches_per_step`` (each kernel wrapper's
+memory of the timed run), ``launches_per_step`` (each kernel wrapper's
 launches over the timed calls, ``cuda_build.LAUNCHES``, per step: #1 and
-#2 at 2, every other at 0).
+#2 at 2, every other at 0) and ``step`` (the route of the step:
+``"graph"``, captured once as a CUDA graph and replayed, as the JAX
+bench's steps run in one jitted ``lax.scan``, or ``"eager"``: the CPU, or
+``RGCN_EAGER_STEP`` set; ``train/step_graph.py``).
 
 The graph is the JAX bench's, drawn from one ``np.random.default_rng(0)``
 in its order: ``src``, ``dst``, the relation in ``[0, 2R)`` (slot ``2R``
@@ -43,7 +46,9 @@ forward, BCE on the labelled rows, the backward and Adam, with no
 validation forward.
 
 Timing (``rehearse_am.train``): a call is ``BENCH_INNER`` chained steps
-with one synchronisation at its end; the first call warms up; the result
+with one synchronisation at its end; the first call warms up (on the
+card: the eager warm-up steps and the capture; the baseline loop is
+captured the same way); the result
 is the best of ``BENCH_STEPS`` calls over ``BENCH_INNER``, and the
 baseline's the best of ``max(1, BENCH_STEPS // 3)``.
 
@@ -73,6 +78,8 @@ from scaling_rgcn_training_tpu_torch.ops import span_kernels
 from scaling_rgcn_training_tpu_torch.ops.cuda_build import LAUNCHES
 from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import (
     RelEdges, RGCNLayer, build_rel_edges, materialize_weight, rgcn_conv)
+from scaling_rgcn_training_tpu_torch.train.step_graph import (
+    describe, step_route)
 
 METRIC = "rgcn_train_step_edge_traversals_per_second_per_chip"
 CLASSES = 8
@@ -232,7 +239,8 @@ def main() -> dict:
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
     n, e, inner = k["nodes"], k["edges"], k["inner"]
-    log(f"bench: device={device} card={ra.card_name()}")
+    log(f"bench: device={device} card={ra.card_name()} "
+        f"step={describe(step_route([device]))}")
     log(f"graph: N={n} E={e} R={k['rels']} d={k['dim']} hl={k['hidden']} "
         f"dtype={k['dtype_name']}")
     edges, rows, targets, slots = build(k, device)
@@ -268,6 +276,7 @@ def main() -> dict:
         "device": ra.card_name() if device.type == "cuda" else "cpu",
         "peak_mib": opt["peak_mib"],
         "launches_per_step": launches_per_step(opt, inner),
+        "step": opt["step"],
     }
     print(json.dumps(rec), flush=True)
     return rec

@@ -24,8 +24,13 @@ time to issue a timed step, before the final synchronisation: near
 card's), ``launches_per_step`` (each kernel wrapper's launches over the
 timed steps, per step), ``device_busy_ms_per_step`` (with ``--trace``:
 each card's kernel and copy ms a step over ``BENCH_INNER`` traced steps
-after the timed ones, by card index; else null) and ``losses`` (every
-step's, warm-up calls included).
+after the timed ones, by card index; else null), ``step`` (the route of
+the step, ``train/step_graph.py``: ``"graph"`` where every shard lies on
+one card, the step captured once as a CUDA graph and replayed, as the
+JAX script runs its steps in one jitted ``lax.scan``; ``"eager"`` over
+several cards, whose capture would need a graph per card, on the CPU, or
+with ``RGCN_EAGER_STEP`` set) and ``losses`` (every step's, warm-up calls
+included).
 
 k up to the card count puts the shards on k cards (``parallel/mesh.py``
 ``make_mesh(k)``); beyond it, and on the CPU, the k shards are virtual
@@ -86,6 +91,8 @@ from scaling_rgcn_training_tpu_torch.parallel.halo import (
     halo_rgcn_conv, padded_num_nodes)
 from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh
 from scaling_rgcn_training_tpu_torch.parallel.reorder import locality_reorder
+from scaling_rgcn_training_tpu_torch.train.step_graph import (
+    EAGER_ENV, CudaStepGraph, StepGraph, step_route)
 from scaling_rgcn_training_tpu_torch.utils import tracing
 
 COUNTS = (1, 2, 4, 8, 16, 32)
@@ -230,45 +237,53 @@ def measure(k: Dict[str, object], shards: int, perm: np.ndarray, host_edges,
     count = min(LABELLED, k["nodes"])
     rows = torch.as_tensor(perm[:count], dtype=torch.int64).to(mesh.first)
     y = torch.eye(CLASSES)[torch.arange(count) % CLASSES].to(mesh.first)
-    opt = make_optimizer([emb, *(p for l in layers for p in l.parameters())],
-                         LR)
+    params = [emb, *(p for l in layers for p in l.parameters())]
+    opt = make_optimizer(params, LR)
     cd = k["compute_dtype"]
 
     def conv(x, layer):
         return halo_rgcn_conv(x, hedges, layer, mesh, compute_dtype=cd)
 
-    def steps(n: int) -> List[torch.Tensor]:
-        out = []
-        for _ in range(n):
-            opt.zero_grad(set_to_none=True)
-            z = torch.relu(conv(emb, layers[0]))
-            loss = bce_loss(conv(z, layers[1]).index_select(0, rows), y)
-            loss.backward()
-            opt.step()
-            out.append(loss.detach())
-        return out
+    def step():
+        opt.zero_grad(set_to_none=True)
+        z = torch.relu(conv(emb, layers[0]))
+        loss = bce_loss(conv(z, layers[1]).index_select(0, rows), y)
+        loss.backward()
+        opt.step()
+        return (loss,)
 
     cards = sorted({d for d in devices if d.type == "cuda"}, key=str)
     for dev in cards:
         torch.cuda.reset_peak_memory_stats(dev)
     inner, timed = k["inner"], k["calls"] * k["inner"]
-    losses = steps(inner)                 # warm-up: the kernels' first use
-    losses += steps(inner)                # chained warm-up
-    sync(devices)
-    before = dict(LAUNCHES)
-    t0 = time.perf_counter()
-    losses += steps(timed)
-    host = (time.perf_counter() - t0) / timed
-    sync(devices)
-    dt = (time.perf_counter() - t0) / timed
-    launches = {n: (v - before[n]) / timed for n, v in LAUNCHES.items()}
-    busy = None
-    if trace_dir is not None:
-        with tracing.trace(os.path.join(trace_dir, f"k{shards}")) as prof:
-            with tracing.annotate("bench_scaling_step"):
-                steps(inner)
-            sync(devices)
-        busy = device_busy_ms(prof, inner)
+    route = step_route(devices)
+    total = 2 * inner + timed + (inner if trace_dir is not None else 0)
+    with StepGraph(step, total, 1, mesh.first,
+                   CudaStepGraph(mesh.first) if route == "graph" else None,
+                   params=params) as loop:
+
+        def steps(n: int) -> None:
+            for _ in range(n):
+                loop.run()
+
+        steps(inner)                      # warm-up: the kernels' first use
+        steps(inner)                      # chained warm-up
+        sync(devices)
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        steps(timed)
+        host = (time.perf_counter() - t0) / timed
+        sync(devices)
+        dt = (time.perf_counter() - t0) / timed
+        launches = {n: (v - before[n]) / timed for n, v in LAUNCHES.items()}
+        losses = [row[0] for row in loop.rows(0, loop.done)]
+        busy = None
+        if trace_dir is not None:
+            with tracing.trace(os.path.join(trace_dir, f"k{shards}")) as prof:
+                with tracing.annotate("bench_scaling_step"):
+                    steps(inner)
+                sync(devices)
+            busy = device_busy_ms(prof, inner)
     eps = k["edges"] * NUM_LAYERS / dt
     return {
         "devices": shards, "ms_per_step": dt * 1e3, "edges_per_s": eps,
@@ -283,7 +298,7 @@ def measure(k: Dict[str, object], shards: int, perm: np.ndarray, host_edges,
         "peak_mib": max((torch.cuda.max_memory_allocated(d) / 2**20
                          for d in cards), default=None),
         "launches_per_step": launches, "device_busy_ms_per_step": busy,
-        "losses": [float(v) for v in losses]}
+        "step": route, "losses": losses}
 
 
 def main(argv: Optional[List[str]] = None,
@@ -309,7 +324,8 @@ def main(argv: Optional[List[str]] = None,
     partitions = {} if partitions is None else partitions
     log(f"device={device} cards={torch.cuda.device_count()} -> {counts} "
         f"graph={k['graph']} reorder={k['reorder']} "
-        f"exchange={exchange_name()}")
+        f"exchange={exchange_name()} {EAGER_ENV}="
+        f"{os.environ.get(EAGER_ENV)!r}")
     src, dst, typ, slots = graph(k)
     records, base_eps = [], None
     for c in counts:

@@ -34,7 +34,9 @@ adds the shards' cotangents in one order in both layouts), whether
 every process ended with the same bits of every replicated tensor and
 Adam moment (``replicated_bits_equal``), ms/step, peak memory and each
 process's kernel launches a step (the edge partition: also the MB each
-process contributes to the cross-process sums a step), and exits 1 unless
+process contributes to the cross-process sums a step) and ``step``, the
+route of the step: ``"eager"``, always (across processes a step is not
+captured as a CUDA graph, ``train/step_graph.py``), and exits 1 unless
 every mode matches. A child that fails, or that is still running at
 ``--timeout`` (a collective one process never entered), makes the run
 raise; the others are killed.
@@ -853,7 +855,7 @@ def run(argv: Optional[List[str]] = None) -> dict:
                  nodes=k["nodes"], slots=slots)
         dev = _device(args, 0)
         mesh = Mesh((dev,) * s_n)
-        rec = {"processes": args.procs,
+        rec = {"processes": args.procs, "step": "eager",
                "shards_per_process": args.shards_per_proc,
                "global_shards": s_n, "steps": k["steps"],
                "device": dev.type, "cards": args.cards,

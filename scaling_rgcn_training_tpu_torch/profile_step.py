@@ -17,17 +17,25 @@ virtual shards of the card, with the ``--exchange`` ``library``, ``kernel``
 ``--shards`` virtual shards, ``backend="pallas"``). ``--head``: the model,
 ``summation`` (the embedding model) or the ``mlp`` or ``attention`` head
 over 4 transferred embeddings, frozen (``bench_shape.bench_trainer``).
-Prints the card, wall ms/step over the window, the device's busy ms/step
-(the sum of kernel times; one stream), its idle share, and the kernels by
-device time per step. ``--shapes OPS`` also splits the operators whose
+Prints the card, the route of the step (``train/step_graph.py``: a
+captured CUDA graph replayed, or eagerly with ``RGCN_EAGER_STEP=1``), wall
+ms/step over the window, the device's busy ms/step (the sum of kernel
+times, and the union of their intervals: a replayed graph runs
+independent kernels side by side), its idle share (from the union), and
+the kernels by device time per step. ``--shapes OPS`` also splits the operators whose
 names hold one of the comma-separated ``OPS`` (``index_select``: the row
 gathers) by their input shapes (``record_shapes``), with each group's
 device time and calls per step: a gather of ``[E, h]`` rows is a
 permutation of the edge stream, one of ``[N, h]`` rows a node table's.
 ``--trace DIR`` also writes a Chrome trace into ``DIR`` (``utils/tracing.py``
 ``trace``; the timed window is the region ``bench_train_step``, the name
-the JAX package's ``scripts/trace_step.py`` gives its traced step). Needs
-a CUDA device.
+the JAX package's ``scripts/trace_step.py`` gives its traced step); with
+``--conv halo`` and the library exchange or #6 it also counts, by
+timestamps (``tracing.kernels_inside``), the compute kernels (#1, #2, #3)
+that run inside the exchange kernels' windows (#6: ``halo_pull_kernel``;
+the library exchange: its ``torch.stack`` copies, ``CatArrayBatchedCopy``,
+with the layer output's one ``torch.cat`` among them). Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -39,6 +47,8 @@ import time
 import torch
 
 from scaling_rgcn_training_tpu_torch import rehearse_am as ra
+from scaling_rgcn_training_tpu_torch.train.step_graph import (
+    describe, step_route)
 from scaling_rgcn_training_tpu_torch.utils import tracing
 
 
@@ -123,11 +133,13 @@ def main(argv=None) -> None:
                and not getattr(e, "is_user_annotation", False)
                and not e.key.startswith(("ProfilerStep", "Optimizer.step#"))]
     busy = sum(_device_time(e) for e in kernels) / 1e3 / args.steps
+    union = _busy_union(prof) / 1e3 / args.steps
     name = f"{args.conv} {args.exchange}" if args.conv == "halo" else args.conv
     name += " (AM shape)" if args.shape == "am" else ""
     name += "" if args.head == "summation" else f" {args.head} head"
-    print(f"{name} {args.dtype}: wall {wall:.3f} ms/step, device busy "
-          f"{busy:.3f} ms/step, idle share {1 - busy / wall:.3f} "
+    print(f"{name} {args.dtype} [step {describe(step_route(['cuda']))}]: "
+          f"wall {wall:.3f} ms/step, device busy {busy:.3f} ms/step "
+          f"(union {union:.3f}), idle share {1 - union / wall:.3f} "
           f"({args.steps} steps after {args.warmup})", flush=True)
     for e in sorted(kernels, key=_device_time, reverse=True)[:args.top]:
         print(f"  {_device_time(e) / 1e3 / args.steps:8.3f} ms/step "
@@ -136,6 +148,29 @@ def main(argv=None) -> None:
         _print_by_shape(prof, args.shapes.split(","), args.steps)
     if args.trace:
         print(f"trace written: {prof.trace_path}", flush=True)
+        if args.conv == "halo" and args.exchange != "fused":
+            exchange = ("halo_pull_kernel",) if args.exchange == "kernel" \
+                else ("CatArrayBatchedCopy",)
+            got = tracing.kernels_inside(
+                tracing.gpu_events(prof.trace_path),
+                lambda n: n.split("::")[-1].startswith(exchange),
+                lambda n: n.startswith(("span_", "segment_sum")))
+            print(f"exchange windows ({exchange[0]}): {got['inside']} "
+                  f"compute kernels inside over {args.steps} steps "
+                  f"({got['kernels']}), window {got['window_ms']:.3f} ms, "
+                  f"overlap {got['overlap_ms']:.3f} ms, busy (union) "
+                  f"{got['busy_ms']:.3f} ms, {got['streams']} streams",
+                  flush=True)
+
+
+def _busy_union(prof) -> float:
+    """The union of the device events' intervals in the profile, in
+    microseconds (the annotated ranges left out)."""
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)
+             and not e.name.startswith(("ProfilerStep", "Optimizer.step#"))]
+    return sum(hi - lo for lo, hi in tracing._union(spans))
 
 
 def _bench_run(args, compute_dtype):

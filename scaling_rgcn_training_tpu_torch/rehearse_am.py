@@ -28,8 +28,14 @@ as the script's. ``--mode``: ``fused`` (kernels #1 and #2) or ``edge``
 (``backend="pallas"``: #3, #4 and #5). The port's edge plan takes no
 padding (the TPU plan's ``pad_to_multiple`` is a TPU layout): its
 ``padded_edges`` is E. The record has the script's keys, plus ``card``
-(name and power limit), ``peak_memory_mib``, ``conv_mode``,
-``first_call_s`` and ``launches`` (each kernel's launches over the run).
+(name and power limit), ``peak_memory_mib``, ``peak_reserved_mib`` (the
+allocator's reserved peak: a captured step's private pool shows there),
+``conv_mode``, ``first_call_s``, ``host_ms_per_step`` (the timed
+calls' issue time before their synchronisation, over their steps),
+``step`` (the route of the step,
+``"graph"``: captured once as a CUDA graph and replayed, or ``"eager"``;
+``train/step_graph.py``, ``RGCN_EAGER_STEP``) and ``launches`` (each
+kernel's launches over the run).
 ``--device cuda`` (the default) raises on a machine with no card.
 """
 
@@ -120,52 +126,72 @@ def train(emb, layers: Sequence, conv: Callable, rows, targets,
           on_step: Optional[Callable[[int], None]] = None) -> dict:
     """``(1 + calls) * inner`` train steps of ``emb -> conv(., layers[0])
     -> ReLU -> conv(., layers[1]) -> BCE on rows -> Adam(LR,
-    weight_decay)``, the parameters updated in place. The first call of
-    ``inner`` steps is timed alone (``first_call_s``); each later call's
-    ms (``call_ms``) ends with the card synchronised. Returns the loss of
-    every step (before its update), each step's launches of every wrapper
-    (``cuda_build.LAUNCHES``), and the peak device memory (MiB; None on
-    the CPU). ``on_step(i)`` runs after step ``i`` (``profile_step.py``'s
-    profiler steps)."""
+    weight_decay)``, the parameters updated in place; on one card the
+    step is captured as a CUDA graph and replayed
+    (``train/step_graph.py``: the first call holds the warm-up and the
+    capture, as the JAX script's first call holds its compile). The first
+    call of ``inner`` steps is timed alone (``first_call_s``); each later
+    call's ms (``call_ms``) ends with the card synchronised, and
+    ``host_ms`` is the ms its steps took to issue, before that
+    synchronisation. Returns the
+    loss of every step (before its update), each step's launches of every
+    wrapper (``cuda_build.LAUNCHES``), the peak device memory (MiB; None
+    on the CPU), the peak the allocator reserved (``reserved_mib``: the
+    graph's private pool included) and the route that ran (``step``).
+    ``on_step(i)`` runs after step ``i`` (``profile_step.py``'s profiler
+    steps)."""
     import torch
 
     from scaling_rgcn_training_tpu_torch.ops.cuda_build import LAUNCHES
     from scaling_rgcn_training_tpu_torch.train.losses import bce_loss
     from scaling_rgcn_training_tpu_torch.train.optim import make_optimizer
+    from scaling_rgcn_training_tpu_torch.train.step_graph import (
+        CudaStepGraph, StepGraph, step_route)
 
     dev = emb.device
     params = [emb, *(p for layer in layers for p in layer.parameters())]
     opt = make_optimizer(params, LR, weight_decay=weight_decay)
-    losses, launches, call_ms = [], [], []
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        z = torch.relu(conv(emb, layers[0]))
+        loss = bce_loss(conv(z, layers[1]).index_select(0, rows), targets)
+        loss.backward()
+        opt.step()
+        return (loss,)
+
+    route = step_route([dev])
+    launches, call_ms, host_ms = [], [], []
     first_call_s = None
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    for call in range(1 + calls):
-        sync(dev)
-        t0 = time.perf_counter()
-        pending = []
-        for _ in range(inner):
-            before = dict(LAUNCHES)
-            opt.zero_grad(set_to_none=True)
-            z = torch.relu(conv(emb, layers[0]))
-            loss = bce_loss(conv(z, layers[1]).index_select(0, rows), targets)
-            loss.backward()
-            opt.step()
-            pending.append(loss.detach())
-            launches.append({k: v - before[k] for k, v in LAUNCHES.items()})
-            if on_step is not None:
-                on_step(len(launches) - 1)
-        sync(dev)
-        elapsed = time.perf_counter() - t0
-        if call == 0:
-            first_call_s = elapsed
-        else:
-            call_ms.append(elapsed * 1e3)
-        losses.extend(float(v) for v in pending)
-    peak = torch.cuda.max_memory_allocated(dev) / 2**20 \
-        if dev.type == "cuda" else None
+    with StepGraph(step, (1 + calls) * inner, 1, dev,
+                   CudaStepGraph(dev) if route == "graph" else None,
+                   params=params) as loop:
+        for call in range(1 + calls):
+            sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(inner):
+                before = dict(LAUNCHES)
+                loop.run()
+                launches.append({k: v - before[k] for k, v in LAUNCHES.items()})
+                if on_step is not None:
+                    on_step(len(launches) - 1)
+            issued = time.perf_counter() - t0
+            sync(dev)
+            elapsed = time.perf_counter() - t0
+            if call == 0:
+                first_call_s = elapsed
+            else:
+                call_ms.append(elapsed * 1e3)
+                host_ms.append(issued * 1e3)
+        losses = [row[0] for row in loop.rows(0, loop.done)]
+    cuda = dev.type == "cuda"
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20 if cuda else None
+    reserved = torch.cuda.max_memory_reserved(dev) / 2**20 if cuda else None
     return {"losses": losses, "launches": launches, "call_ms": call_ms,
-            "first_call_s": first_call_s, "peak_mib": peak}
+            "host_ms": host_ms, "first_call_s": first_call_s, "peak_mib": peak,
+            "reserved_mib": reserved, "step": route}
 
 
 def build_edges(k: Dict[str, object], device):
@@ -208,7 +234,7 @@ def run(k: Dict[str, object], device, edges, rows, targets, slots: int,
     placed ``edges``; ``mode`` ``"fused"`` (span kernels) or ``"edge"``
     (``backend="pallas"``). The :func:`train` result, plus
     ``ms_per_step`` (the timed calls' ms over their steps, None with no
-    timed call)."""
+    timed call) and ``host_ms_per_step`` (the ms they took to issue)."""
     from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import rgcn_conv
 
     if mode not in ("fused", "edge"):
@@ -224,6 +250,7 @@ def run(k: Dict[str, object], device, edges, rows, targets, slots: int,
                 targets, WEIGHT_DECAY, k["inner"], k["calls"], on_step)
     steps = k["calls"] * k["inner"]
     res["ms_per_step"] = sum(res["call_ms"]) / steps if steps else None
+    res["host_ms_per_step"] = sum(res["host_ms"]) / steps if steps else None
     return res
 
 
@@ -254,8 +281,11 @@ def record(k: Dict[str, object], edges, res: dict, plan_s: float,
         "device_memory": memory_record(device),
         "reference_anchor": REFERENCE_ANCHOR,
         "card": card_name() if device.type == "cuda" else None,
-        "peak_memory_mib": res["peak_mib"], "conv_mode": mode,
-        "first_call_s": res["first_call_s"], "losses": res["losses"],
+        "peak_memory_mib": res["peak_mib"],
+        "peak_reserved_mib": res["reserved_mib"], "conv_mode": mode,
+        "first_call_s": res["first_call_s"], "step": res["step"],
+        "host_ms_per_step": res["host_ms_per_step"],
+        "losses": res["losses"],
         "launches": {n: sum(st[n] for st in res["launches"])
                      for n in COUNTED}}
 
@@ -274,9 +304,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
         torch.backends.cuda.matmul.allow_tf32 = False
     k = knobs()
     cd = torch.bfloat16 if args.dtype == "bfloat16" else None
+    from scaling_rgcn_training_tpu_torch.train.step_graph import (
+        describe, step_route)
+
     print(f"AM-scale rehearsal: N={k['nodes']} E={k['edges']} R={k['rels']} "
           f"d={k['dim']} hl={k['hidden']} device={device} "
-          f"mode={args.mode} dtype={args.dtype}", file=sys.stderr, flush=True)
+          f"mode={args.mode} dtype={args.dtype} "
+          f"step={describe(step_route([device]))}", file=sys.stderr,
+          flush=True)
     edges, rows, targets, slots, plan_s = build_edges(k, device)
     print(f"plan build: {plan_s:.1f}s (edges {edges.num_edges})",
           file=sys.stderr, flush=True)

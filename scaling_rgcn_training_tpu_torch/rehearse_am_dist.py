@@ -28,7 +28,9 @@ shape of ``rehearse_am.py`` (N 1,600,000, E 12,000,000, 133 relations ->
    as ``chip_smoke.py`` phase 8): a N(0, 1) embedding of the padded rows,
    two ``init_rgcn_layer`` layers, Adam 0.01 with no L2, labels on rows
    ``0 .. 8191`` (class ``i % 11``), ``halo_rgcn_conv`` twice, edge streams
-   in bfloat16, ``STEPS`` steps. The exchange is the one
+   in bfloat16, ``STEPS`` steps (on the card after 2 eager steps a
+   captured CUDA graph replayed, ``train/step_graph.py``; ``step`` in the
+   record names the route). The exchange is the one
    ``RGCN_HALO_PALLAS_A2A`` picks (unset: the library copies; ``1``:
    kernel #6; ``fused``: kernel #7).
 
@@ -287,7 +289,7 @@ def executed_step(src, dst, typ, k: Dict[str, object], device, steps: int,
         "compute_dtype": str(compute_dtype or torch.float32)[6:],
         "plan_build_s": plan_s, "first_step_s": res["first_step_s"],
         "ms_per_step": res["ms_per_step"], "steps": steps,
-        "losses": res["losses"],
+        "step": res["step"], "losses": res["losses"],
         "loss_finite": bool(np.isfinite(res["losses"]).all()),
         "peak_device_memory_mib": res["peak_mib"],
         "peak_host_rss_gib": resource.getrusage(

@@ -62,6 +62,8 @@ from scaling_rgcn_training_tpu_torch.train.losses import get_loss
 from scaling_rgcn_training_tpu_torch.train.metrics import (
     classification_table, evaluate, predictions)
 from scaling_rgcn_training_tpu_torch.train.optim import make_optimizer
+from scaling_rgcn_training_tpu_torch.train.step_graph import (
+    CudaStepGraph, StepGraph, describe, step_route)
 from scaling_rgcn_training_tpu_torch.train.transfer import EMBEDDING_TRICKS
 from scaling_rgcn_training_tpu_torch.utils.checkpoint import (
     checkpoint_exists, load_checkpoint, load_transfer_state, save_checkpoint,
@@ -195,6 +197,14 @@ class Trainer:
         seed = int(torch.randint(0, 2**62, (1,), generator=self.gen))
         return torch.Generator(device=self.device).manual_seed(seed)
 
+    def step_route(self) -> str:
+        """The route of :meth:`fit`'s step (``train/step_graph.py``):
+        ``"graph"`` on one card (a mesh of virtual shards of one card
+        included), ``"eager"`` on the CPU, over several cards, or with
+        ``RGCN_EAGER_STEP`` set."""
+        devices = self.mesh.devices if self.mesh is not None else (self.device,)
+        return step_route(devices)
+
     def fit(self, model: torch.nn.Module, graph: DeviceGraph,
             loss_fn: Callable, activation: str, sum_graph: bool = True,
             frozen: Iterable[str] = (), verbose: bool = True,
@@ -205,15 +215,20 @@ class Trainer:
         """Train ``model`` (a head of ``models/heads.py``) in place for
         ``epochs`` steps of full-batch Adam; the validation forward runs
         with ``train=False``, the loss's with ``train=True`` (dropout).
+        Each epoch is one call of the step function, captured as a CUDA
+        graph and replayed on one card (:meth:`step_route`,
+        ``train/step_graph.py``), the counterpart of the JAX ``fit``'s
+        ``lax.scan``.
 
         ``frozen``: names of top-level submodules / parameters
         (``embedding``, ``rgcn1``, ``rgcn2``) that get no update.
         ``on_epoch(epoch)`` is called after each step (and after its
         checkpoint). With ``ckpt_path`` and ``ckpt_every`` > 0 the state
         is written after every ``ckpt_every`` epochs and after the last,
-        and an existing file at ``ckpt_path`` is resumed from. Returns
-        ``(model, val accuracies, losses, val weighted F1, val macro F1)``;
-        the validation series are empty for summary graphs.
+        and an existing file at ``ckpt_path`` is resumed from (before the
+        warm-up and the capture). Returns ``(model, val accuracies,
+        losses, val weighted F1, val macro F1)``; the validation series
+        are empty for summary graphs.
         """
         frozen = set(frozen)
         trainable = {}
@@ -231,30 +246,28 @@ class Trainer:
         if every and checkpoint_exists(ckpt_path):
             start, done = self._restore_fit(ckpt_path, model, graph,
                                             trainable, opt, gen)
-        losses, metrics = [], []
-        for epoch in range(start, self.epochs):
-            if not sum_graph:
-                # validation eval BEFORE the update (modelTrainer.py:53-59)
-                with torch.no_grad():
-                    logits = self._logits(model, graph)
-                    metrics.append(torch.stack(evaluate(
-                        logits, graph.x_val, graph.y_val, activation)))
-            logits = self._logits(model, graph, train=True, gen=gen)
-            loss = loss_fn(logits[graph.x_train], graph.y_train)
-            if opt is not None:
-                opt.zero_grad(set_to_none=True)
-                loss.backward()
-                opt.step()
-            losses.append(loss.detach())
-            if every and ((epoch + 1 - start) % every == 0
-                          or epoch + 1 == self.epochs):
-                done = self._save_fit(ckpt_path, epoch + 1, model, graph,
-                                      trainable, opt, gen, done, losses,
-                                      metrics)
-                losses, metrics = [], []
-            if on_epoch is not None:
-                on_epoch(epoch)
-        series = _append_series(done, losses, metrics)
+        step = self._step_fn(model, graph, loss_fn, activation, sum_graph,
+                             opt, gen)
+        route = self.step_route()
+        if verbose and self.device.type == "cuda":
+            print(f"train step: {describe(route)}")
+        cuda_graph = CudaStepGraph(self.device, [gen] if gen is not None
+                                   else ()) if route == "graph" else None
+        with StepGraph(step, self.epochs - start, 1 if sum_graph else 4,
+                       self.device, cuda_graph,
+                       params=trainable.values()) as loop:
+            saved = 0
+            for epoch in range(start, self.epochs):
+                loop.run()
+                if every and ((epoch + 1 - start) % every == 0
+                              or epoch + 1 == self.epochs):
+                    done = self._save_fit(ckpt_path, epoch + 1, model, graph,
+                                          trainable, opt, gen, done,
+                                          loop.rows(saved, loop.done))
+                    saved = loop.done
+                if on_epoch is not None:
+                    on_epoch(epoch)
+            series = _append_series(done, loop.rows(saved, loop.done))
         losses_l = series["loss"]
         accs, f1_ws, f1_ms = (series[k] for k in ("acc", "f1w", "f1m"))
         if verbose:
@@ -264,6 +277,32 @@ class Trainer:
                 if epoch % 10 == 0:
                     print(f"Epoch: {epoch}, Loss: {losses_l[epoch]:.4f}")
         return model, accs, losses_l, f1_ws, f1_ms
+
+    def _step_fn(self, model: torch.nn.Module, graph: DeviceGraph,
+                 loss_fn: Callable, activation: str, sum_graph: bool, opt,
+                 gen: Optional[torch.Generator]
+                 ) -> Callable[[], Tuple[torch.Tensor, ...]]:
+        """One epoch of :meth:`fit` as a function of no arguments: the
+        validation eval BEFORE the update (modelTrainer.py:53-59), then
+        the loss, its backward and Adam. Returns ``(loss,)``, with the
+        validation ``(accuracy, weighted F1, macro F1)`` after it for the
+        full graph."""
+
+        def step():
+            metrics = ()
+            if not sum_graph:
+                with torch.no_grad():
+                    metrics = evaluate(self._logits(model, graph),
+                                       graph.x_val, graph.y_val, activation)
+            logits = self._logits(model, graph, train=True, gen=gen)
+            loss = loss_fn(logits[graph.x_train], graph.y_train)
+            if opt is not None:
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                opt.step()
+            return (loss, *metrics)
+
+        return step
 
     # -- checkpoints of a fit ----------------------------------------------
 
@@ -294,11 +333,12 @@ class Trainer:
     def _save_fit(self, path: str, epoch: int, model: torch.nn.Module,
                   graph: DeviceGraph, trainable: Dict[str, torch.Tensor],
                   opt, gen: Optional[torch.Generator],
-                  done: Dict[str, List[float]], losses, metrics
+                  done: Dict[str, List[float]], rows: List[List[float]]
                   ) -> Dict[str, List[float]]:
-        """Write the fit's state after ``epoch`` epochs; returns the metric
-        series so far."""
-        series = _append_series(done, losses, metrics)
+        """Write the fit's state after ``epoch`` epochs (``rows``: the
+        steps' outputs since ``done``); returns the metric series so
+        far."""
+        series = _append_series(done, rows)
         arrays = {f"params/{name}": self._true_order(name, p, graph)
                   for name, p in model.named_parameters()}
         for name, p in trainable.items():
@@ -477,16 +517,13 @@ class Trainer:
 _SERIES = ("loss", "acc", "f1w", "f1m")
 
 
-def _append_series(done: Dict[str, List[float]], losses, metrics
+def _append_series(done: Dict[str, List[float]], rows: List[List[float]]
                    ) -> Dict[str, List[float]]:
-    """The metric series ``done`` followed by the epochs' loss tensors and
-    stacked ``(acc, f1w, f1m)`` tensors, as floats."""
+    """The metric series ``done`` followed by the epochs' rows ``(loss,
+    [acc, f1w, f1m])`` of a :class:`StepGraph`'s ``series``."""
     out = {k: list(v) for k, v in done.items()}
-    if losses:
-        out["loss"] += torch.stack(losses).tolist()
-    if metrics:
-        for k, col in zip(_SERIES[1:], zip(*torch.stack(metrics).tolist())):
-            out[k] += list(col)
+    for k, col in zip(_SERIES, zip(*rows)):
+        out[k] += list(col)
     return out
 
 

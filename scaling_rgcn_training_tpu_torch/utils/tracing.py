@@ -14,7 +14,10 @@ Counterpart of the JAX package's ``utils/tracing.py``:
 - ``gpu_events(trace_path)`` and ``stream_overlap(events)``: the card's
   kernels and copies of a written trace, by card and stream, and how many
   of one stream's kernels run while another stream of their card works
-  (``measure_overlap.py``).
+  (``measure_overlap.py``); ``kernels_inside(events, window, compute)``:
+  the same count by kernel names and timestamps alone, for a replayed
+  CUDA graph, whose kernels run on the graph's own streams
+  (``profile_step.py --trace``).
 """
 
 from __future__ import annotations
@@ -223,3 +226,43 @@ def stream_overlap(events: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
             "windows": windows, "host_late": host_late,
             "busy_ms": busy_us / 1e3, "span_ms": span_us / 1e3,
             "streams": streams}
+
+
+def kernels_inside(events: Sequence[Dict[str, Any]],
+                   window: Callable[[str], bool],
+                   compute: Callable[[str], bool]) -> Dict[str, Any]:
+    """By timestamps alone (a replayed CUDA graph runs its branches on
+    streams of its own, so a stream id says nothing of which work it
+    holds): the window is the union of the kernels of :func:`gpu_events`
+    whose name (:func:`kernel_name`) ``window`` accepts, e.g. the halo
+    exchange's; returns ``inside``, how many kernels that ``compute``
+    accepts run while the window works (their intervals meet),
+    ``kernels`` those by name, ``window_ms``, ``overlap_ms`` (the ms in
+    which one of them runs beside it), ``busy_ms`` (the union of every
+    event) and ``streams`` (the distinct stream ids)."""
+    kernels = [e for e in events if e["cat"] == "kernel"]
+    win = _union([(e["start"], e["end"]) for e in kernels
+                  if window(kernel_name(e["name"]))])
+    starts = [lo for lo, _ in win]
+    inside, names, overlap = 0, Counter(), []
+    for e in kernels:
+        name = kernel_name(e["name"])
+        if window(name) or not compute(name):
+            continue
+        met = []
+        i = max(bisect.bisect_right(starts, e["start"]) - 1, 0)
+        for lo, hi in win[i:]:
+            if lo >= e["end"]:
+                break
+            if min(hi, e["end"]) > max(lo, e["start"]):
+                met.append((max(lo, e["start"]), min(hi, e["end"])))
+        if met:
+            inside += 1
+            names[name] += 1
+            overlap += met
+    return {"inside": inside, "kernels": dict(names.most_common()),
+            "window_ms": sum(hi - lo for lo, hi in win) / 1e3,
+            "overlap_ms": sum(hi - lo for lo, hi in _union(overlap)) / 1e3,
+            "busy_ms": sum(hi - lo for lo, hi in _union(
+                [(e["start"], e["end"]) for e in events])) / 1e3,
+            "streams": len({(e["device"], e["stream"]) for e in events})}

@@ -1054,3 +1054,194 @@ def test_cuda_bench_launches_the_span_kernels(dtype, monkeypatch):
     assert all(np.isfinite(rec[k]) for k in (
         "value", "vs_baseline", "ms_per_step", "baseline_ms_per_step",
         "achieved_gbps_est"))
+
+
+def _route_fit(route, config, epochs=10, ckpt=None):
+    """One ``Trainer.fit`` of ``config`` on the card in ``route``
+    (``"graph"`` or ``"eager"``, ``RGCN_EAGER_STEP``), from seed 0:
+    ``(losses, validation series, parameters, Adam's state)`` on the
+    host. ``config``: ``fused``, ``fused-bf16``, ``edge``, ``attention``
+    (the attention head, its dropout on) or ``halo-library``, ``halo-#6``,
+    ``halo-#7`` (4 virtual shards). ``ckpt``: ``(path, every, stop)``, a
+    checkpointing fit that raises after epoch ``stop`` (None: runs
+    through)."""
+    from scaling_rgcn_training_tpu_torch import measure_overlap as mo
+    from scaling_rgcn_training_tpu_torch.graphs.device import DeviceGraph
+    from scaling_rgcn_training_tpu_torch.models.heads import HEADS
+    from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import build_rel_edges
+    from scaling_rgcn_training_tpu_torch.parallel import halo as hp
+    from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh
+    from scaling_rgcn_training_tpu_torch.train import step_graph
+    from scaling_rgcn_training_tpu_torch.train import trainer as trainer_mod
+    from scaling_rgcn_training_tpu_torch.train.losses import bce_loss
+    from scaling_rgcn_training_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(17)
+    n, e, slots, emb, hl, c = 3000, 24000, 9, 16, 8, 4
+    src, dst, rel, _ = _graph(rng, n, e, slots)
+    labelled = rng.choice(n - n // 10, 600, replace=False)
+    onehot = torch.eye(c)[torch.as_tensor(np.arange(600) % c)]
+    t = lambda a: torch.as_tensor(a).to("cuda")
+    splits = dict(x_train=t(labelled[:400]), y_train=t(onehot[:400]),
+                  x_val=t(labelled[400:]), y_val=t(onehot[400:]))
+    kw, head, exchange = {}, "summation", None
+    if config.startswith("halo"):
+        exchange = {"library": None, "#6": "1", "#7": "fused"}[
+            config.split("-")[1]]
+        mesh = make_mesh(devices=("cuda",) * 4)
+        edges = hp.device_put_halo_edges(hp.halo_partition_edges(
+            src, dst, rel, n, slots, 4), mesh)
+        kw = dict(mesh=mesh, partition="halo")
+    else:
+        edges = build_rel_edges(src, dst, rel, n, slots, device="cuda",
+                                span=config != "edge")
+        kw = dict(backend="pallas") if config == "edge" else {}
+        head = "attention" if config == "attention" else head
+    trainer = Trainer(None, hl, epochs, emb, lr=0.01, weight_d=5e-5, seed=0,
+                      device="cuda", compute_dtype="bfloat16"
+                      if config == "fused-bf16" else None, **kw)
+    model = HEADS[head](trainer.gen, slots, hl, c, n, emb, num_sums=2,
+                        device="cuda")
+    if head == "attention":
+        model.embedding = torch.nn.Parameter(
+            torch.rand((2, n, emb), generator=trainer.gen).to("cuda"))
+    fit_kw, opts = {}, []
+    if ckpt is not None:
+        path, trainer.ckpt_every, stop = ckpt
+
+        def on_epoch(epoch):
+            if epoch + 1 == stop:
+                raise _Stop
+
+        fit_kw = dict(ckpt_path=path, on_epoch=on_epoch if stop else None)
+    made = trainer_mod.make_optimizer
+    trainer_mod.make_optimizer = lambda *a, **k: opts.append(
+        made(*a, **k)) or opts[-1]
+    try:
+        with mo.env_set(step_graph.EAGER_ENV,
+                        "1" if route == "eager" else None), \
+                mo.env_set(hp.EXCHANGE_ENV, exchange):
+            assert trainer.step_route() == route
+            _, accs, losses, f1w, f1m = trainer.fit(
+                model, DeviceGraph(edges=edges, **splits), bce_loss,
+                "sigmoid", sum_graph=False, frozen=("embedding",)
+                if head == "attention" else (), verbose=False, **fit_kw)
+    finally:
+        trainer_mod.make_optimizer = made
+    torch.cuda.synchronize()
+    state = opts[0].state.values()
+    return (losses, (accs, f1w, f1m),
+            [p.detach().cpu() for p in model.parameters()],
+            [{k: v.detach().cpu() for k, v in s.items()} for s in state],
+            {str(s["step"].device) for s in state})
+
+
+class _Stop(Exception):
+    """Raised by ``on_epoch`` to stop a checkpointing fit."""
+
+
+def _same(a, b):
+    from scaling_rgcn_training_tpu_torch.utils import tracing
+
+    return tracing.same_bits(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["fused", "fused-bf16", "edge",
+                                    "attention", "halo-library", "halo-#6",
+                                    "halo-#7"])
+def test_cuda_step_graph_same_bits_as_eager(config):
+    """``Trainer.fit``'s step captured as a CUDA graph and replayed
+    against the same step run eagerly (``RGCN_EAGER_STEP=1``), 10 epochs
+    from one seed: the losses, the validation series, every parameter and
+    Adam's moments with the same bits; Adam's step on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    eager = _route_fit("eager", config)
+    graph = _route_fit("graph", config)
+    assert all(np.isfinite(graph[0]))
+    for got, ref in zip(graph[:4], eager[:4]):
+        assert _same(ref, got)
+    assert graph[4] == eager[4] == {"cuda:0"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["fused", "halo-#7"])
+def test_cuda_step_graph_resume(config, tmp_path):
+    """A graphed fit that checkpoints every 4 epochs, stopped after 4 and
+    resumed (the warm-up and the capture after the restore): the
+    unbroken eager run's bits, Adam's step on the card after the
+    restore."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    path = str(tmp_path / "fit.npz")
+    unbroken = _route_fit("eager", config)
+    with pytest.raises(_Stop):
+        _route_fit("graph", config, ckpt=(path, 4, 4))
+    resumed = _route_fit("graph", config, ckpt=(path, 4, None))
+    for got, ref in zip(resumed[:4], unbroken[:4]):
+        assert _same(ref, got)
+    assert resumed[4] == {"cuda:0"}
+
+
+@pytest.mark.cuda
+def test_cuda_step_graph_counts_replayed_launches():
+    """``rehearse_am.train`` on the card at a small shape: the route is
+    the graph, every step (warm-up and replays) counts #1 and #2 twice,
+    and a step that reads a value back raises in the last warm-up step,
+    before any capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scaling_rgcn_training_tpu_torch import rehearse_am as ra
+    from scaling_rgcn_training_tpu_torch.train.step_graph import (
+        WARMUP, CudaStepGraph, StepGraph)
+
+    k = {"nodes": 5000, "edges": 40000, "rels": 5, "dim": 16, "hidden": 8,
+         "inner": 3, "calls": 2, "plan_cache": None}
+    dev = torch.device("cuda")
+    edges, rows, targets, slots, _ = ra.build_edges(k, dev)
+    res = ra.run(k, dev, edges, rows, targets, slots)
+    assert res["step"] == "graph" and len(res["losses"]) == 9
+    assert all(st["span_forward"] == 2 and st["span_backward"] == 2
+               for st in res["launches"])
+    x = torch.ones(4, device="cuda")
+    with StepGraph(lambda: (x.sum() * float(x.sum()),), 3, 1, dev,
+                   CudaStepGraph(dev)) as loop:
+        for _ in range(WARMUP - 1):
+            loop.run()
+        with pytest.raises(RuntimeError):
+            loop.run()
+
+
+@pytest.mark.cuda
+def test_cuda_make_optimizer_is_capturable():
+    """Adam on the card is ``capturable`` (its step count on the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scaling_rgcn_training_tpu_torch.train.optim import make_optimizer
+
+    p = torch.nn.Parameter(torch.zeros(3, device="cuda"))
+    opt = make_optimizer([p], 0.01)
+    p.grad = torch.ones_like(p)
+    opt.step()
+    assert opt.defaults["capturable"] is True
+    assert opt.state[p]["step"].device == p.device
+
+
+@pytest.mark.cuda
+def test_cuda_step_graph_stream_is_never_the_exchange_stream():
+    """The step graph's side stream comes from another pool than the halo
+    exchange stream's: however many graphs a process makes (PyTorch's
+    pool hands its 32 streams a priority out round robin), none of their
+    streams is the card's exchange stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scaling_rgcn_training_tpu_torch.parallel.ring_halo import (
+        exchange_stream)
+    from scaling_rgcn_training_tpu_torch.train.step_graph import CudaStepGraph
+
+    ex = exchange_stream(torch.device("cuda", 0))
+    for _ in range(70):
+        g = CudaStepGraph("cuda:0")
+        assert g.stream != ex
+        g.close()
