@@ -244,6 +244,18 @@ Phases, in order; any failure exits non-zero:
    ``bench`` and ``bench_scaling`` run of the earlier phases takes the
    graph route (one card), its replays counted in ``LAUNCHES``.
 
+18. node-major rows sharded over the cards (``node_shard_phase``; the JAX
+   package's ``node_sharding``: each shard's embedding rows, activations
+   and Adam moments on its own card, ``parallel/mesh.py`` ``NodeRows``):
+   ``bench_scaling --virtual`` over k = 1, 2, 4 virtual shards of the
+   card, eager and as a graph, the same loss bits, losses within 1e-5 of
+   k = 1's; with 2 cards or more, ``bench_scaling`` over 1, 2, 4 cards in
+   float32 and bfloat16 (losses against k = 1's, the card-to-card MB a
+   step against what the layout must move and the profiler's peer copies,
+   card 0's peak against the others'), and ``rehearse_am_dist``'s step at
+   the AM shape over the cards against 8 virtual shards of one card; with
+   1 card that part prints "skipped (1 card)".
+
 ``--only 14,15`` runs the named phases and the earlier ones they read
 (``NEEDS``; 1 and 2 always), then prints their numbers and the last line,
 with no kernels line. With no argument every phase runs. The seconds of
@@ -263,7 +275,8 @@ per-call times across processes and the launches of each child; #3's,
 ``bench_scaling_launches``, phase 15's over both exchanges); the line
 before it holds the run's other numbers (phase 13's under ``am_shape``,
 phase 14's under ``bench``, phase 15's under ``bench_scaling``, phase
-16's under ``overlap``, phase 17's under ``step_graph``);
+16's under ``overlap``, phase 17's under ``step_graph``, phase 18's
+under ``node_shard``; #1's, #2's and #3's ``node_shard_launches``);
 the last line is ``{"ok": true, "device":
 {...}}``.
 """
@@ -293,7 +306,7 @@ WARMUP = 3
 # cut toward zero on every call gave -4e-8 and moved phase 5's losses)
 MAX_BIAS = 1e-8
 JAX_PKG = "scaling_rgcn_training_tpu/"
-PHASES = tuple(range(1, 18))
+PHASES = tuple(range(1, 19))
 # the earlier phases whose results a phase reads (``--only``)
 NEEDS = {4: (3,), 5: (3,), 6: (3,), 8: (3, 5), 9: (3,), 10: (3,),
          11: (3, 5, 8)}
@@ -2114,7 +2127,7 @@ def am_phase(launches, reset) -> dict:
                 name = f"halo {mode} {dtype_name(cd or torch.float32)}"
                 reset()
                 res = rd.run_loop(params, rd.halo_conv(he, mesh, cd), dev,
-                                  AM_HALO_STEPS)
+                                  AM_HALO_STEPS, mesh)
                 if not np.isfinite(res["losses"]).all():
                     fail(f"AM {name}: losses {res['losses']}")
                 for i, st in enumerate(res["launches"]):
@@ -2618,6 +2631,222 @@ def step_graph_phase(graphs, launches, reset) -> dict:
     return out
 
 
+def cross_card_model(k, host, perm, shards: int, esize: int) -> int:
+    """The bytes ``bench_scaling``'s step at ``k`` must move between
+    ``shards`` cards, one shard a card, with the library exchange: each
+    layer's halo blocks forward and their cotangents back, ``2 S (S - 1) H
+    d`` elements of ``esize`` bytes; every layer's replicated ``w`` (in
+    the stream dtype), ``root`` and ``bias`` (float32) out to each other
+    card and their summed cotangents back; the labelled rows that lie off
+    the first card, logits to it and cotangents back (float32)."""
+    from scaling_rgcn_training_tpu_torch import bench_scaling as bsc
+
+    widths = ((k["dim"], k["hidden"]), (k["hidden"], bsc.CLASSES))
+    halo = 2 * shards * (shards - 1) * host.halo * sum(
+        d_in for d_in, _ in widths) * esize
+    params = 2 * (shards - 1) * sum(
+        host.num_slots * d_in * d_out * esize + (d_in * d_out + d_out) * 4
+        for d_in, d_out in widths)
+    labelled = perm[:min(bsc.LABELLED, k["nodes"])]
+    off = int((labelled // host.n_per != 0).sum())
+    return halo + params + 2 * off * bsc.CLASSES * 4
+
+
+def am_over_cards(am_cards: int, reset) -> dict:
+    """Phase 18's AM part: ``rehearse_am_dist``'s uniform graph at the
+    full AM shape, partitioned once over 8 shards, its executed step over
+    ``am_cards`` cards (8 / cards shards a card) and over 8 virtual
+    shards of one card, float32 and bfloat16, ``AM_HALO_STEPS`` steps:
+    finite losses, the cards' within 1e-4 (float32; bfloat16 5e-3)
+    relative of the one card's, each card's peak beside the one card's."""
+    import torch
+    from scaling_rgcn_training_tpu_torch import bench_shape as bs
+    from scaling_rgcn_training_tpu_torch import rehearse_am_dist as rd
+
+    k = {"nodes": bs.AM_N, "edges": bs.AM_E, "rels": bs.AM_R,
+         "dim": bs.AM_D, "hidden": bs.AM_HL}
+    slots = 2 * bs.AM_R + 1
+    drng = np.random.default_rng(0)
+    typ = rd.relations(drng, k)
+    src, dst = rd.gen(drng, "uniform", bs.AM_N, bs.AM_E)
+    t0 = time.perf_counter()
+    host = rd.partition(src, dst, typ, bs.AM_N, slots)
+    print(f"  AM halo partition ({rd.S} shards) built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    out = {}
+    dev = torch.device(DEV)
+    for cd in (None, torch.bfloat16):
+        name = dtype_name(cd or torch.float32)
+        runs = {}
+        for where, n_cards in (("one card", None),
+                               (f"{am_cards} cards", am_cards)):
+            torch.cuda.empty_cache()
+            reset()
+            runs[where] = rec = rd.executed_step(
+                src, dst, typ, k, dev, AM_HALO_STEPS, cd, 1.0, n_cards,
+                host)
+            if not rec["loss_finite"]:
+                fail(f"AM {where} {name}: losses {rec['losses']}")
+            print(f"  AM node-sharded {where} ({rec['cards']} card(s), "
+                  f"{rec['step']}) {name}: {rec['ms_per_step']:.3f} "
+                  f"ms/step, peak MiB by card {rec['peak_mib_per_card']}"
+                  f", loss {rec['losses'][0]:.7f} -> "
+                  f"{rec['losses'][-1]:.7f}", flush=True)
+        ref, got = runs["one card"]["losses"], \
+            runs[f"{am_cards} cards"]["losses"]
+        rtol = 1e-4 if cd is None else 5e-3
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+        if not np.allclose(got, ref, rtol=rtol, atol=0):
+            fail(f"AM over {am_cards} cards {name}: losses {got} differ "
+                 f"from one card's {ref}")
+        print(f"  AM over {am_cards} cards {name}: losses within "
+              f"{rel:.2e} of one card's (limit {rtol:.0e})", flush=True)
+        out[name] = {where: {key: r[key] for key in (
+            "cards", "step", "ms_per_step", "peak_mib_per_card",
+            "peak_device_memory_mib", "losses")}
+            for where, r in runs.items()}
+    return out
+
+
+def node_shard_phase(launches, reset) -> dict:
+    """Phase 18: node-major rows sharded over the cards
+    (``parallel/mesh.py`` ``NodeRows``: each shard's embedding rows,
+    activations and Adam moments on its own card).
+
+    (a) One card: ``bench_scaling --virtual`` at its defaults over k = 1,
+    2 and 4 virtual shards of the card, float32, the library exchange,
+    with ``RGCN_EAGER_STEP=1`` and unset: every count's losses within
+    rtol 1e-5, atol 1e-6 of k = 1's (phase 15's criterion), the eager and
+    the graph route with the same loss bits, every timed step launching
+    #1, #2 and (k > 1) #3.
+    (b) With 2 cards or more (1 shard a card, up to 4): ``bench_scaling``
+    at k = 1, 2, 4 with ``--trace``, float32 and bfloat16 streams: losses
+    against k = 1's (float32 as (a); bfloat16 rtol 5e-3, atol 5e-3 of the
+    first loss, phase 12's), the card-to-card MB a step
+    (``cross_card_mb_per_step``, the port's counter) within 5% of what the
+    layout must move (:func:`cross_card_model`) and of the profiler's
+    peer copies in the traced steps, and at the largest k card 0's peak
+    within 25% of the other cards' mean; then ``rehearse_am_dist``'s
+    executed step at the full AM shape (its uniform graph, partitioned
+    once over 8 shards) over the cards (8 / cards shards a card) and over
+    8 virtual shards of one card, float32 and bfloat16, ``AM_HALO_STEPS``
+    steps: finite losses, the cards' within 1e-4 (float32; bfloat16 5e-3)
+    relative of the one card's, each card's peak beside the one card's.
+    With 1 card (b) prints "skipped (1 card)"."""
+    import torch
+    from scaling_rgcn_training_tpu_torch import bench_scaling as bsc
+    from scaling_rgcn_training_tpu_torch.parallel.halo import EXCHANGE_ENV
+    from scaling_rgcn_training_tpu_torch.train.step_graph import EAGER_ENV
+
+    cards = torch.cuda.device_count()
+    want = ("span_forward", "span_backward", "segment_sum")
+    for key in [k for k in os.environ if k.startswith("BENCH_")]:
+        os.environ.pop(key)
+    os.environ.pop(EXCHANGE_ENV, None)
+    kept, out = {}, {"virtual": {}, "cards": None, "am": None,
+                     "launches": {}}
+
+    def check_records(tag, recs, f32=True):
+        base = recs[0]["losses"]
+        for rec in recs:
+            c = rec["devices"]
+            if not np.isfinite(rec["losses"]).all():
+                fail(f"{tag} k={c}: losses {rec['losses']}")
+            rtol, atol = (1e-5, 1e-6) if f32 else (5e-3, 5e-3 * abs(base[0]))
+            if not np.allclose(rec["losses"], base, rtol=rtol, atol=atol):
+                fail(f"{tag} k={c}: losses {rec['losses']} differ from "
+                     f"k=1's {base} (rtol {rtol}, atol {atol})")
+            short = [n for n in want if not rec["launches_per_step"][n] > 0
+                     and (c > 1 or n != "segment_sum")]
+            if short:
+                fail(f"{tag} k={c}: no launch of {short}")
+
+    try:
+        # (a) virtual shards of one card, eager and graph
+        runs = {}
+        for route in ("eager", "graph"):
+            if route == "eager":
+                os.environ[EAGER_ENV] = "1"
+            else:
+                os.environ.pop(EAGER_ENV, None)
+            reset()
+            recs = bsc.main(["--max-shards", "4", "--virtual"],
+                            partitions=kept)
+            out["launches"][f"virtual {route}"] = dict(launches)
+            if [r["devices"] for r in recs] != [1, 2, 4] or \
+                    any(r["step"] != route or r["cards"] != 1 for r in recs):
+                got = [(r["devices"], r["step"], r["cards"]) for r in recs]
+                fail(f"node-sharded virtual {route}: counts, routes or "
+                     f"cards {got}")
+            check_records(f"node-sharded virtual {route}", recs)
+            runs[route] = recs
+        os.environ.pop(EAGER_ENV, None)
+        for e, g in zip(runs["eager"], runs["graph"]):
+            if e["losses"] != g["losses"]:
+                fail(f"node-sharded virtual k={e['devices']}: eager losses "
+                     f"{e['losses']} and graph {g['losses']} differ in bits")
+            rel = max(abs(a - b) / abs(b) for a, b in
+                      zip(g["losses"], runs["graph"][0]["losses"]))
+            print(f"  node-sharded k={g['devices']} virtual shards: eager "
+                  f"{e['ms_per_step']:.4f} / graph {g['ms_per_step']:.4f} "
+                  f"ms/step, the same loss bits, within {rel:.2e} of k=1, "
+                  f"peak {g['peak_mib_per_card']} MiB, cross-card MB a step "
+                  f"{g['cross_card_mb_per_step']}", flush=True)
+        out["virtual"] = runs
+        if cards < 2:
+            print("  real cards: skipped (1 card)", flush=True)
+            return out
+
+        # (b) one shard a card
+        most = max(c for c in bsc.COUNTS if c <= min(cards, 4))
+        out["cards"] = {}
+        with tempfile.TemporaryDirectory(prefix="node_shard_") as tmp:
+            for cd, esize in ((None, 4), ("bf16", 2)):
+                name = "bfloat16" if cd else "float32"
+                if cd:
+                    os.environ["BENCH_COMPUTE_DTYPE"] = cd
+                reset()
+                recs = bsc.main(["--max-shards", str(most), "--trace",
+                                 os.path.join(tmp, name)], partitions=kept)
+                os.environ.pop("BENCH_COMPUTE_DTYPE", None)
+                out["launches"][f"cards {name}"] = dict(launches)
+                check_records(f"node-sharded cards {name}", recs, cd is None)
+                for rec in recs:
+                    c = rec["devices"]
+                    perm, host = kept[c]
+                    model = cross_card_model(bsc.knobs(), host, perm, c,
+                                             esize) / 1e6
+                    got, traced = (rec["cross_card_mb_per_step"],
+                                   rec["peer_copy_mb_per_step"])
+                    rec["cross_card_model_mb"] = model
+                    if rec["cards"] != c or abs(got - model) > 0.05 * model \
+                            or abs(traced - got) > 0.05 * max(got, 1e-9):
+                        fail(f"node-sharded cards {name} k={c}: {rec['cards']}"
+                             f" cards, cross-card MB a step {got} (model "
+                             f"{model}, peer copies traced {traced})")
+                    peaks = rec["peak_mib_per_card"]
+                    print(f"  node-sharded k={c} cards {name}: "
+                          f"{rec['ms_per_step']:.4f} ms/step ({rec['step']}), "
+                          f"host {rec['host_ms_per_step']:.4f}, cross-card "
+                          f"{got:.4f} MB a step (model {model:.4f}, traced "
+                          f"peer copies {traced:.4f}), peak MiB by card "
+                          f"{peaks}", flush=True)
+                top = recs[-1]["peak_mib_per_card"]
+                others = [v for key, v in top.items() if key != "0"]
+                if abs(top["0"] - np.mean(others)) > 0.25 * np.mean(others):
+                    fail(f"node-sharded cards {name} k={most}: card 0's peak "
+                         f"{top['0']} MiB is not within 25% of the others' "
+                         f"{others}")
+                out["cards"][name] = recs
+
+        out["am"] = am_over_cards(
+            max(c for c in (1, 2, 4, 8) if c <= cards), reset)
+    finally:
+        os.environ.pop(EAGER_ENV, None)
+        os.environ.pop("BENCH_COMPUTE_DTYPE", None)
+    return out
+
+
 def phases_to_run(argv) -> set:
     """The phases of ``--only N,M,...`` (every phase without it), with the
     phases whose results they read (``NEEDS``); 1 and 2 always run."""
@@ -2978,6 +3207,13 @@ def main(argv=None) -> None:
         del graphs
         print(f"  phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    if 18 in want:
+        phase("18 node-sharded mesh (each shard's rows on its own card)")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        node_shard = node_shard_phase(launches, reset)
+        print(f"  phase 18: {time.perf_counter() - t0:.1f} s", flush=True)
+
     print(f"chip_smoke: phases {sorted(want)} in "
           f"{time.perf_counter() - _T0:.1f} s", flush=True)
     if want != set(PHASES):
@@ -2988,6 +3224,8 @@ def main(argv=None) -> None:
                              else {}),
                           **({"overlap": overlap} if 16 in want else {}),
                           **({"step_graph": step_graph} if 17 in want
+                             else {}),
+                          **({"node_shard": node_shard} if 18 in want
                              else {})}),
               flush=True)
         print(json.dumps({"ok": True, "device": {
@@ -3090,6 +3328,10 @@ def main(argv=None) -> None:
         ran = sum(c[kname] for c in scaling["launches"].values())
         if ran:
             entry["bench_scaling_launches"] = ran
+        # phase 18's node-sharded bench_scaling runs
+        ran = sum(c[kname] for c in node_shard["launches"].values())
+        if ran:
+            entry["node_shard_launches"] = ran
     print(json.dumps({
         "card": card,
         "bench_shape_ms": {
@@ -3119,7 +3361,8 @@ def main(argv=None) -> None:
             "barrier", "plan_load_s")}
             for name, rec in multihost.items()},
         "am_shape": am, "bench": bench_res, "bench_scaling": scaling,
-        "overlap": overlap, "step_graph": step_graph}),
+        "overlap": overlap, "step_graph": step_graph,
+        "node_shard": node_shard}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,7 @@ partition.
 Counterpart of the JAX package's ``scripts/bench_scaling.py``:
 
     python -m scaling_rgcn_training_tpu_torch.bench_scaling \\
-        [--max-shards K] [--trace DIR]
+        [--max-shards K] [--trace DIR] [--virtual]
 
 The north star (BASELINE.md) asks that the per-card edge throughput of the
 forward and backward train step keep >= 80% efficiency as cards are added.
@@ -21,10 +21,21 @@ and the port's: ``exchange`` (``library``, ``#6`` or ``#7``, from
 distinct devices the shards lie on), ``host_ms_per_step`` (the host's
 time to issue a timed step, before the final synchronisation: near
 ``ms_per_step``, the host bounds the step), ``peak_mib`` (the largest
-card's), ``launches_per_step`` (each kernel wrapper's launches over the
+card's, all that the process holds there), ``peak_mib_per_card`` (each
+card's peak above what it held before the count began: this count's
+rows, moments, plans and step, by card index),
+``cross_card_mb_per_step`` (MB copied between two cards a timed step,
+from the port's own counter, ``parallel/mesh.py`` ``CROSS_CARD``: the
+halo exchange, the replicated parameters out and their cotangents back,
+the labelled rows' logits and their cotangents; on one card 0),
+``launches_per_step`` (each kernel wrapper's launches over the
 timed steps, per step), ``device_busy_ms_per_step`` (with ``--trace``:
 each card's kernel and copy ms a step over ``BENCH_INNER`` traced steps
-after the timed ones, by card index; else null), ``step`` (the route of
+after the timed ones, by card index; else null),
+``peer_copy_mb_per_step`` (with ``--trace``: the profiler's card-to-card
+copies in those steps, MB a step, ``tracing.peer_copy_bytes``: the
+library exchange's check of ``cross_card_mb_per_step``; else null),
+``step`` (the route of
 the step, ``train/step_graph.py``: ``"graph"`` where every shard lies on
 one card, the step captured once as a CUDA graph and replayed, as the
 JAX script runs its steps in one jitted ``lax.scan``; ``"eager"`` over
@@ -33,11 +44,11 @@ with ``RGCN_EAGER_STEP`` set) and ``losses`` (every step's, warm-up calls
 included).
 
 k up to the card count puts the shards on k cards (``parallel/mesh.py``
-``make_mesh(k)``); beyond it, and on the CPU, the k shards are virtual
-shards of one device. ``measures_hardware_scaling`` is true only when the
-k shards lie on k distinct cards: virtual shards share one card's
-silicon, so their ``efficiency`` is no scaling figure (the JAX rule,
-``hardware != "cpu"``, would call them hardware scaling);
+``make_mesh(k)``); beyond it, with ``--virtual`` and on the CPU, the k
+shards are virtual shards of one device. ``measures_hardware_scaling``
+is true only when the k shards lie on k distinct cards: virtual shards
+share one card's silicon, so their ``efficiency`` is no scaling figure
+(the JAX rule, ``hardware != "cpu"``, would call them hardware scaling);
 ``throughput_retention`` is then the partitioning and exchange overhead.
 
 The graph is the script's, from one ``np.random.default_rng(0)``:
@@ -47,9 +58,13 @@ communities, a share ``BENCH_P_IN`` of the edges inside one) or
 ``BENCH_REORDER`` not 0, ``parallel/reorder.py`` ``locality_reorder``
 renumbers the nodes first. Each count then runs ``halo_partition_edges``
 (``pad_to_multiple=512``) and ``device_put_halo_edges`` onto its mesh, and
-a step of the script's: an embedding of ``padded_num_nodes`` rows, two
+a step of the script's: an embedding of ``padded_num_nodes`` rows
+node-sharded as the script places it (``node_sharding``: one Parameter a
+shard on its shard's device, so Adam's moments lie with the rows), two
 ``halo_rgcn_conv`` layers (d -> hidden -> 8) with a ReLU between, BCE on
-1,024 labelled rows with one-hot labels ``i % 8``, Adam 0.01 without L2.
+1,024 labelled rows with one-hot labels ``i % 8`` (each shard picks the
+labelled rows it owns, ``mesh.RowPick``; BCE on the mesh's first device),
+Adam 0.01 without L2.
 Unlike the script, which draws a fresh embedding over each count's
 padded rows and labels the first 1,024 rows of the new numbering, every
 count trains one model: the embedding ``[N, d]`` N(0, 1) from
@@ -74,6 +89,7 @@ versions, for tests).
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import sys
@@ -89,7 +105,8 @@ from scaling_rgcn_training_tpu_torch.ops.cuda_build import LAUNCHES
 from scaling_rgcn_training_tpu_torch.parallel.halo import (
     device_put_halo_edges, exchange_name, halo_partition_edges,
     halo_rgcn_conv, padded_num_nodes)
-from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh
+from scaling_rgcn_training_tpu_torch.parallel.mesh import (
+    CROSS_CARD, make_mesh, node_sharding, norm_device, row_pick)
 from scaling_rgcn_training_tpu_torch.parallel.reorder import locality_reorder
 from scaling_rgcn_training_tpu_torch.train.step_graph import (
     EAGER_ENV, CudaStepGraph, StepGraph, step_route)
@@ -173,19 +190,22 @@ def partition(src, dst, typ, n: int, slots: int, shards: int,
                                       shards, pad_to_multiple=512)
 
 
-def shard_devices(shards: int, device: torch.device) -> tuple:
-    """k cards when the machine has them, else k virtual shards of
-    ``device``."""
-    if device.type == "cuda" and shards <= torch.cuda.device_count():
+def shard_devices(shards: int, device: torch.device,
+                  virtual: bool = False) -> tuple:
+    """k cards when the machine has them (and not ``virtual``), else k
+    virtual shards of ``device``."""
+    if device.type == "cuda" and not virtual and \
+            shards <= torch.cuda.device_count():
         return tuple(torch.device("cuda", i) for i in range(shards))
-    return (device,) * shards
+    return (norm_device(device),) * shards
 
 
 def make_params(k: Dict[str, object], perm: np.ndarray, n_pad: int,
-                slots: int, device):
-    """``(embedding [n_pad, d], layer 1, layer 2)`` on ``device``: node
-    ``i``'s row at ``perm[i]``, padding rows zero (see the module's
-    docstring)."""
+                slots: int, mesh):
+    """``(embedding, [layer 1, layer 2])``: the embedding ``[n_pad, d]``
+    node-sharded over ``mesh`` (``NodeRows`` of one Parameter a shard, on
+    its shard's device), node ``i``'s row at ``perm[i]``, padding rows
+    zero (see the module's docstring); the layers on ``mesh.first``."""
     from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import init_rgcn_layer
 
     gen = lambda seed: torch.Generator().manual_seed(seed)
@@ -194,8 +214,8 @@ def make_params(k: Dict[str, object], perm: np.ndarray, n_pad: int,
         (k["nodes"], k["dim"]), generator=gen(0))
     layers = [init_rgcn_layer(gen(1), slots, k["dim"], k["hidden"]),
               init_rgcn_layer(gen(2), slots, k["hidden"], CLASSES)]
-    return (torch.nn.Parameter(emb.to(device)),
-            [layer.to(device) for layer in layers])
+    return (node_sharding(emb, mesh).as_parameters(),
+            [layer.to(mesh.first) for layer in layers])
 
 
 def sync(devices: Sequence[torch.device]) -> None:
@@ -219,7 +239,7 @@ def device_busy_ms(prof, steps: int) -> Dict[str, float]:
 
 def measure(k: Dict[str, object], shards: int, perm: np.ndarray, host_edges,
             slots: int, device: torch.device,
-            trace_dir: Optional[str] = None) -> dict:
+            trace_dir: Optional[str] = None, virtual: bool = False) -> dict:
     """One count's record (without the ratios to the first count): the
     partition placed on its mesh, the warm-up calls and the timed steps;
     with ``trace_dir``, ``BENCH_INNER`` more steps under
@@ -229,15 +249,22 @@ def measure(k: Dict[str, object], shards: int, perm: np.ndarray, host_edges,
     from scaling_rgcn_training_tpu_torch.train.losses import bce_loss
     from scaling_rgcn_training_tpu_torch.train.optim import make_optimizer
 
-    devices = shard_devices(shards, device)
+    devices = shard_devices(shards, device, virtual)
+    cards = sorted({d for d in devices if d.type == "cuda"}, key=str)
+    # an earlier count's optimizer can sit in a reference cycle (frames
+    # of torch.optim's own) until the cycle collector runs: collect it,
+    # then take what each card holds before this count as its base
+    gc.collect()
+    base = {d: torch.cuda.memory_allocated(d) for d in cards}
+    for dev in cards:
+        torch.cuda.reset_peak_memory_stats(dev)
     mesh = make_mesh(devices=devices)
     hedges = device_put_halo_edges(host_edges, mesh)
-    emb, layers = make_params(k, perm, padded_num_nodes(hedges), slots,
-                              mesh.first)
+    emb, layers = make_params(k, perm, padded_num_nodes(hedges), slots, mesh)
     count = min(LABELLED, k["nodes"])
-    rows = torch.as_tensor(perm[:count], dtype=torch.int64).to(mesh.first)
+    pick = row_pick(perm[:count], hedges.n_per, mesh.devices)
     y = torch.eye(CLASSES)[torch.arange(count) % CLASSES].to(mesh.first)
-    params = [emb, *(p for l in layers for p in l.parameters())]
+    params = [*emb.parts, *(p for l in layers for p in l.parameters())]
     opt = make_optimizer(params, LR)
     cd = k["compute_dtype"]
 
@@ -246,15 +273,12 @@ def measure(k: Dict[str, object], shards: int, perm: np.ndarray, host_edges,
 
     def step():
         opt.zero_grad(set_to_none=True)
-        z = torch.relu(conv(emb, layers[0]))
-        loss = bce_loss(conv(z, layers[1]).index_select(0, rows), y)
+        z = conv(emb, layers[0]).map(torch.relu)
+        loss = bce_loss(pick.take(conv(z, layers[1])), y)
         loss.backward()
         opt.step()
         return (loss,)
 
-    cards = sorted({d for d in devices if d.type == "cuda"}, key=str)
-    for dev in cards:
-        torch.cuda.reset_peak_memory_stats(dev)
     inner, timed = k["inner"], k["calls"] * k["inner"]
     route = step_route(devices)
     total = 2 * inner + timed + (inner if trace_dir is not None else 0)
@@ -269,22 +293,30 @@ def measure(k: Dict[str, object], shards: int, perm: np.ndarray, host_edges,
         steps(inner)                      # warm-up: the kernels' first use
         steps(inner)                      # chained warm-up
         sync(devices)
-        before = dict(LAUNCHES)
+        before, crossed = dict(LAUNCHES), CROSS_CARD["bytes"]
         t0 = time.perf_counter()
         steps(timed)
         host = (time.perf_counter() - t0) / timed
         sync(devices)
         dt = (time.perf_counter() - t0) / timed
         launches = {n: (v - before[n]) / timed for n, v in LAUNCHES.items()}
+        crossed = (CROSS_CARD["bytes"] - crossed) / timed
         losses = [row[0] for row in loop.rows(0, loop.done)]
-        busy = None
+        busy = traced = None
         if trace_dir is not None:
             with tracing.trace(os.path.join(trace_dir, f"k{shards}")) as prof:
                 with tracing.annotate("bench_scaling_step"):
                     steps(inner)
                 sync(devices)
             busy = device_busy_ms(prof, inner)
+            if prof.trace_path is not None:
+                traced = tracing.peer_copy_bytes(
+                    tracing.gpu_events(prof.trace_path)) / inner / 1e6
     eps = k["edges"] * NUM_LAYERS / dt
+    peaks = {str(d.index): torch.cuda.max_memory_allocated(d) / 2**20
+             for d in cards}
+    own = {str(d.index): (torch.cuda.max_memory_allocated(d) - base[d])
+           / 2**20 for d in cards}
     return {
         "devices": shards, "ms_per_step": dt * 1e3, "edges_per_s": eps,
         "host_ms_per_step": host * 1e3,
@@ -295,8 +327,10 @@ def measure(k: Dict[str, object], shards: int, perm: np.ndarray, host_edges,
         "exchange": exchange_name(),
         "compute_dtype": "bfloat16" if cd is not None else "float32",
         "device": ra.card_name() if cards else "cpu", "cards": len(cards),
-        "peak_mib": max((torch.cuda.max_memory_allocated(d) / 2**20
-                         for d in cards), default=None),
+        "peak_mib": max(peaks.values(), default=None),
+        "peak_mib_per_card": own or None,
+        "cross_card_mb_per_step": crossed / 1e6,
+        "peer_copy_mb_per_step": traced,
         "launches_per_step": launches, "device_busy_ms_per_step": busy,
         "step": route, "losses": losses}
 
@@ -313,6 +347,8 @@ def main(argv: Optional[List[str]] = None,
     ap.add_argument("--trace", default=None,
                     help="a directory: each count's traced steps and its "
                     "cards' busy ms a step")
+    ap.add_argument("--virtual", action="store_true",
+                    help="every count as virtual shards of one card")
     args = ap.parse_args(argv)
     k = knobs()
     device = resolve_device(k["device"])
@@ -335,7 +371,8 @@ def main(argv: Optional[List[str]] = None,
                                       k["reorder"])
             log(f"  {c} shards: reorder and partition "
                 f"{time.perf_counter() - t0:.1f}s")
-        rec = measure(k, c, *partitions[c], slots, device, args.trace)
+        rec = measure(k, c, *partitions[c], slots, device, args.trace,
+                      args.virtual)
         base_eps = base_eps or rec["edges_per_s"]
         rec["efficiency"] = rec["edges_per_s"] / (base_eps * c)
         rec["throughput_retention"] = rec["edges_per_s"] / base_eps

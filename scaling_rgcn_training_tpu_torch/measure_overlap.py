@@ -58,11 +58,13 @@ import torch
 import torch.nn.functional as F
 
 from scaling_rgcn_training_tpu_torch.bench_scaling import sync
+from scaling_rgcn_training_tpu_torch.models.heads import node_rows_from_numpy
 from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import RGCNLayer
 from scaling_rgcn_training_tpu_torch.parallel.halo import (
     BLOCK_OVERLAP_ENV, EXCHANGE_ENV, device_put_halo_edges, exchange_mode,
     halo_aggregate, halo_partition_edges, halo_rgcn_conv, padded_num_nodes)
-from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh
+from scaling_rgcn_training_tpu_torch.parallel.mesh import (
+    make_mesh, node_sharding, row_pick)
 from scaling_rgcn_training_tpu_torch.rehearse_am import card_name
 from scaling_rgcn_training_tpu_torch.utils import tracing
 
@@ -104,9 +106,10 @@ def setup(k: Dict[str, int], device: str = "cuda", cards: bool = False
           ) -> Dict[str, Any]:
     """The JAX script's graph and inputs on a mesh: ``OV_DEVICES``
     virtual shards of ``device``, or (``cards``) one shard per visible
-    card. ``x`` ``[S * n_per, d]`` (padding rows zero), ``w`` ``[slots,
-    d, h]`` * 0.1 and the backward's upstream gradient ``gout``, on the
-    mesh's first device."""
+    card. ``x`` ``[S * n_per, d]`` (padding rows zero) and the backward's
+    upstream gradient ``gout`` node-sharded (``node_sharding``, as the JAX
+    script places ``x``), ``w`` ``[slots, d, h]`` * 0.1 on the mesh's
+    first device."""
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: measure_overlap runs on the "
                            "card (--device cpu for the CPU)")
@@ -126,10 +129,10 @@ def setup(k: Dict[str, int], device: str = "cuda", cards: bool = False
     x[:n] = rng.standard_normal((n, d))
     w = (rng.standard_normal((slots, d, h)) * 0.1).astype(np.float32)
     gout = rng.standard_normal((x.shape[0], h)).astype(np.float32)
-    dev = mesh.first
     return {**k, "mesh": mesh, "plan": edges, "slots": slots, "cards": cards,
-            "x": torch.tensor(x, device=dev), "w": torch.tensor(w, device=dev),
-            "gout": torch.tensor(gout, device=dev), "build_s": build_s}
+            "x": node_sharding(x, mesh),
+            "w": torch.tensor(w, device=mesh.first),
+            "gout": node_sharding(gout, mesh), "build_s": build_s}
 
 
 def _best_ms(fn: Callable, devices, inner: int) -> float:
@@ -178,19 +181,27 @@ def run_arm(s: Dict[str, Any], blocked: bool,
     windows of one forward and one backward."""
     mesh, edges, x, w, gout = s["mesh"], s["plan"], s["x"], s["w"], s["gout"]
     devs, inner = mesh.devices, s["inner"]
-    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    xg = x.map(lambda t: t.clone().requires_grad_(True))
+    wg = w.clone().requires_grad_(True)
+    # each call's input scaled by the previous call's first value, so the
+    # calls run in a chain
+    chained = lambda rows, c: rows.map(
+        lambda t: t * (1 + 1e-12 * c.to(t.device)))
+
+    def grads(out):
+        return torch.autograd.grad(out.parts, (*xg.parts, wg), gout.parts)
 
     def forward(c):
         with torch.no_grad():
             for _ in range(inner):
-                c = halo_aggregate(x * (1 + 1e-12 * c), w, edges, mesh)[0, 0]
+                c = halo_aggregate(chained(x, c), w, edges,
+                                   mesh).parts[0][0, 0]
         return c
 
     def forward_backward(c):
         for _ in range(inner):
-            out = halo_aggregate(xg * (1 + 1e-12 * c), wg, edges, mesh)
-            gx, _ = torch.autograd.grad(out, (xg, wg), gout)
-            c = gx[0, 0]
+            out = halo_aggregate(chained(xg, c), wg, edges, mesh)
+            c = grads(out)[0][0, 0]
         return c
 
     zero = torch.zeros((), device=mesh.first)
@@ -204,8 +215,7 @@ def run_arm(s: Dict[str, Any], blocked: bool,
         forward_backward(zero)
         fwd_bwd_ms = _best_ms(lambda: forward_backward(zero), devs, inner)
         out = halo_aggregate(xg, wg, edges, mesh)
-        grads = torch.autograd.grad(out, (xg, wg), gout)
-        bits = (out.detach(), *grads)
+        bits = ([p.detach() for p in out.parts], *grads(out))
         window = None
         if trace_dir is not None:
             held = {}
@@ -214,8 +224,8 @@ def run_arm(s: Dict[str, Any], blocked: bool,
                 held["out"] = halo_aggregate(xg, wg, edges, mesh)
 
             window = {"forward": _window(fwd, trace_dir),
-                      "backward": _window(lambda: torch.autograd.grad(
-                          held.pop("out"), (xg, wg), gout), trace_dir)}
+                      "backward": _window(lambda: grads(held.pop("out")),
+                                          trace_dir)}
     return {"ms_per_agg": fwd_ms, "ms_per_agg_fwd_bwd": fwd_bwd_ms,
             "first_call_s": first_s, "window": window, "bits": bits}
 
@@ -271,25 +281,26 @@ def make_step(mesh, edges, params, label_rows: np.ndarray,
               targets: np.ndarray,
               compute_dtype: Optional[torch.dtype] = None) -> Callable:
     """One step of ``multihost_sim``'s loop without the optimizer, from the
-    same parameters on every call: embedding -> halo conv -> ReLU -> halo
-    conv -> BCE over the labelled rows; returns ``step()`` -> (loss, the
-    gradients of the embedding and of every layer's parameters)."""
+    same parameters on every call: the node-sharded embedding -> halo conv
+    -> ReLU -> halo conv -> BCE over the labelled rows; returns ``step()``
+    -> (loss, the gradients of each shard's embedding and of every layer's
+    parameters)."""
     emb_host, layers_host = params
     dev = mesh.first
-    emb = torch.nn.Parameter(torch.tensor(emb_host, device=dev))
+    emb = node_rows_from_numpy(emb_host, mesh)
     layers = [RGCNLayer(*[torch.tensor(a, device=dev) for a in layer])
               for layer in layers_host]
-    leaves = [emb, *(p for layer in layers for p in layer.parameters())]
-    rows = torch.as_tensor(label_rows, dtype=torch.int64).to(dev)
+    leaves = [*emb.parts, *(p for layer in layers for p in layer.parameters())]
+    pick = row_pick(label_rows, emb.n_per, mesh.devices)
     y = torch.as_tensor(targets).to(dev)
 
     def step():
-        z = torch.relu(halo_rgcn_conv(emb, edges, layers[0], mesh,
-                                      compute_dtype=compute_dtype))
+        z = halo_rgcn_conv(emb, edges, layers[0], mesh,
+                           compute_dtype=compute_dtype).map(torch.relu)
         logits = halo_rgcn_conv(z, edges, layers[1], mesh,
                                 compute_dtype=compute_dtype)
         loss = F.binary_cross_entropy_with_logits(
-            logits.index_select(0, rows), y, reduction="sum") / len(rows)
+            pick.take(logits), y, reduction="sum") / pick.count
         return (loss.detach(), *torch.autograd.grad(loss, leaves))
 
     return step

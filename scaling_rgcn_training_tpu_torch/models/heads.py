@@ -31,6 +31,8 @@ from scaling_rgcn_training_tpu_torch.models.attention import (
     MHA, init_mha, mha_self_attention)
 from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import (
     RelEdges, RGCNLayer, init_rgcn_layer, rgcn_conv, uniform)
+from scaling_rgcn_training_tpu_torch.parallel.mesh import (
+    Mesh, NodeRows, node_sharding)
 
 DROPOUT = 0.2
 
@@ -179,6 +181,16 @@ def layer_from_numpy(leaves: Sequence[Optional[np.ndarray]]) -> RGCNLayer:
     comp = rest[0] if rest else None
     return RGCNLayer(_t(weight), _t(root), _t(bias),
                      None if comp is None else _t(comp))
+
+
+def node_rows_from_numpy(embedding: np.ndarray, mesh: Mesh) -> NodeRows:
+    """A JAX node-sharded embedding ``[S * n_per, d]`` (``put_global(a,
+    node_sharding(mesh))``), as numpy -> this process's shards on
+    ``mesh``, one ``nn.Parameter`` a shard on its device
+    (``parallel/mesh.py`` ``NodeRows``); ``.numpy()`` gives the array
+    back."""
+    return node_sharding(np.asarray(embedding, np.float32),
+                         mesh).as_parameters()
 
 
 def emb_model_from_numpy(embedding: np.ndarray,

@@ -49,8 +49,11 @@ script) are spread evenly over the graph (the JAX script takes the first
 128, which all lie on process 0).
 
 - Halo partition (``library``, ``kernel``, ``fused``): the embedding
-  ``[S * n_per, D]`` is sharded by rows, the conv is ``halo_rgcn_conv``.
-  A process's loss is the sum over its labelled rows, summed over the
+  ``[S * n_per, D]`` is node-sharded (``parallel/mesh.py``
+  ``node_sharding``: one Parameter a shard of the process, so Adam's
+  moments lie with the rows), the conv is ``halo_rgcn_conv``. Each shard
+  picks the labelled rows it owns (``mesh.RowPick``). A process's loss is
+  the sum over its labelled rows, summed over the
   processes in rank order and divided by the global count; the layers'
   gradients are summed across processes (``mesh.sum_replicated_grads``).
 - Edge partition (``edge``): the embedding ``[N, D]`` is replicated, the
@@ -270,8 +273,10 @@ def train(mesh, edges, params, label_rows, targets, mode: str, bf16: bool,
     from scaling_rgcn_training_tpu_torch.parallel.halo import (
         EXCHANGE_ENV, halo_rgcn_conv)
     from scaling_rgcn_training_tpu_torch.parallel.ipc import shared_bytes
+    from scaling_rgcn_training_tpu_torch.models.heads import (
+        node_rows_from_numpy)
     from scaling_rgcn_training_tpu_torch.parallel.mesh import (
-        put_global, sum_across, sum_replicated_grads)
+        row_pick, sum_across, sum_replicated_grads)
     from scaling_rgcn_training_tpu_torch.parallel.spmd import (
         CROSS_SUM, sharded_rgcn_conv)
     from scaling_rgcn_training_tpu_torch.train.optim import make_optimizer
@@ -288,31 +293,40 @@ def train(mesh, edges, params, label_rows, targets, mode: str, bf16: bool,
         rows = torch.as_tensor(label_rows, dtype=torch.int64).to(dev)
         y = torch.as_tensor(targets).to(dev)
         conv = functools.partial(sharded_rgcn_conv, backend="pallas")
+        emb_leaves = [emb]
+        relu = torch.relu
+        take = lambda logits: logits.index_select(0, rows)
     else:
-        emb = torch.nn.Parameter(put_global(emb_host, mesh))
-        rows_per_proc = emb.shape[0]
+        emb = node_rows_from_numpy(emb_host, mesh)
+        rows_per_proc = emb.num_rows
         lo = mesh.process_index * rows_per_proc
         mine = (label_rows >= lo) & (label_rows < lo + rows_per_proc)
-        rows = torch.as_tensor(label_rows[mine] - lo,
-                               dtype=torch.int64).to(dev)
+        take = row_pick(label_rows[mine] - lo, emb.n_per, mesh.devices).take
         y = torch.as_tensor(targets[mine]).to(dev)
         conv = halo_rgcn_conv
+        emb_leaves = list(emb.parts)
+        relu = lambda z: z.map(torch.relu)
     replicated = [p for layer in layers for p in layer.parameters()]
-    opt = make_optimizer([emb, *replicated], LR, weight_decay=0.0)
+    opt = make_optimizer([*emb_leaves, *replicated], LR, weight_decay=0.0)
     cd = torch.bfloat16 if bf16 else None
 
     def state(with_adam: bool):
-        arrays = {"emb": emb}
+        # each array's leaves; the embedding's shards in shard order, so
+        # the file holds the node-major table (and its moments) as one
+        leaves = {"emb": emb_leaves}
         for i, layer in enumerate(layers):
             for name, p in layer.named_parameters():
-                arrays[f"layer{i}/{name}"] = p
+                leaves[f"layer{i}/{name}"] = [p]
+        arrays = {n: torch.cat([p.detach() for p in ps])
+                  for n, ps in leaves.items()}
         if with_adam:
-            for name, p in list(arrays.items()):
+            for name, ps in leaves.items():
                 for moment in ("exp_avg", "exp_avg_sq"):
-                    arrays[f"adam/{name}/{moment}"] = opt.state[p][moment]
+                    arrays[f"adam/{name}/{moment}"] = torch.cat(
+                        [opt.state[p][moment] for p in ps])
         sharded = [] if edge else [n for n in arrays
                                    if n == "emb" or n.startswith("adam/emb/")]
-        return {n: v.detach() for n, v in arrays.items()}, sharded
+        return arrays, sharded
 
     prev = os.environ.get(EXCHANGE_ENV)
     if MODES[mode] is None:
@@ -331,11 +345,10 @@ def train(mesh, edges, params, label_rows, targets, mode: str, bf16: bool,
             _sync(dev)
             t0 = time.perf_counter()
             opt.zero_grad(set_to_none=True)
-            z = torch.relu(conv(emb, edges, layers[0], mesh,
-                                compute_dtype=cd))
+            z = relu(conv(emb, edges, layers[0], mesh, compute_dtype=cd))
             logits = conv(z, edges, layers[1], mesh, compute_dtype=cd)
             part = F.binary_cross_entropy_with_logits(
-                logits.index_select(0, rows), y, reduction="sum")
+                take(logits), y, reduction="sum")
             (part / count).backward()
             if not edge:
                 # a halo process's layers saw its rows only; in the edge
@@ -561,7 +574,7 @@ def time_calls(mesh, hedges, d_in: int, d_out: int, reps: int = 20,
     from scaling_rgcn_training_tpu_torch.parallel import fused_halo as fh
     from scaling_rgcn_training_tpu_torch.parallel import ring_halo as rh
     from scaling_rgcn_training_tpu_torch.parallel.mesh import (
-        BARRIER, host_barrier)
+        BARRIER, NodeRows, host_barrier)
 
     dev, k, s_n = mesh.first, mesh.local_size, mesh.size
     n_per, h = hedges.n_per, hedges.halo
@@ -615,7 +628,8 @@ def time_calls(mesh, hedges, d_in: int, d_out: int, reps: int = 20,
                 with env_set(EXCHANGE_ENV, EXCHANGES[exchange]), \
                         env_set(BLOCK_OVERLAP_ENV, "1" if blocked else None):
                     out["halo_aggregate"][f"{exchange} {arm}"] = per_call(
-                        lambda: halo_aggregate(x, w, hedges, mesh), agg_reps)
+                        lambda: halo_aggregate(NodeRows(tuple(xs)), w, hedges,
+                                               mesh), agg_reps)
     if across:
         calls0, secs0 = BARRIER["calls"], BARRIER["seconds"]
         for _ in range(reps):

@@ -365,7 +365,9 @@ def rgcn_conv(x: torch.Tensor, edges: RelEdges, layer: RGCNLayer,
     partitioned over a mesh (``parallel/spmd.py`` ``ShardedRelEdges``,
     ``parallel/halo.py`` ``HaloShardedEdges``) run the partitioned conv
     over the ambient mesh (``parallel/mesh.py`` ``use_mesh``), so models
-    never need to know whether they are distributed.
+    never need to know whether they are distributed; ``x`` and the result
+    stay one tensor (the halo conv's node-sharded rows are split from it
+    and gathered back onto its device).
     """
     kind = type(edges).__name__
     if kind in ("ShardedRelEdges", "HaloShardedEdges"):
@@ -380,13 +382,21 @@ def rgcn_conv(x: torch.Tensor, edges: RelEdges, layer: RGCNLayer,
             raise RuntimeError(f"rgcn_conv got {kind} outside a "
                                "parallel.mesh.use_mesh(...) scope")
         if kind == "HaloShardedEdges":
+            # the caller keeps one tensor of the rows on the mesh's first
+            # device: split into the node-sharded layout and gathered back
             from scaling_rgcn_training_tpu_torch.parallel.halo import (
-                halo_rgcn_conv as conv)
-        else:
-            from scaling_rgcn_training_tpu_torch.parallel.spmd import (
-                sharded_rgcn_conv as conv)
-        return conv(x, edges, layer, mesh, backend=backend,
-                    compute_dtype=compute_dtype)
+                halo_rgcn_conv)
+            from scaling_rgcn_training_tpu_torch.parallel.mesh import (
+                shard_rows)
+
+            return halo_rgcn_conv(
+                shard_rows(x, mesh), edges, layer, mesh, backend=backend,
+                compute_dtype=compute_dtype).gather(x.device)
+        from scaling_rgcn_training_tpu_torch.parallel.spmd import (
+            sharded_rgcn_conv)
+
+        return sharded_rgcn_conv(x, edges, layer, mesh, backend=backend,
+                                 compute_dtype=compute_dtype)
     w = materialize_weight(layer)
     cast = (lambda t: t) if compute_dtype is None else (
         lambda t: t.to(compute_dtype))

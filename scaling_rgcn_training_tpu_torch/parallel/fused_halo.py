@@ -60,7 +60,7 @@ from scaling_rgcn_training_tpu_torch.ops.span_kernels import (
     _acc_dtype, _csr, _cuda_dtype_code, _check_widths, check_edges,
     relation_chunks, span_backward, span_forward, span_forward_tiled_plain)
 from scaling_rgcn_training_tpu_torch.parallel.ipc import peer_set
-from scaling_rgcn_training_tpu_torch.parallel.mesh import Mesh
+from scaling_rgcn_training_tpu_torch.parallel.mesh import CROSS_CARD, Mesh
 from scaling_rgcn_training_tpu_torch.parallel.ring_halo import (
     connect, exchange_across, halo_exchange_library, halo_kernels, on_cards,
     pointer_table, release_sources, send_transpose, wait_for_sources)
@@ -231,6 +231,10 @@ def _on_card(x_owns: Sequence[torch.Tensor], w: torch.Tensor,
         err = launch(lib, out, buf, stream.cuda_stream)
         cuda_build.check_launch(lib, err, name)
         release_sources(stream, x_owns)
+    # the halo rows it reads from another card, counted once each (the
+    # rows of the halo buffer; a row read by several edges is read again)
+    CROSS_CARD["bytes"] += plan.halo * w.shape[1] * w.element_size() * sum(
+        x.device != dev for x in x_owns)
     LAUNCHES[name] += 1
     return out, buf
 
@@ -412,7 +416,9 @@ def fused_halo_apply(x_owns: Sequence[torch.Tensor],
                      ws: Sequence[torch.Tensor], shards,
                      mesh: Optional[Mesh] = None) -> List[torch.Tensor]:
     """Differentiable kernel #7 over this process's shards of the
-    partition (every shard in one process)."""
+    partition (every shard in one process): ``x_owns[j]`` and ``ws[j]`` on
+    shard ``j``'s device -> its aggregation ``[n_per, d_out]`` float32
+    there, one per shard, nothing gathered onto one device."""
     want_buf = torch.is_grad_enabled() and any(
         t.requires_grad for t in (*x_owns, *ws))
     return list(FusedHaloApply.apply(tuple(shards), want_buf, mesh, *x_owns,

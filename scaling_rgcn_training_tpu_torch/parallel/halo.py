@@ -19,20 +19,28 @@ buffer, and kernel #7's plan. None of the TPU's chunked plans is built.
 With ``cache_dir`` the whole partition goes through the plan cache
 (``utils/plancache.py``). :func:`device_put_halo_edges` moves the plans of
 this process's shards to their mesh devices (every shard in one process).
+``node_sharding`` and ``pad_node_array`` (``parallel/mesh.py``) are here
+under the JAX package's names.
 
-:func:`halo_aggregate` takes this process's node-major rows
-``x [k * n_per, d]`` on the mesh's first device (``k = S`` in one process;
-across processes ``parallel/mesh.py`` ``put_global`` gives them), slices
-them into its shards' ``x_own`` (views on one card), moves each to its
-shard's device and returns the same rows of the result. The exchange of
-a mesh of several processes crosses them (``parallel/ring_halo.py``,
-``parallel/fused_halo.py``); one process is the case P = 1, with its
-behaviour and its bits. Per shard, the span kernels (#1, #2)
-aggregate where they take the widths and no ``backend`` is given (the
-JAX package's ``use_fused``); otherwise the edge mode (kernels #4 and #3
-with ``backend="pallas"``). On the CPU the plain versions run. The
-exchange is chosen as the JAX package chooses it (``RGCN_HALO_PALLAS_A2A``,
-read by :func:`exchange_mode` only):
+:func:`halo_aggregate` and :func:`halo_rgcn_conv` take this process's
+node-major rows as ``parallel/mesh.py`` ``NodeRows`` (one tensor a shard,
+``x_own [n_per, d]`` on its shard's device; ``k = S`` shards in one
+process, ``node_sharding`` places them) and return the result the same
+way, as the JAX ``shard_map`` body reads ``x_own`` where it lies and
+returns ``P(EDGE_AXIS)``: inside a layer no node-major row crosses a card
+but the ``S * H`` halo rows (the library exchange, #6's pulls or #7's
+peer reads). The replicated parameters (``w``, ``root``, ``bias``: the
+JAX ``P()``) stay on the mesh's first device and reach each shard's
+through ``mesh.Replicate``, which adds their cotangents back in one fixed
+order. A shard's rows on another device than its shard's raise. The
+exchange of a mesh of several processes crosses them
+(``parallel/ring_halo.py``, ``parallel/fused_halo.py``); one process is
+the case P = 1, with its behaviour and its bits. Per shard, the span
+kernels (#1, #2) aggregate where they take the widths and no ``backend``
+is given (the JAX package's ``use_fused``); otherwise the edge mode
+(kernels #4 and #3 with ``backend="pallas"``). On the CPU the plain
+versions run. The exchange is chosen as the JAX package chooses it
+(``RGCN_HALO_PALLAS_A2A``, read by :func:`exchange_mode` only):
 
 - unset: the library exchange (``parallel/ring_halo.py``
   ``halo_exchange_library``, the counterpart of ``lax.all_to_all``);
@@ -86,7 +94,11 @@ from scaling_rgcn_training_tpu_torch.ops.segment_kernels import segment_rowptr
 from scaling_rgcn_training_tpu_torch.ops.span_kernels import SpanPlan, fused_ok
 from scaling_rgcn_training_tpu_torch.parallel.fused_halo import (
     FusedHaloPlan, fused_halo_apply, plan_fused_halo)
-from scaling_rgcn_training_tpu_torch.parallel.mesh import Mesh
+from scaling_rgcn_training_tpu_torch.parallel.mesh import (
+    Mesh, NodeRows, replicate)
+# here under the JAX package's names (its parallel/halo.py)
+from scaling_rgcn_training_tpu_torch.parallel.mesh import (  # noqa: F401
+    node_sharding, pad_node_array)
 from scaling_rgcn_training_tpu_torch.parallel.ring_halo import (
     HaloExchange, Overlap, on_cards, send_transpose)
 from scaling_rgcn_training_tpu_torch.utils.plancache import get_or_build
@@ -134,27 +146,18 @@ class SendGather(torch.autograd.Function):
         return send_transpose(g, ctx.shard).to(g.dtype), None
 
 
-class SegmentWeights(torch.autograd.Function):
-    """``w`` as the S shards' owner-local and halo segments read it: ``2S``
-    aliases (the identity), the local segments' first. Backward: their
-    cotangents added in one fixed order, the order in which autograd
-    added them when each shard's ``local + halo`` ran in turn (shard S - 1
-    first, its halo segment's before its local's), so every arm and every
-    issue order gives those bits."""
-
-    @staticmethod
-    def forward(ctx, w, num_shards: int):
-        return tuple(w.view_as(w) for _ in range(2 * num_shards))
-
-    @staticmethod
-    def backward(ctx, *grads):
-        s_n = len(grads) // 2
-        total = None
-        for s in reversed(range(s_n)):
-            for g in (grads[s_n + s], grads[s]):
-                if g is not None:
-                    total = g if total is None else total + g
-        return total, None
+def segment_weights(w: torch.Tensor, devices) -> Tuple[torch.Tensor, ...]:
+    """``w`` as the S shards' owner-local and halo segments read it (the
+    shards on ``devices``): ``2S`` tensors, the local segments' first, each
+    on its shard's device (``mesh.replicate``). Backward: their cotangents
+    added in one fixed order, the order in which autograd added them when
+    each shard's ``local + halo`` ran in turn (shard S - 1 first, its halo
+    segment's before its local's), so every arm and every issue order
+    gives those bits; a shard on another device than ``w``'s adds its two
+    there first."""
+    s_n = len(devices)
+    order = [i for s in reversed(range(s_n)) for i in (s_n + s, s)]
+    return replicate(w, (*devices, *devices), order)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -378,20 +381,30 @@ def exchange_name() -> str:
     return {None: "library", "kernel": "#6", "fused": "#7"}[exchange_mode()]
 
 
-def halo_aggregate(x: torch.Tensor, w: torch.Tensor, edges: HaloShardedEdges,
-                   mesh: Mesh, backend: Optional[str] = None) -> torch.Tensor:
+def _require_rows(x) -> None:
+    if not isinstance(x, NodeRows):
+        raise TypeError(f"the halo conv takes node-sharded rows (NodeRows: "
+                        f"mesh.node_sharding or mesh.shard_rows), got "
+                        f"{type(x).__name__}")
+
+
+def halo_aggregate(x: NodeRows, w: torch.Tensor, edges: HaloShardedEdges,
+                   mesh: Mesh, backend: Optional[str] = None) -> NodeRows:
     """``sum_e norm_e * (x[src_e] @ w[rel_e])`` onto ``dst_e``, shard by
-    shard: this process's rows ``x [k * n_per, d_in]`` -> ``[k * n_per,
-    d_out]`` float32 on the mesh's first device."""
-    s_n, n_per = edges.num_shards, edges.n_per
-    k = mesh.local_size
-    if mesh.size != s_n or len(edges.shards) != k or \
+    shard: this process's rows ``x`` (``NodeRows`` of ``[n_per, d_in]``,
+    each on its shard's device) -> the same shards' ``[n_per, d_out]``
+    float32, each on its shard's device."""
+    n_per = edges.n_per
+    _require_rows(x)
+    if mesh.size != edges.num_shards or \
+            len(edges.shards) != mesh.local_size or \
             edges.shards[0].fused.shard != mesh.first_shard:
         raise ValueError("halo edges must be placed on this mesh "
                          "(device_put_halo_edges)")
-    if x.shape[0] != k * n_per:
-        raise ValueError(f"x has {x.shape[0]} rows, this process's shards "
-                         f"{k} x {n_per}")
+    x.check(mesh)
+    if x.n_per != n_per:
+        raise ValueError(f"x has {x.n_per} rows a shard, the partition "
+                         f"{n_per}")
     slots, d_in, d_out = w.shape
     use_span = fused_ok(d_in, d_out) and backend is None
     mode = exchange_mode()
@@ -401,17 +414,15 @@ def halo_aggregate(x: torch.Tensor, w: torch.Tensor, edges: HaloShardedEdges,
             f"this layer (d_in {d_in}, d_out {d_out}, backend {backend!r}); "
             "taking the library exchange", stacklevel=2)
         mode = None
-    x, w = x.contiguous(), w.contiguous()
-    xs = [x[s * n_per:(s + 1) * n_per].to(dev)
-          for s, dev in enumerate(mesh.devices)]
+    xs = [p.contiguous() for p in x.parts]
+    w = w.contiguous()
     if mode == "fused":
-        aggs = fused_halo_apply(xs, [w.to(dev) for dev in mesh.devices],
-                                edges.shards,
+        aggs = fused_halo_apply(xs, replicate(w, x.devices), edges.shards,
                                 mesh if mesh.multiprocess else None)
     else:
         aggs = _exchanged_aggregate(xs, w, edges, mesh, mode or "library",
                                     "fused" if use_span else "edge", backend)
-    return torch.cat([a.to(mesh.first) for a in aggs])
+    return NodeRows(tuple(aggs))
 
 
 def _exchanged_aggregate(xs: List[torch.Tensor], w: torch.Tensor,
@@ -422,9 +433,8 @@ def _exchanged_aggregate(xs: List[torch.Tensor], w: torch.Tensor,
     exchange or #6, the exchange overlapping the owner-local segments on
     the cards (the module's docstring)."""
     s_n, h, d_in = edges.num_shards, edges.halo, w.shape[1]
-    views = SegmentWeights.apply(w, len(xs))
-    w_local = [v.to(x.device) for v, x in zip(views[:len(xs)], xs)]
-    w_halo = [v.to(x.device) for v, x in zip(views[len(xs):], xs)]
+    views = segment_weights(w, [x.device for x in xs])
+    w_local, w_halo = views[:len(xs)], views[len(xs):]
     sends = [SendGather.apply(xs[s], sh).view(s_n, h, d_in)
              for s, sh in enumerate(edges.shards)]
     overlap = Overlap.on([x.device for x in xs], overlap_blocked()) \
@@ -446,18 +456,23 @@ def _exchanged_aggregate(xs: List[torch.Tensor], w: torch.Tensor,
             for loc, recv, wh, sh in zip(local, recvs, w_halo, edges.shards)]
 
 
-def halo_rgcn_conv(x: torch.Tensor, edges: HaloShardedEdges, layer: RGCNLayer,
+def halo_rgcn_conv(x: NodeRows, edges: HaloShardedEdges, layer: RGCNLayer,
                    mesh: Mesh, backend: Optional[str] = None,
-                   compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Node-partitioned R-GCN layer over this process's rows: ``[k * n_per,
-    in] -> [k * n_per, out]`` (``k = S`` in one process).
+                   compute_dtype: Optional[torch.dtype] = None) -> NodeRows:
+    """Node-partitioned R-GCN layer over this process's shards: ``NodeRows``
+    of ``[n_per, in]`` -> of ``[n_per, out]``, each shard on its device.
 
     Same math as ``ops/rgcn_conv.py`` ``rgcn_conv``. ``compute_dtype``
     (e.g. ``torch.bfloat16``): the per-edge streams, the exchanged rows
     included, run in that dtype while every sum and the output stay
-    float32; the root and bias term stays in the parameters' float32."""
+    float32; the root and bias term stays in the parameters' float32 and
+    runs per shard on its device (the JAX body's node-local term)."""
     w = materialize_weight(layer)
     cast = (lambda t: t) if compute_dtype is None else (
         lambda t: t.to(compute_dtype))
-    agg = halo_aggregate(cast(x), cast(w), edges, mesh, backend=backend)
-    return agg + x @ layer.root + layer.bias
+    _require_rows(x)
+    agg = halo_aggregate(x.map(cast), cast(w), edges, mesh, backend=backend)
+    roots = replicate(layer.root, x.devices)
+    biases = replicate(layer.bias, x.devices)
+    return NodeRows(tuple(a + xo @ r + b for a, xo, r, b in
+                          zip(agg.parts, x.parts, roots, biases)))

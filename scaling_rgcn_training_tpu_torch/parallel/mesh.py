@@ -13,9 +13,28 @@ Across processes (:func:`initialize_multihost`, over
 ``[p * k, (p + 1) * k)``, ``k = S / P``: the JAX layout of 2 processes x 4
 devices. ``Mesh.devices`` then lists this process's k shards, which lie on
 one device: a card of its own, a card the processes share, or the CPU.
-:func:`put_global` keeps this process's rows of a node-major host array
-(the JAX ``put_global``), :func:`gather_global` puts a node-major array's
-rows of every process back together in shard order (the JAX checkpoint's
+
+A node-major array on a mesh (the embedding, a layer's activations) is a
+:class:`NodeRows`: one tensor per shard of this process, on that shard's
+device, shard ``s`` holding the global rows ``[s * n_per, (s + 1) *
+n_per)`` (the JAX package's array placed with ``parallel/halo.py``
+``node_sharding``). Shards that share a device (virtual shards, or 8
+shards on 4 cards) still get one tensor each, so one card and several
+take the same code. :func:`node_sharding` places a host array,
+:func:`pad_node_array` pads one to ``S * n_per`` rows,
+:func:`shard_rows` splits a tensor of this process's rows under
+autograd, :meth:`NodeRows.gather` puts the shards back together in shard
+order on one device (evaluation, checkpoints, ``-e_viz``; never the step)
+and :class:`RowPick` takes given rows (the labelled ones) onto one
+device. :class:`Replicate` hands a replicated parameter (the JAX ``P()``)
+to each shard's device and adds its cotangents back in a fixed order.
+:data:`CROSS_CARD` counts the bytes these copies, the halo exchanges and
+the kernels' peer reads move between the cards of this process.
+
+:func:`put_global` (also :func:`node_sharding`) places this process's
+rows of a node-major host array (the JAX ``put_global``),
+:func:`gather_global` puts a node-major array's rows of every process
+back together in shard order (the JAX checkpoint's
 ``process_allgather``), :func:`sum_replicated_grads` sums the replicated
 parameters' gradients across processes (the psum XLA inserts for ``P()``
 parameters), in rank order, so two runs give the same bits, and
@@ -44,6 +63,9 @@ PROCESS_GROUP_TIMEOUT = datetime.timedelta(seconds=600)
 
 # host barriers of the cross-process exchanges: calls and seconds
 BARRIER: Dict[str, float] = {"calls": 0, "seconds": 0.0}
+
+# bytes copied between two cards of this process (count_cross_card)
+CROSS_CARD: Dict[str, int] = {"bytes": 0}
 
 # the gloo group for host barriers and objects when the process group
 # runs NCCL (set by initialize_multihost)
@@ -87,7 +109,12 @@ class Mesh:
 
     @property
     def first(self) -> torch.device:
-        """The device that holds parameters and node-major activations."""
+        """The device of this process's first shard. It holds the
+        replicated parameters (the JAX ``P()``: the layers' weights, root
+        and bias, which reach the other devices through
+        :class:`Replicate`) and what is gathered onto one device (the
+        labelled rows' logits and the loss); each shard's node-major rows
+        lie on its own device (:class:`NodeRows`)."""
         return self.devices[0]
 
 
@@ -188,10 +215,286 @@ def process_rows(a: np.ndarray, mesh: Mesh) -> np.ndarray:
     return a[mesh.process_index * rows:(mesh.process_index + 1) * rows]
 
 
-def put_global(host_array, mesh: Mesh) -> torch.Tensor:
-    """A node-major host array ``[S * n_per, ...]`` -> this process's rows
-    ``[k * n_per, ...]`` on ``mesh.first`` (every row in one process)."""
-    return torch.tensor(process_rows(host_array, mesh), device=mesh.first)
+def norm_device(device) -> torch.device:
+    """``device`` as a ``torch.device`` with its card's index (``"cuda"``
+    -> the current card), so two names of one device compare equal."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def count_cross_card(t: torch.Tensor, device) -> None:
+    """Add ``t``'s bytes to :data:`CROSS_CARD` when it is copied from one
+    card to another."""
+    device = norm_device(device)
+    if t.device.type == "cuda" and device.type == "cuda" and \
+            t.device != device:
+        CROSS_CARD["bytes"] += t.numel() * t.element_size()
+
+
+def copy_to(t: torch.Tensor, device) -> torch.Tensor:
+    """``t.to(device)``, counted in :data:`CROSS_CARD` (no autograd)."""
+    count_cross_card(t, device)
+    return t.to(device)
+
+
+class _Move(torch.autograd.Function):
+    """``t`` copied to ``device``; the cotangent copied back. Both copies
+    are counted in :data:`CROSS_CARD`."""
+
+    @staticmethod
+    def forward(ctx, t, device):
+        ctx.home = t.device
+        return copy_to(t, device)
+
+    @staticmethod
+    def backward(ctx, g):
+        return copy_to(g, ctx.home), None
+
+
+def move(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device`` under autograd (``t`` itself when it lies
+    there), the copies both ways counted."""
+    device = norm_device(device)
+    return t if t.device == device else _Move.apply(t, device)
+
+
+class Replicate(torch.autograd.Function):
+    """A replicated tensor (the JAX ``P()``) handed to each of
+    ``devices``: ``(t, devices, groups)`` -> one tensor per entry of
+    ``devices``, an alias where it is ``t``'s device, else one copy per
+    distinct device, shared by its entries. ``groups``: every output's
+    index once, in the order its cotangents are added. A group's
+    cotangents lie on one device and are added there first, then each
+    group's sum is brought back and added in order; so the sum is the
+    same whichever autograd thread finishes first.
+    :func:`replicate_groups` makes the groups."""
+
+    @staticmethod
+    def forward(ctx, t, devices, groups):
+        ctx.home, ctx.groups = t.device, groups
+        copies = {}
+        for dev in dict.fromkeys(devices):
+            if dev != t.device:
+                copies[dev] = copy_to(t, dev)
+        return tuple(t.view_as(t) if dev == t.device else
+                     copies[dev].view_as(t) for dev in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = None
+        for group in ctx.groups:
+            part = None
+            for i in group:
+                g = grads[i]
+                if g is not None:
+                    part = g if part is None else part + g
+            if part is None:
+                continue
+            part = copy_to(part, ctx.home)
+            total = part if total is None else total + part
+        return total, None, None
+
+
+def replicate_groups(devices: Sequence[torch.device], home: torch.device,
+                     order: Sequence[int]) -> Tuple[Tuple[int, ...], ...]:
+    """The groups of :class:`Replicate` for outputs on ``devices`` added
+    in ``order``: each output alone where it lies on ``home`` (the order
+    kept element by element), a run of consecutive outputs on one other
+    device as one group (their sum crosses once)."""
+    groups: List[List[int]] = []
+    for i in order:
+        dev = devices[i]
+        if groups and dev != home and devices[groups[-1][-1]] == dev:
+            groups[-1].append(i)
+        else:
+            groups.append([i])
+    return tuple(tuple(g) for g in groups)
+
+
+def replicate(t: torch.Tensor, devices: Sequence[torch.device],
+              order: Optional[Sequence[int]] = None
+              ) -> Tuple[torch.Tensor, ...]:
+    """``t`` on each of ``devices`` (:class:`Replicate`), the cotangents
+    added in ``order`` (default: the order of ``devices``)."""
+    devices = tuple(norm_device(d) for d in devices)
+    order = range(len(devices)) if order is None else order
+    return Replicate.apply(t, devices,
+                           replicate_groups(devices, t.device, order))
+
+
+@dataclasses.dataclass(frozen=True)
+class NodeRows:
+    """A node-major array on a mesh: ``parts[j]``, the rows of this
+    process's shard ``j`` (global shard ``mesh.first_shard + j``), ``[n_per,
+    ...]`` on that shard's device, one tensor per shard. The port's
+    counterpart of a JAX array placed with ``node_sharding``."""
+
+    parts: Tuple[torch.Tensor, ...]
+
+    def __post_init__(self):
+        parts = tuple(self.parts)
+        object.__setattr__(self, "parts", parts)
+        if not parts:
+            raise ValueError("NodeRows needs at least one shard")
+        shape, dtype = parts[0].shape, parts[0].dtype
+        for p in parts:
+            if p.shape != shape or p.dtype != dtype:
+                got = [(tuple(q.shape), q.dtype) for q in parts]
+                raise ValueError("every shard's rows have one shape and "
+                                 f"dtype, got {got}")
+
+    def __len__(self) -> int:
+        return len(self.parts)
+
+    def __iter__(self) -> Iterator[torch.Tensor]:
+        return iter(self.parts)
+
+    @property
+    def n_per(self) -> int:
+        return self.parts[0].shape[0]
+
+    @property
+    def num_rows(self) -> int:
+        """This process's rows, ``k * n_per``."""
+        return len(self.parts) * self.n_per
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        return tuple(p.device for p in self.parts)
+
+    def map(self, fn) -> "NodeRows":
+        """``fn`` applied to each shard's rows (ReLU, a cast)."""
+        return NodeRows(tuple(fn(p) for p in self.parts))
+
+    def check(self, mesh: Mesh) -> None:
+        """Raise unless the rows are this process's shards of ``mesh``,
+        each on its shard's device."""
+        if len(self.parts) != mesh.local_size:
+            raise ValueError(f"{len(self.parts)} shards of rows, the mesh has "
+                             f"{mesh.local_size} in this process")
+        for j, (p, dev) in enumerate(zip(self.parts, mesh.devices)):
+            if p.device != norm_device(dev):
+                raise ValueError(f"shard {mesh.first_shard + j}'s rows lie on "
+                                 f"{p.device}, its shard's device is {dev}")
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The rows in shard order ``[k * n_per, ...]`` on ``device``
+        (default: the first shard's), under autograd."""
+        device = self.parts[0].device if device is None else device
+        return torch.cat([move(p, device) for p in self.parts])
+
+    def numpy(self) -> np.ndarray:
+        """The rows in shard order on the host (no autograd)."""
+        return np.concatenate([p.detach().cpu().numpy() for p in self.parts])
+
+    def as_parameters(self) -> "NodeRows":
+        """One ``nn.Parameter`` per shard (the per-shard embedding)."""
+        return NodeRows(tuple(torch.nn.Parameter(p.detach())
+                              for p in self.parts))
+
+
+def pad_node_array(x, edges):
+    """The leading (node) axis padded with zero rows to ``S * n_per``
+    (``edges``: a halo partition, anything with ``n_per`` and
+    ``num_shards``), as the JAX ``pad_node_array``; numpy or torch."""
+    extra = edges.n_per * edges.num_shards - x.shape[0]
+    if extra <= 0:
+        return x
+    if isinstance(x, torch.Tensor):
+        return torch.cat([x, x.new_zeros((extra, *x.shape[1:]))])
+    x = np.asarray(x)
+    return np.pad(x, ((0, extra),) + ((0, 0),) * (x.ndim - 1))
+
+
+def put_global(host_array, mesh: Mesh) -> NodeRows:
+    """A node-major host array ``[S * n_per, ...]`` (numpy or a CPU
+    tensor) -> this process's shards (:class:`NodeRows`), each shard's
+    rows copied to its device: the JAX package's ``put_global(a,
+    node_sharding(mesh))``, also under that name (:func:`node_sharding`)."""
+    if isinstance(host_array, torch.Tensor):
+        host_array = host_array.detach().cpu().numpy()
+    rows = process_rows(host_array, mesh)
+    n_per = rows.shape[0] // mesh.local_size
+    return NodeRows(tuple(
+        torch.tensor(rows[j * n_per:(j + 1) * n_per], device=dev)
+        for j, dev in enumerate(mesh.devices)))
+
+
+# the JAX package places node-major arrays with put_global(a,
+# node_sharding(mesh)); the port's placement is that one call
+node_sharding = put_global
+
+
+def shard_rows(x: torch.Tensor, mesh: Mesh) -> NodeRows:
+    """This process's rows ``x [k * n_per, ...]`` (one tensor, any
+    device) -> its shards, each moved to its shard's device under
+    autograd: the conversion at the edge of a caller that keeps one
+    tensor (``Trainer``)."""
+    k = mesh.local_size
+    if x.shape[0] % k:
+        raise ValueError(f"{x.shape[0]} rows do not split over {k} shards")
+    n_per = x.shape[0] // k
+    return NodeRows(tuple(move(x[j * n_per:(j + 1) * n_per], dev)
+                          for j, dev in enumerate(mesh.devices)))
+
+
+@dataclasses.dataclass(frozen=True)
+class RowPick:
+    """Given rows of a :class:`NodeRows`, in their given order, onto one
+    device: ``local[j]``, the rows shard ``j`` owns (its row ids, on its
+    device, in the given order; empty where it owns none), ``order`` the
+    permutation of the shards' picks back into the given order (None: it
+    is the identity) and ``device``. Made once by :func:`row_pick`, so a
+    step reads no index from the host. Every shard's pick, an empty one
+    too, stays on the result's autograd path, so every shard's rows get a
+    cotangent (zeros where none was picked), as the transpose of the JAX
+    ``logits[idx]`` gives one to every shard."""
+
+    local: Tuple[torch.Tensor, ...]
+    order: Optional[torch.Tensor]
+    device: torch.device
+    count: int
+
+    def take(self, x: NodeRows) -> torch.Tensor:
+        """``x``'s picked rows ``[count, ...]`` on ``device``, under
+        autograd: each shard's own, gathered there, moved, put in order."""
+        if len(x.parts) != len(self.local):
+            raise ValueError(f"a pick over {len(self.local)} shards, rows of "
+                             f"{len(x.parts)}")
+        picked = [move(p.index_select(0, idx), self.device)
+                  for p, idx in zip(x.parts, self.local)]
+        out = torch.cat(picked) if len(picked) > 1 else picked[0]
+        return out if self.order is None else out.index_select(0, self.order)
+
+
+def row_pick(rows, n_per: int, devices: Sequence[torch.device],
+             device=None) -> RowPick:
+    """The :class:`RowPick` of ``rows`` (ids into this process's rows
+    ``[0, k * n_per)``, host ints) over shards of ``n_per`` rows on
+    ``devices``, onto ``device`` (default: the first shard's)."""
+    rows = np.asarray(rows, np.int64).reshape(-1)
+    k = len(devices)
+    if rows.size and (rows.min() < 0 or rows.max() >= k * n_per):
+        raise ValueError(f"rows outside [0, {k * n_per})")
+    owner = rows // n_per
+    local, where = [], []
+    for j, dev in enumerate(devices):
+        mine = np.flatnonzero(owner == j)
+        where.append(mine)
+        local.append(torch.as_tensor(rows[mine] - j * n_per).to(
+            norm_device(dev)))
+    pos = np.concatenate(where) if where else np.zeros(0, np.int64)
+    order = None if np.array_equal(pos, np.arange(rows.size)) else \
+        torch.as_tensor(np.argsort(pos, kind="stable"))
+    device = norm_device(devices[0] if device is None else device)
+    return RowPick(tuple(local), None if order is None else order.to(device),
+                   device, int(rows.size))
 
 
 def host_barrier(mesh: Mesh) -> None:

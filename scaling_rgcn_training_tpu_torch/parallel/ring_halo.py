@@ -17,6 +17,10 @@ block ``p`` prepared for it (its own block included), as
   PyTorch's own copies (``Tensor.to``, a peer copy between cards, and one
   ``torch.stack`` per receiver): the counterpart of ``lax.all_to_all``.
 
+Both count the bytes they move between two cards of this process in
+``parallel/mesh.py`` ``CROSS_CARD`` (#6: the blocks a receiver pulls from
+another card).
+
 :class:`HaloExchange` makes either exchange differentiable: the exchange
 is its own transpose (exchanging twice restores the layout), so its
 gradient is the exchange of the cotangents, as in the JAX package. On the
@@ -58,7 +62,8 @@ from scaling_rgcn_training_tpu_torch.ops.cuda_build import LAUNCHES
 from scaling_rgcn_training_tpu_torch.ops.segment_kernels import (
     sorted_segment_sum)
 from scaling_rgcn_training_tpu_torch.parallel.ipc import peer_set
-from scaling_rgcn_training_tpu_torch.parallel.mesh import Mesh, all_to_all_rows
+from scaling_rgcn_training_tpu_torch.parallel.mesh import (
+    CROSS_CARD, Mesh, all_to_all_rows, copy_to)
 
 # shards the kernels' pointer tables hold (csrc/span_rows.cuh kMaxShards)
 MAX_SHARDS = 64
@@ -202,7 +207,7 @@ def halo_exchange_library(sends: Sequence[torch.Tensor],
     _check(sends, mesh)
     if _across(mesh):
         return exchange_across(sends, mesh)
-    return [torch.stack([send[q].to(sends[q].device) for send in sends])
+    return [torch.stack([copy_to(send[q], sends[q].device) for send in sends])
             for q in range(len(sends))]
 
 
@@ -243,6 +248,9 @@ def halo_exchange(sends: Sequence[torch.Tensor],
                                 first + j, block_bytes, stream.cuda_stream)
             cuda_build.check_launch(lib, err, "halo_exchange")
             release_sources(stream, sources)
+        # the blocks it pulled from another card of this process
+        CROSS_CARD["bytes"] += block_bytes * sum(
+            t.device != dev for t in sends)
     if peers is not None:
         peers.release()
     LAUNCHES["halo_exchange"] += 1

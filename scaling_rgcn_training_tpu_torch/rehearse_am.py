@@ -42,6 +42,7 @@ kernel's launches over the run).
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -126,7 +127,10 @@ def train(emb, layers: Sequence, conv: Callable, rows, targets,
           on_step: Optional[Callable[[int], None]] = None) -> dict:
     """``(1 + calls) * inner`` train steps of ``emb -> conv(., layers[0])
     -> ReLU -> conv(., layers[1]) -> BCE on rows -> Adam(LR,
-    weight_decay)``, the parameters updated in place; on one card the
+    weight_decay)``, the parameters updated in place (``emb`` a Parameter
+    and ``rows`` its labelled rows, or ``emb`` node-sharded,
+    ``parallel/mesh.py`` ``NodeRows`` of Parameters, and ``rows`` their
+    ``RowPick``); on one card the
     step is captured as a CUDA graph and replayed
     (``train/step_graph.py``: the first call holds the warm-up and the
     capture, as the JAX script's first call holds its compile). The first
@@ -135,8 +139,9 @@ def train(emb, layers: Sequence, conv: Callable, rows, targets,
     ``host_ms`` is the ms its steps took to issue, before that
     synchronisation. Returns the
     loss of every step (before its update), each step's launches of every
-    wrapper (``cuda_build.LAUNCHES``), the peak device memory (MiB; None
-    on the CPU), the peak the allocator reserved (``reserved_mib``: the
+    wrapper (``cuda_build.LAUNCHES``), the peak device memory (MiB, the
+    largest card's, and ``peak_mib_per_card`` by card index; None on the
+    CPU), the peak the allocator reserved (``reserved_mib``: the
     graph's private pool included) and the route that ran (``step``).
     ``on_step(i)`` runs after step ``i`` (``profile_step.py``'s profiler
     steps)."""
@@ -148,28 +153,40 @@ def train(emb, layers: Sequence, conv: Callable, rows, targets,
     from scaling_rgcn_training_tpu_torch.train.step_graph import (
         CudaStepGraph, StepGraph, step_route)
 
-    dev = emb.device
-    params = [emb, *(p for layer in layers for p in layer.parameters())]
+    from scaling_rgcn_training_tpu_torch.parallel.mesh import NodeRows
+
+    sharded = isinstance(emb, NodeRows)
+    devices = emb.devices if sharded else (emb.device,)
+    dev = devices[0]
+    params = [*(emb.parts if sharded else (emb,)),
+              *(p for layer in layers for p in layer.parameters())]
     opt = make_optimizer(params, LR, weight_decay=weight_decay)
+    relu = (lambda z: z.map(torch.relu)) if sharded else torch.relu
+    take = rows.take if sharded else (lambda t: t.index_select(0, rows))
 
     def step():
         opt.zero_grad(set_to_none=True)
-        z = torch.relu(conv(emb, layers[0]))
-        loss = bce_loss(conv(z, layers[1]).index_select(0, rows), targets)
+        z = relu(conv(emb, layers[0]))
+        loss = bce_loss(take(conv(z, layers[1])), targets)
         loss.backward()
         opt.step()
         return (loss,)
 
-    route = step_route([dev])
+    route = step_route(devices)
+    cards = sorted({d for d in devices if d.type == "cuda"}, key=str)
     launches, call_ms, host_ms = [], [], []
     first_call_s = None
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
+    # an earlier run's optimizer can sit in a reference cycle until the
+    # cycle collector runs (bench_scaling.measure): not in this run's peaks
+    gc.collect()
+    for card in cards:
+        torch.cuda.reset_peak_memory_stats(card)
     with StepGraph(step, (1 + calls) * inner, 1, dev,
                    CudaStepGraph(dev) if route == "graph" else None,
                    params=params) as loop:
         for call in range(1 + calls):
-            sync(dev)
+            for card in cards:
+                sync(card)
             t0 = time.perf_counter()
             for _ in range(inner):
                 before = dict(LAUNCHES)
@@ -178,7 +195,8 @@ def train(emb, layers: Sequence, conv: Callable, rows, targets,
                 if on_step is not None:
                     on_step(len(launches) - 1)
             issued = time.perf_counter() - t0
-            sync(dev)
+            for card in cards:
+                sync(card)
             elapsed = time.perf_counter() - t0
             if call == 0:
                 first_call_s = elapsed
@@ -186,11 +204,14 @@ def train(emb, layers: Sequence, conv: Callable, rows, targets,
                 call_ms.append(elapsed * 1e3)
                 host_ms.append(issued * 1e3)
         losses = [row[0] for row in loop.rows(0, loop.done)]
-    cuda = dev.type == "cuda"
-    peak = torch.cuda.max_memory_allocated(dev) / 2**20 if cuda else None
-    reserved = torch.cuda.max_memory_reserved(dev) / 2**20 if cuda else None
+    peaks = {str(c.index): torch.cuda.max_memory_allocated(c) / 2**20
+             for c in cards}
+    reserved = max((torch.cuda.max_memory_reserved(c) / 2**20
+                    for c in cards), default=None)
     return {"losses": losses, "launches": launches, "call_ms": call_ms,
-            "host_ms": host_ms, "first_call_s": first_call_s, "peak_mib": peak,
+            "host_ms": host_ms, "first_call_s": first_call_s,
+            "peak_mib": max(peaks.values(), default=None),
+            "peak_mib_per_card": peaks or None,
             "reserved_mib": reserved, "step": route}
 
 

@@ -25,7 +25,11 @@ shape of ``rehearse_am.py`` (N 1,600,000, E 12,000,000, 133 relations ->
    shape (default 1.0, the full shape: the JAX script's 0.5 was the
    ceiling of its CPU emulation, not of the program), the halo partition
    over 8 virtual shards of the card (``parallel/mesh.py`` ``make_mesh``,
-   as ``chip_smoke.py`` phase 8): a N(0, 1) embedding of the padded rows,
+   as ``chip_smoke.py`` phase 8), or with ``--cards [C]`` the JAX
+   script's ``make_mesh(8)`` over C cards (every visible card without a
+   value), 8 / C shards a card: a N(0, 1) embedding of the padded rows
+   node-sharded (``node_sharding``: one Parameter a shard on its card,
+   Adam's moments with it),
    two ``init_rgcn_layer`` layers, Adam 0.01 with no L2, labels on rows
    ``0 .. 8191`` (class ``i % 11``), ``halo_rgcn_conv`` twice, edge streams
    in bfloat16, ``STEPS`` steps (on the card after 2 eager steps a
@@ -45,8 +49,9 @@ Knobs: ``AM_NODES``, ``AM_EDGES``, ``AM_RELS``, ``AM_DIM``, ``AM_HIDDEN``
 ``AM_DIST_PLAN_CACHE`` (default: a temporary directory, removed at the
 end) and ``AM_DIST_OUT`` (a path: the record is also written there;
 unset, no file is written). Prints one JSON record, the script's keys
-and, in the executed step's, the card, the exchange, ms per step (median
-of the steps after the first), peak device memory and peak host RSS.
+and, in the executed step's, the card, the cards, the exchange, ms per
+step (median of the steps after the first), peak device memory (the
+largest card's, and each card's) and peak host RSS.
 """
 
 from __future__ import annotations
@@ -222,21 +227,49 @@ def step_labels(n: int, device):
     return rows, y
 
 
-def run_loop(params, conv, device, steps: int) -> dict:
-    """``steps`` steps of the step's loop from copies of ``params`` on
-    ``device`` (``rehearse_am.train`` with one step a call, no L2): the
+def shard_devices(device, cards: Optional[int] = None) -> tuple:
+    """The ``S`` shards' devices: ``S`` virtual shards of ``device``
+    (``cards`` None), or the JAX script's ``make_mesh(S)`` over the first
+    ``cards`` cards, ``S / cards`` a card (shard ``s`` on card ``s // (S /
+    cards)``; 8 over 4 gives 2 a card). Raises when the cards are missing
+    or do not divide ``S``."""
+    import torch
+
+    if not cards:
+        return (device,) * S
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards > have or S % cards:
+        raise RuntimeError(f"--cards {cards}: {S} shards over {cards} of "
+                           f"{have} cards (the cards must divide {S})")
+    return tuple(torch.device("cuda", s // (S // cards)) for s in range(S))
+
+
+def run_loop(params, conv, device, steps: int, mesh=None) -> dict:
+    """``steps`` steps of the step's loop from copies of ``params``
+    (``rehearse_am.train`` with one step a call, no L2): on ``device``, or
+    with a ``mesh`` the embedding node-sharded over it (one Parameter a
+    shard, ``node_sharding``), the layers and the labels on its first
+    device and each shard's labelled rows picked where they lie. The
     losses, the first step's seconds, ms per step (median of the steps
-    after the first), peak device memory and each step's launches."""
+    after the first), peak device memory (and each card's) and each
+    step's launches."""
     import torch
 
     from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import RGCNLayer
+    from scaling_rgcn_training_tpu_torch.parallel.mesh import (
+        node_sharding, row_pick)
 
     emb, l1, l2 = params
-    emb = torch.nn.Parameter(emb.clone().to(device))
-    layers = [RGCNLayer(*[p.detach().clone().to(device)
+    home = device if mesh is None else mesh.first
+    layers = [RGCNLayer(*[p.detach().clone().to(home)
                           for p in (l.weight, l.root, l.bias)])
               for l in (l1, l2)]
-    rows, y = step_labels(emb.shape[0], device)
+    rows, y = step_labels(emb.shape[0], home)
+    if mesh is None:
+        emb = torch.nn.Parameter(emb.clone().to(device))
+    else:
+        emb = node_sharding(emb, mesh).as_parameters()
+        rows = row_pick(rows.cpu().numpy(), emb.n_per, mesh.devices)
     res = rehearse_am.train(emb, layers, conv, rows, y, 0.0, 1, steps - 1)
     res["first_step_s"] = res.pop("first_call_s")
     res["ms_per_step"] = statistics.median(res["call_ms"]) \
@@ -264,9 +297,12 @@ def unpartitioned_conv(src, dst, typ, n_pad: int, slots: int, device,
 
 
 def executed_step(src, dst, typ, k: Dict[str, object], device, steps: int,
-                  compute_dtype, scale: float) -> dict:
+                  compute_dtype, scale: float, cards: Optional[int] = None,
+                  host=None) -> dict:
     """The executed step's record: the partition of ``(src, dst, typ)``
-    over ``S`` virtual shards of ``device``, ``steps`` steps."""
+    (``host``: that partition, already built) over ``S`` shards
+    (:func:`shard_devices`: virtual shards of ``device``, or ``S / cards``
+    on each of ``cards`` cards), ``steps`` steps."""
     import torch
 
     from scaling_rgcn_training_tpu_torch.parallel.halo import (
@@ -274,15 +310,18 @@ def executed_step(src, dst, typ, k: Dict[str, object], device, steps: int,
     from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh
 
     n, slots = int(k["nodes"] * scale), 2 * k["rels"] + 1
-    mesh = make_mesh(devices=(device,) * S)
+    mesh = make_mesh(devices=shard_devices(device, cards))
     t0 = time.perf_counter()
-    hedges = device_put_halo_edges(partition(src, dst, typ, n, slots), mesh)
+    if host is None:
+        host = partition(src, dst, typ, n, slots)
+    hedges = device_put_halo_edges(host, mesh)
     plan_s = time.perf_counter() - t0
     params = make_params(padded_num_nodes(hedges), k, slots)
     res = run_loop(params, halo_conv(hedges, mesh, compute_dtype), device,
-                   steps)
+                   steps, mesh)
     return {
-        "devices": S, "hardware": device.type,
+        "devices": S, "cards": len(set(mesh.devices)),
+        "hardware": device.type,
         "card": rehearse_am.card_name() if device.type == "cuda" else None,
         "nodes": n, "edges": int(src.shape[0]), "scale_of_am": scale,
         "exchange": exchange_name(),
@@ -292,6 +331,7 @@ def executed_step(src, dst, typ, k: Dict[str, object], device, steps: int,
         "step": res["step"], "losses": res["losses"],
         "loss_finite": bool(np.isfinite(res["losses"]).all()),
         "peak_device_memory_mib": res["peak_mib"],
+        "peak_mib_per_card": res["peak_mib_per_card"],
         "peak_host_rss_gib": resource.getrusage(
             resource.RUSAGE_SELF).ru_maxrss * 1024 / 2**30,
         "launches": {n_: sum(st[n_] for st in res["launches"])
@@ -301,6 +341,10 @@ def executed_step(src, dst, typ, k: Dict[str, object], device, steps: int,
 def main(argv: Optional[List[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--cards", type=int, nargs="?", const=0, default=None,
+                    help="the executed step's S shards over this many "
+                    "cards, S / cards a card (no value: every visible "
+                    "card); default: S virtual shards of one")
     args = ap.parse_args(argv)
     import torch
 
@@ -332,8 +376,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
         n_s, e_s = int(n * scale), int(e * scale)
         src_s, dst_s = gen(rng, "uniform", n, e)
         src_s, dst_s = src_s[:e_s] % n_s, dst_s[:e_s] % n_s
+        cards = args.cards
+        if cards == 0:
+            cards = torch.cuda.device_count()
         executed = executed_step(src_s, dst_s, typ[:e_s], k, device, STEPS,
-                                 torch.bfloat16, scale)
+                                 torch.bfloat16, scale, cards)
         log(f"executed step ({executed['exchange']}): first "
             f"{executed['first_step_s']:.1f}s, {executed['ms_per_step']} "
             f"ms/step, loss finite {executed['loss_finite']}, peak "

@@ -24,7 +24,10 @@ With ``devices`` > 1 (or an explicit ``mesh``) the graph's edges are
 partitioned over a mesh (``partition``: ``"halo"`` or ``"edge"``,
 ``parallel/``), with an optional locality ``reorder`` of the nodes for the
 halo partition; parameters and node-major activations stay on the mesh's
-first device and ``rgcn_conv`` dispatches on the edges' type. The halo
+first device and ``rgcn_conv`` dispatches on the edges' type (the halo
+conv splits the rows into its node-sharded layout, ``parallel/mesh.py``
+``NodeRows``, and gathers its result back: the conversion happens at the
+conv's edges, the Trainer's own tensors keep one tensor each). The halo
 partition pads the node table to ``S * n_per`` rows; embeddings (``[N, d]``,
 or ``[K, N, d]`` for the attention head) enter the model through
 :meth:`Trainer._pad_embedding` and leave it through

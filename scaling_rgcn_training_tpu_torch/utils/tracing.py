@@ -17,7 +17,9 @@ Counterpart of the JAX package's ``utils/tracing.py``:
   (``measure_overlap.py``); ``kernels_inside(events, window, compute)``:
   the same count by kernel names and timestamps alone, for a replayed
   CUDA graph, whose kernels run on the graph's own streams
-  (``profile_step.py --trace``).
+  (``profile_step.py --trace``); ``peer_copy_bytes(events)``: the bytes
+  copied card to card (``python -m ...utils.tracing DIR --steps N`` prints
+  them per step for each trace under a directory).
 """
 
 from __future__ import annotations
@@ -123,9 +125,9 @@ def gpu_events(trace_path: str) -> List[Dict[str, Any]]:
     """The card's kernels, copies and fills in a Chrome trace that
     :func:`trace` wrote, in start order: ``name``, ``cat`` (``kernel``,
     ``gpu_memcpy``, ``gpu_memset``), ``device``, ``stream``, ``start``,
-    ``end`` and ``launch`` (microseconds; ``launch``: when the host's
+    ``end``, ``launch`` (microseconds; ``launch``: when the host's
     runtime or driver call that queued it began, None where the trace
-    links none)."""
+    links none) and ``bytes`` (a copy's or fill's, else 0)."""
     with open(trace_path) as f:
         doc = json.load(f)
     events = doc["traceEvents"] if isinstance(doc, dict) else doc
@@ -145,7 +147,8 @@ def gpu_events(trace_path: str) -> List[Dict[str, Any]]:
                     "device": int(args.get("device", e.get("pid", 0))),
                     "stream": int(args.get("stream", e.get("tid", 0))),
                     "start": start, "end": start + float(e.get("dur", 0.0)),
-                    "launch": launched.get(args.get("correlation"))})
+                    "launch": launched.get(args.get("correlation")),
+                    "bytes": int(args.get("bytes", 0))})
     return sorted(out, key=lambda e: e["start"])
 
 
@@ -266,3 +269,38 @@ def kernels_inside(events: Sequence[Dict[str, Any]],
             "busy_ms": sum(hi - lo for lo, hi in _union(
                 [(e["start"], e["end"]) for e in events])) / 1e3,
             "streams": len({(e["device"], e["stream"]) for e in events})}
+
+
+def peer_copy_bytes(events: Sequence[Dict[str, Any]]) -> int:
+    """The bytes of the copies from one card to another (the profiler's
+    ``Memcpy PtoP``) among :func:`gpu_events`: what PyTorch's copies move
+    between cards. A kernel's own reads of a peer's memory (#6, #7) are
+    no copy and are not in it."""
+    return sum(e["bytes"] for e in events
+               if e["cat"] == "gpu_memcpy" and "PtoP" in e["name"])
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    """``python -m scaling_rgcn_training_tpu_torch.utils.tracing DIR
+    --steps N``: each Chrome trace under ``DIR`` (recursively; e.g.
+    ``bench_scaling --trace DIR``'s ``k<count>`` folders, of this tree or
+    another) with its peer copies' MB per step over ``N`` traced steps,
+    one JSON line."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=main.__doc__.split("\n")[0])
+    ap.add_argument("dir")
+    ap.add_argument("--steps", type=int, default=1)
+    args = ap.parse_args(argv)
+    out = {}
+    for root, _, files in sorted(os.walk(args.dir)):
+        for name in sorted(files):
+            if name.startswith("trace_") and name.endswith(".json"):
+                path = os.path.join(root, name)
+                out[os.path.relpath(path, args.dir)] = peer_copy_bytes(
+                    gpu_events(path)) / 1e6 / args.steps
+    print(json.dumps({"peer_copy_mb_per_step": out}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

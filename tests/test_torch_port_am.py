@@ -297,7 +297,7 @@ def test_executed_step_matches_unpartitioned_and_jax(
     mesh = make_mesh(devices=("cpu",) * rd.S)
     he = device_put_halo_edges(host, mesh)
     res = rd.run_loop(_params(*params),
-                      rd.halo_conv(he, mesh, None), CPU, STEPS)
+                      rd.halo_conv(he, mesh, None), CPU, STEPS, mesh)
     np.testing.assert_allclose(res["losses"], unpartitioned, rtol=1e-4)
     atol = 1e-5 * max(abs(v) for v in jax_halo_losses)
     np.testing.assert_allclose(res["losses"], jax_halo_losses, rtol=0,

@@ -124,6 +124,9 @@ def test_shard_losses_match_one_shard(small, monkeypatch, capsys, exchange):
         assert rec["hardware"] == "cpu"
         assert rec["measures_hardware_scaling"] is False
         assert rec["cards"] == 0 and rec["peak_mib"] is None
+        # the CPU has no cards: nothing is copied between two of them
+        assert rec["peak_mib_per_card"] is None
+        assert rec["cross_card_mb_per_step"] == 0
         assert rec["exchange"] == {None: "library", "1": "#6",
                                    "fused": "#7"}[exchange]
         assert len(rec["losses"]) == steps

@@ -27,6 +27,7 @@ from scaling_rgcn_training_tpu_torch.ops import span_kernels as sk
 from scaling_rgcn_training_tpu_torch.ops.segment_kernels import (
     segment_rowptr, sorted_segment_sum, sorted_segment_sum_plain,
     sorted_segment_sum_rows)
+from scaling_rgcn_training_tpu_torch.parallel.mesh import shard_rows
 
 
 def _graph(rng, n, e, slots):
@@ -607,8 +608,9 @@ def test_cuda_fused_halo_matches_plain(s_n, d_in, d_out, dtype, offset,
             monkeypatch.setenv(hp.EXCHANGE_ENV, mode)
         layer.zero_grad()
         xg = x.clone().requires_grad_(True)
-        out = hp.halo_rgcn_conv(xg, he, layer, mesh,
-                                compute_dtype=None if dtype == "float32" else dt)
+        out = hp.halo_rgcn_conv(
+            shard_rows(xg, mesh), he, layer, mesh,
+            compute_dtype=None if dtype == "float32" else dt).gather()
         (out * g).sum().backward()
         torch.cuda.synchronize()
         results.append([out.detach(), xg.grad, layer.weight.grad.clone()])
@@ -764,7 +766,8 @@ def _overlap_run(mesh, he, x, w, gout, backend=None):
     from scaling_rgcn_training_tpu_torch.parallel import halo as hp
 
     xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
-    out = hp.halo_aggregate(xg, wg, he, mesh, backend=backend)
+    out = hp.halo_aggregate(shard_rows(xg, mesh), wg, he, mesh,
+                            backend=backend).gather()
     grads = torch.autograd.grad(out, (xg, wg), gout)
     torch.cuda.synchronize()
     return (out.detach(), *grads)
@@ -872,7 +875,7 @@ def test_cuda_measure_overlap_windows(exchange, tmp_path, monkeypatch):
             assert win["window_ms"] > 0
             if arm == "blocked":
                 assert win["inside"] == 0, (way, win)
-    params = mh.make_params(s["x"].shape[0], (64, 16, 8), s["slots"])
+    params = mh.make_params(s["x"].num_rows, (64, 16, 8), s["slots"])
     rows, y = mh.labels(s["nodes"], 8, 512)
     step = mo.make_step(s["mesh"], s["plan"], params, rows, y)
     res = mo.compare_step(step, s["mesh"].devices, exchange, steps=2,
@@ -1021,7 +1024,7 @@ def test_cuda_rehearse_am_dist_step_matches_unpartitioned(exchange,
     ref = rd.run_loop(params, rd.unpartitioned_conv(
         src, dst, typ, padded_num_nodes(he), slots, dev, None), dev, 4)
     monkeypatch.setenv(EXCHANGE_ENV, exchange)
-    res = rd.run_loop(params, rd.halo_conv(he, mesh, None), dev, 4)
+    res = rd.run_loop(params, rd.halo_conv(he, mesh, None), dev, 4, mesh)
     np.testing.assert_allclose(res["losses"], ref["losses"], rtol=1e-4,
                                atol=0)
     kernel = "halo_exchange" if exchange == "1" else "fused_halo_aggregate"
@@ -1245,3 +1248,138 @@ def test_cuda_step_graph_stream_is_never_the_exchange_stream():
         g = CudaStepGraph("cuda:0")
         assert g.stream != ex
         g.close()
+
+
+# -- node-major rows sharded over the cards (parallel/mesh.py NodeRows) -----
+
+def _node_shard_setup(cards: int):
+    """A mesh of ``cards`` real cards, a sparse graph's halo partition
+    over it (E = N, so no per-edge tensor of a shard reaches N rows),
+    the node-sharded embedding (one Parameter a card), two layers on the
+    first card, a pick of labelled rows and a step function."""
+    from scaling_rgcn_training_tpu_torch.models.heads import (
+        node_rows_from_numpy)
+    from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import init_rgcn_layer
+    from scaling_rgcn_training_tpu_torch.parallel import halo as hp
+    from scaling_rgcn_training_tpu_torch.parallel.mesh import (
+        make_mesh, row_pick)
+    from scaling_rgcn_training_tpu_torch.train.optim import make_optimizer
+
+    mesh = make_mesh(cards)
+    rng = np.random.default_rng(19)
+    n, slots, d = 20_000, 9, 64
+    src, dst = (rng.integers(0, n, n).astype(np.int32) for _ in range(2))
+    typ = rng.integers(0, slots - 1, n).astype(np.int32)
+    he = hp.device_put_halo_edges(hp.halo_partition_edges(
+        src, dst, typ, n, slots, cards), mesh)
+    emb = node_rows_from_numpy(rng.standard_normal(
+        (hp.padded_num_nodes(he), d)).astype(np.float32), mesh)
+    gen = torch.Generator().manual_seed(1)
+    layers = [init_rgcn_layer(gen, slots, d, 16).to(mesh.first),
+              init_rgcn_layer(gen, slots, 16, 8).to(mesh.first)]
+    idx = rng.permutation(n)[:512]
+    pick = row_pick(idx, he.n_per, mesh.devices)
+    y = torch.eye(8)[torch.arange(512) % 8].to(mesh.first)
+    opt = make_optimizer([*emb.parts, *(p for l in layers
+                                        for p in l.parameters())], 0.01)
+
+    def step(keep=None):
+        opt.zero_grad(set_to_none=True)
+        z = hp.halo_rgcn_conv(emb, he, layers[0], mesh).map(torch.relu)
+        out = hp.halo_rgcn_conv(z, he, layers[1], mesh)
+        if keep is not None:
+            keep.extend([z, out])
+        loss = torch.nn.functional.binary_cross_entropy_with_logits(
+            pick.take(out), y)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return mesh, he, emb, opt, step
+
+
+@pytest.mark.cuda
+def test_cuda_node_rows_lie_on_their_cards():
+    """Two cards: each shard's embedding rows, both of its Adam moments
+    and both layers' outputs lie on the shard's own card."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    mesh, he, emb, opt, step = _node_shard_setup(2)
+    keep = []
+    step(keep)
+    torch.cuda.synchronize()
+    for j, dev in enumerate(mesh.devices):
+        assert emb.parts[j].device == dev
+        for moment in ("exp_avg", "exp_avg_sq"):
+            assert opt.state[emb.parts[j]][moment].device == dev
+        for rows in keep:
+            assert rows.parts[j].device == dev
+            assert rows.parts[j].shape[0] == he.n_per
+
+
+@pytest.mark.cuda
+def test_cuda_no_node_table_on_card0():
+    """Two cards: no tensor of ``N * d`` elements (the whole node table at
+    the embedding's width) is made on card 0 by a step, forward, backward
+    or Adam (every operator's outputs seen through a dispatch mode, which
+    the autograd threads of both cards inherit, and every allocation the
+    caching allocator records on card 0 during the step)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    mesh, he, emb, opt, step = _node_shard_setup(2)
+    step()                                   # Adam's state, the builds
+    torch.cuda.synchronize()
+    whole = emb.num_rows * emb.parts[0].shape[1]
+    card0 = torch.device("cuda", 0)
+
+    class Outputs(TorchDispatchMode):
+        largest = 0
+        seen = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    Outputs.seen += 1
+                    if t.device == card0:
+                        Outputs.largest = max(Outputs.largest, t.numel())
+            return out
+
+    torch.cuda.memory._record_memory_history(max_entries=1_000_000)
+    try:
+        with Outputs():
+            step()
+        torch.cuda.synchronize()
+        trace = torch.cuda.memory._snapshot()["device_traces"][0]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    assert Outputs.seen > 100
+    assert 0 < Outputs.largest < whole
+    allocs = [e["size"] for e in trace if e["action"] == "alloc"]
+    assert allocs and max(allocs) < whole * 4
+
+
+@pytest.mark.cuda
+def test_cuda_two_cards_losses_match_one_card(monkeypatch):
+    """``bench_scaling`` at k = 1 (one card) and k = 2 (two cards, one
+    shard each): the losses within rtol 1e-5 (atol 1e-6, phase 15's
+    criterion) of one card's, card 0's peak within 25% of card 1's, and
+    the card-to-card MB a step counted."""
+    from scaling_rgcn_training_tpu_torch import bench_scaling as bsc
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    for name, value in (("BENCH_NODES", "20000"), ("BENCH_EDGES", "300000"),
+                        ("BENCH_INNER", "2"), ("BENCH_CALLS", "2")):
+        monkeypatch.setenv(name, value)
+    monkeypatch.delenv("RGCN_HALO_PALLAS_A2A", raising=False)
+    recs = bsc.main(["--max-shards", "2"])
+    assert [(r["devices"], r["cards"]) for r in recs] == [(1, 1), (2, 2)]
+    np.testing.assert_allclose(recs[1]["losses"], recs[0]["losses"],
+                               rtol=1e-5, atol=1e-6)
+    peaks = recs[1]["peak_mib_per_card"]
+    assert abs(peaks["0"] - peaks["1"]) <= 0.25 * peaks["1"]
+    assert recs[0]["cross_card_mb_per_step"] == 0
+    assert recs[1]["cross_card_mb_per_step"] > 0

@@ -30,7 +30,7 @@ from scaling_rgcn_training_tpu_torch.ops.cuda_build import LAUNCHES
 from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import RGCNLayer
 from scaling_rgcn_training_tpu_torch.parallel import fused_halo as fh
 from scaling_rgcn_training_tpu_torch.parallel import halo as thalo
-from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh
+from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh, shard_rows
 
 
 def _partition(s_n, seed=0, slots=7, chunk=None):
@@ -218,8 +218,8 @@ def test_fused_halo_conv_matches_jax_fused_kernel(dtype, monkeypatch):
     xp = torch.zeros(thalo.padded_num_nodes(he), D)
     xp[:N] = torch.tensor(x)
     xp.requires_grad_(True)
-    out = thalo.halo_rgcn_conv(xp, he, layer, tmesh,
-                               compute_dtype=cd and torch.bfloat16)
+    out = thalo.halo_rgcn_conv(shard_rows(xp, tmesh), he, layer, tmesh,
+                               compute_dtype=cd and torch.bfloat16).gather()
     (out[:N] * torch.tensor(gout)).sum().backward()
     got = [out, xp.grad, layer.weight.grad, layer.root.grad, layer.bias.grad]
     frac = 1e-5 if dtype == "float32" else 2e-2
@@ -255,7 +255,8 @@ def test_fused_halo_backward_drops_each_halo_buffer():
                 mp.setenv(thalo.EXCHANGE_ENV, mode)
             x = x0.clone().requires_grad_(True)
             layer = RGCNLayer(w0.clone(), b, torch.zeros(d_out))
-            out = thalo.halo_rgcn_conv(x, he, layer, tmesh)
+            out = thalo.halo_rgcn_conv(shard_rows(x, tmesh), he, layer,
+                                       tmesh).gather()
             out.square().sum().backward(retain_graph=True)
             grads[mode] = (x.grad.clone(), layer.weight.grad.clone())
             if mode == "fused":

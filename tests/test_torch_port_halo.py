@@ -23,7 +23,7 @@ from scaling_rgcn_training_tpu_torch.ops.cuda_build import LAUNCHES
 from scaling_rgcn_training_tpu_torch.parallel import fused_halo as tfused
 from scaling_rgcn_training_tpu_torch.parallel import halo as thalo
 from scaling_rgcn_training_tpu_torch.parallel import ring_halo as tring
-from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh
+from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh, shard_rows
 
 S = 4
 
@@ -157,8 +157,9 @@ def test_halo_conv_matches_jax(conv_refs, tmesh, mode, backend, dtype,
     xp[:n] = torch.tensor(x)
     xp.requires_grad_(True)
     before = dict(LAUNCHES)
-    out = thalo.halo_rgcn_conv(xp, he, layer, tmesh, backend=backend,
-                               compute_dtype=cd and torch.bfloat16)
+    out = thalo.halo_rgcn_conv(shard_rows(xp, tmesh), he, layer, tmesh,
+                               backend=backend,
+                               compute_dtype=cd and torch.bfloat16).gather()
     (out[:n] * torch.tensor(GOUT)).sum().backward()
     assert LAUNCHES == before          # the CPU runs the plain versions
     got = [out, xp.grad, layer.weight.grad, layer.root.grad, layer.bias.grad]
@@ -183,10 +184,11 @@ def test_fused_mode_on_an_uncovered_layer_warns_and_takes_the_library(
     x = torch.randn(thalo.padded_num_nodes(he), 8, generator=gen)
     w = torch.randn(slots, 8, 6, generator=gen)
     monkeypatch.delenv(thalo.EXCHANGE_ENV, raising=False)
-    want = thalo.halo_aggregate(x, w, he, tmesh, backend="gather")
+    x = shard_rows(x, tmesh)
+    want = thalo.halo_aggregate(x, w, he, tmesh, backend="gather").gather()
     monkeypatch.setenv(thalo.EXCHANGE_ENV, "fused")
     with pytest.warns(UserWarning, match="library exchange"):
-        got = thalo.halo_aggregate(x, w, he, tmesh, backend="gather")
+        got = thalo.halo_aggregate(x, w, he, tmesh, backend="gather").gather()
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 

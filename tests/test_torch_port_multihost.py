@@ -367,9 +367,11 @@ def test_put_global_keeps_this_process_rows():
     for p in range(2):
         mesh = tmesh.Mesh((torch.device("cpu"),) * 2, process_index=p,
                           process_count=2)
-        got = tmesh.put_global(a, mesh)
+        got = tmesh.put_global(a, mesh)           # one tensor a shard
+        assert [tuple(t.shape) for t in got] == [(2, 3), (2, 3)]
         np.testing.assert_array_equal(got.numpy(), a[p * 4:(p + 1) * 4])
-        got += 1                                  # a copy, not a view
+        for t in got:
+            t += 1                                # a copy, not a view
     np.testing.assert_array_equal(a, np.arange(24).reshape(8, 3))
     with pytest.raises(ValueError, match="do not split"):
         tmesh.put_global(np.zeros((6, 3)), tmesh.Mesh(

@@ -29,7 +29,7 @@ from scaling_rgcn_training_tpu_torch import measure_overlap as mo
 from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import relational_aggregate
 from scaling_rgcn_training_tpu_torch.parallel import halo as thalo
 from scaling_rgcn_training_tpu_torch.parallel import ring_halo as tring
-from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh
+from scaling_rgcn_training_tpu_torch.parallel.mesh import make_mesh, shard_rows
 from scaling_rgcn_training_tpu_torch.utils import tracing
 
 S = 4
@@ -108,7 +108,8 @@ def _port(he, mesh, dtype, backend):
     gout[:N] = torch.tensor(GOUT)
     cast = (lambda t: t) if dtype == "float32" else \
         (lambda t: t.to(torch.bfloat16))
-    out = thalo.halo_aggregate(cast(x), cast(w), he, mesh, backend=backend)
+    out = thalo.halo_aggregate(shard_rows(cast(x), mesh), cast(w), he, mesh,
+                               backend=backend).gather()
     (out * gout).sum().backward()
     return [t.detach().float() for t in (out, x.grad, w.grad)]
 
@@ -193,8 +194,8 @@ def test_weight_cotangents_in_the_engines_order(shards, dtype, backend):
             for s, sh in enumerate(he.shards)])
 
     res = []
-    for fn in (in_turn, lambda x, w: thalo.halo_aggregate(x, w, he, mesh,
-                                                          backend=backend)):
+    for fn in (in_turn, lambda x, w: thalo.halo_aggregate(
+            shard_rows(x, mesh), w, he, mesh, backend=backend).gather()):
         x, w = x0.clone().requires_grad_(True), w0.clone().requires_grad_(True)
         out = fn(cast(x), cast(w))
         (out * gout).sum().backward()
