@@ -16,6 +16,7 @@ import torch
 
 from scaling_rgcn_training_tpu_torch.graphs.graph import Graph
 from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import build_rel_edges
+from scaling_rgcn_training_tpu_torch.utils.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +53,17 @@ def build_device_graph(graph: Graph, device, mesh=None,
     the relabeling. On a mesh of several processes every process builds
     (or loads) the plan of all ``mesh.size`` shards and places only its
     own. ``plan_cache``: a directory where the edge plans are kept and
-    reused (``utils/plancache.py``)."""
+    reused (``utils/plancache.py``). Runs in the recorder's ``plan`` span
+    (``utils/tracing.py``), the placement on ``device`` in ``plan.place``
+    spans."""
+    with span("plan"):
+        return _build_device_graph(graph, device, mesh, partition, reorder,
+                                   plan_cache)
+
+
+def _build_device_graph(graph: Graph, device, mesh, partition: Optional[str],
+                        reorder: bool, plan_cache: Optional[str]
+                        ) -> DeviceGraph:
     idx = lambda a: None if a is None else torch.as_tensor(
         np.asarray(a), dtype=torch.int64).to(device)
     lab = lambda a: None if a is None else torch.as_tensor(
@@ -73,18 +84,20 @@ def build_device_graph(graph: Graph, device, mesh=None,
             from scaling_rgcn_training_tpu_torch.parallel.spmd import (
                 device_put_sharded_edges, shard_rel_edges)
 
-            edges = device_put_sharded_edges(shard_rel_edges(
+            plan = shard_rel_edges(
                 src, dst, graph.edge_type, graph.num_nodes,
-                graph.num_relation_slots, mesh.size, cache_dir=plan_cache),
-                mesh)
+                graph.num_relation_slots, mesh.size, cache_dir=plan_cache)
+            with span("plan.place"):
+                edges = device_put_sharded_edges(plan, mesh)
         elif partition == "halo":
             from scaling_rgcn_training_tpu_torch.parallel.halo import (
                 device_put_halo_edges, halo_partition_edges)
 
-            edges = device_put_halo_edges(halo_partition_edges(
+            plan = halo_partition_edges(
                 src, dst, graph.edge_type, graph.num_nodes,
-                graph.num_relation_slots, mesh.size, cache_dir=plan_cache),
-                mesh)
+                graph.num_relation_slots, mesh.size, cache_dir=plan_cache)
+            with span("plan.place"):
+                edges = device_put_halo_edges(plan, mesh)
         else:
             raise ValueError(f"unknown partition {partition!r}")
     else:
@@ -92,12 +105,13 @@ def build_device_graph(graph: Graph, device, mesh=None,
                                 graph.edge_type, graph.num_nodes,
                                 graph.num_relation_slots, device=device,
                                 cache_dir=plan_cache)
-    return DeviceGraph(
-        edges=edges,
-        x_train=idx(remap(graph.x_train)), y_train=lab(graph.y_train),
-        x_val=idx(remap(graph.x_val)), y_val=lab(graph.y_val),
-        x_test=idx(remap(graph.x_test)), y_test=lab(graph.y_test),
-        node_perm=node_perm)
+    with span("plan.place"):
+        return DeviceGraph(
+            edges=edges,
+            x_train=idx(remap(graph.x_train)), y_train=lab(graph.y_train),
+            x_val=idx(remap(graph.x_val)), y_val=lab(graph.y_val),
+            x_test=idx(remap(graph.x_test)), y_test=lab(graph.y_test),
+            node_perm=node_perm)
 
 
 def model_num_nodes(dev_graph: DeviceGraph) -> int:

@@ -33,6 +33,7 @@ from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import (
     RelEdges, RGCNLayer, init_rgcn_layer, rgcn_conv, uniform)
 from scaling_rgcn_training_tpu_torch.parallel.mesh import (
     Mesh, NodeRows, node_sharding)
+from scaling_rgcn_training_tpu_torch.utils.tracing import grad_mark, mark
 
 DROPOUT = 0.2
 
@@ -44,12 +45,18 @@ class _Trunk(nn.Module):
               compute_dtype: Optional[torch.dtype], backend: Optional[str],
               aggr: str) -> torch.Tensor:
         """``backend`` and ``aggr`` go to both convs, as the JAX package's
-        ``_trunk`` passes them."""
+        ``_trunk`` passes them. Inside a train step the trunk is marked
+        (``utils/tracing.py``): ``trunk.in`` and ``trunk.out`` around it,
+        and ``trunk.grad`` when the backward reaches its input."""
+        mark("trunk.in")
+        x = grad_mark(x, "trunk.grad")
         x = rgcn_conv(x, edges, self.rgcn1, backend=backend,
                       compute_dtype=compute_dtype, aggr=aggr)
         x = torch.relu(x)
-        return rgcn_conv(x, edges, self.rgcn2, backend=backend,
-                         compute_dtype=compute_dtype, aggr=aggr)
+        x = rgcn_conv(x, edges, self.rgcn2, backend=backend,
+                      compute_dtype=compute_dtype, aggr=aggr)
+        mark("trunk.out")
+        return x
 
 
 class EmbModel(_Trunk):

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels, and count their launches.
 
-Each source ``csrc/<name>.cu`` has a plain C interface and is compiled by
-``nvcc`` for ``sm_90a`` into its own shared library under
+Each source ``csrc/<name>.cu`` of ``SOURCES`` (the model's kernels, and
+``step_marks``, the train step's device stamps) has a plain C interface
+and is compiled by ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/torch_kernels/`` (the file name carries a hash of the source, the
 shared headers ``csrc/*.cuh`` and the flags, so an edited source or header
 is rebuilt), then loaded with ``ctypes``.
@@ -14,6 +15,12 @@ module is imported: the first kernel launch builds what it needs.
 ``LAUNCHES`` counts kernel launches by wrapper name: a wrapper adds one
 where it launches its CUDA kernel, and nowhere else (the plain CPU
 versions add nothing), so a run can show that it went through a kernel.
+The step marks of ``csrc/step_marks.cu`` (``utils/tracing.py`` ``mark``)
+are instrumentation, not the model's work, and are not counted.
+
+Each ``nvcc`` run lies in a ``kernel.build`` span of the recorder
+(``utils/tracing.py``, with the sources it compiles) and adds to its
+counter ``kernel_builds``; each ``ctypes.CDLL`` in a ``kernel.load`` span.
 """
 
 from __future__ import annotations
@@ -26,8 +33,10 @@ import threading
 from pathlib import Path
 from typing import Callable, Dict, Iterable
 
+from scaling_rgcn_training_tpu_torch.utils import tracing
+
 SOURCES = ("span_fwd_tc", "span_bwd_tc", "span_kernels", "segment_kernels",
-           "grouped_kernels", "halo_kernels", "bwd_variants")
+           "grouped_kernels", "halo_kernels", "bwd_variants", "step_marks")
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -89,19 +98,22 @@ def build(names: Iterable[str] = SOURCES, define: str = "") -> Dict[str, Path]:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for n, so in todo.items():
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        procs[n] = (tmp, subprocess.Popen(
-            [nvcc, *_flags(define), "-o", str(tmp), str(_CSRC / f"{n}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     failed = []
-    for n, (tmp, proc) in procs.items():
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed on {n}.cu:\n{out}{err}")
-            continue
-        os.replace(tmp, todo[n])
-        build_logs[f"{n}:{define}" if define else n] = err
+    with tracing.span("kernel.build", sources=sorted(todo), define=define):
+        tracing.count("kernel_builds", len(todo))
+        for n, so in todo.items():
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            procs[n] = (tmp, subprocess.Popen(
+                [nvcc, *_flags(define), "-o", str(tmp),
+                 str(_CSRC / f"{n}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for n, (tmp, proc) in procs.items():
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {n}.cu:\n{out}{err}")
+                continue
+            os.replace(tmp, todo[n])
+            build_logs[f"{n}:{define}" if define else n] = err
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths
@@ -115,7 +127,9 @@ def load(name: str, declare: Callable[[ctypes.CDLL], None],
     with _lock:
         lib = _libs.get((name, define))
         if lib is None:
-            lib = ctypes.CDLL(str(build([name], define)[name]))
+            path = build([name], define)[name]
+            with tracing.span("kernel.load", source=name, define=define):
+                lib = ctypes.CDLL(str(path))
             lib.kernel_error_string.argtypes = [ctypes.c_int]
             lib.kernel_error_string.restype = ctypes.c_char_p
             declare(lib)

@@ -52,6 +52,7 @@ from scaling_rgcn_training_tpu_torch.ops.span_kernels import (
     SpanPlan, check_edges, fused_ok, plan_span, span_backward, span_forward)
 from scaling_rgcn_training_tpu_torch.utils.plancache import get_or_build
 from scaling_rgcn_training_tpu_torch.utils.plantree import to_device
+from scaling_rgcn_training_tpu_torch.utils import tracing
 
 # the [N * slots, d_out] table of prematmul stays below this (the JAX
 # package's default; not measured on the H100 yet)
@@ -152,16 +153,20 @@ def build_rel_edges(edge_src: np.ndarray, edge_dst: np.ndarray,
     ``norm_e = 1 / deg_r(dst_e)`` (in-degree of ``dst_e`` over edges of
     ``e``'s relation) and the edge layouts (:func:`plan_edges`), built on
     the CPU and moved to ``device``. ``cache_dir``: keep and reuse the
-    plan on disk (``utils/plancache.py``)."""
+    plan on disk (``utils/plancache.py``). The recorder
+    (``utils/tracing.py``) gets the norm's ``plan.norm`` span, the
+    placement's ``plan.place`` and the counter ``plan.max_row_edges``
+    (:func:`max_row_edges`), on a cache hit too."""
     src = np.asarray(edge_src, np.int32)
     dst = np.asarray(edge_dst, np.int32)
     typ = np.asarray(edge_type, np.int32)
 
     def build() -> RelEdges:
-        keys = typ.astype(np.int64) * num_nodes + dst.astype(np.int64)
-        _, inv, counts = np.unique(keys, return_inverse=True,
-                                   return_counts=True)
-        norm = (1.0 / counts[inv.reshape(-1)]).astype(np.float32)
+        with tracing.span("plan.norm"):
+            keys = typ.astype(np.int64) * num_nodes + dst.astype(np.int64)
+            _, inv, counts = np.unique(keys, return_inverse=True,
+                                       return_counts=True)
+            norm = (1.0 / counts[inv.reshape(-1)]).astype(np.float32)
         return plan_edges(src, dst, typ, norm, num_nodes, num_slots,
                           span=span)
 
@@ -169,7 +174,18 @@ def build_rel_edges(edge_src: np.ndarray, edge_dst: np.ndarray,
         cache_dir, "reledges", (src, dst, typ),
         (int(num_nodes), int(num_slots), bool(span), span_kernels.DW_CHUNK),
         build, (RelEdges, SpanPlan))
-    return to_device(edges, device)
+    tracing.count("plan.max_row_edges", max_row_edges(edges), add=False)
+    with tracing.span("plan.place"):
+        return to_device(edges, device)
+
+
+def max_row_edges(edges: RelEdges) -> int:
+    """The most edges in one row of the dst (forward) or src (backward)
+    CSR: the longest row a warp of the span kernels' sums walks (#1's and
+    #2's ``span_msg_sum_kernel``), from the plan's row pointers."""
+    return max([int(torch.diff(ptr).max()) for ptr in
+                (edges.dst_rowptr, edges.src_rowptr) if ptr.numel() > 1],
+               default=0)
 
 
 class RGCNLayer(nn.Module):

@@ -48,6 +48,7 @@ import torch
 
 from scaling_rgcn_training_tpu_torch.ops import cuda_build
 from scaling_rgcn_training_tpu_torch.ops.cuda_build import LAUNCHES
+from scaling_rgcn_training_tpu_torch.utils import tracing
 from scaling_rgcn_training_tpu_torch.utils.plantree import to_device
 
 # edges of one relation per dW block (partial sums reduced in order)
@@ -173,15 +174,18 @@ def plan_span(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
               device=None, num_src: Optional[int] = None) -> SpanPlan:
     """Build the three edge layouts from per-edge ``(src, dst, rel, norm)``
     (``dst < num_nodes``, ``src < num_src``, by default ``num_nodes``), on
-    the CPU; with ``device``, moved there."""
+    the CPU; with ``device``, moved there. The two CSR sorts and the
+    relation order run in the recorder's ``plan.sort`` span
+    (``utils/tracing.py``)."""
     num_src = num_nodes if num_src is None else num_src
     src, dst, rel, norm = check_edges(src, dst, rel, norm, num_nodes,
                                       num_slots, num_src)
 
-    f_order, f_rowptr = _csr(dst, rel, num_nodes, num_slots)
-    b_order, b_rowptr = _csr(src, rel, num_src, num_slots)
-    r_order, rel_rank, rel_edge_ptr, rel_chunk_ptr, chunk_lo, chunk_hi = \
-        relation_chunks(src, rel, num_src, num_slots)
+    with tracing.span("plan.sort"):
+        f_order, f_rowptr = _csr(dst, rel, num_nodes, num_slots)
+        b_order, b_rowptr = _csr(src, rel, num_src, num_slots)
+        r_order, rel_rank, rel_edge_ptr, rel_chunk_ptr, chunk_lo, \
+            chunk_hi = relation_chunks(src, rel, num_src, num_slots)
 
     t = lambda a, dtype=torch.int32: torch.as_tensor(
         np.ascontiguousarray(a)).to(dtype)

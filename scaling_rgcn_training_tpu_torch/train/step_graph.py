@@ -23,11 +23,20 @@ function of no arguments whose tensors are all static (the edges or
 Each step's outputs (the loss, and the validation metrics where there are
 any) are written on the device into ``series`` ``[steps, outputs]``, row
 by row through a device cursor, as the scan stacks its outputs: no step
-reads a value back to the host. A replay adds the wrapper launch counts
-the capture saw to ``cuda_build.LAUNCHES``, so ``LAUNCHES`` still counts
-the launches that ran (the capture itself runs nothing and counts
-nothing). A dropout generator is registered with the graph, so its masks
-advance on every replay as they do eagerly. :meth:`StepGraph.close`
+reads a value back to the host. Beside it, ``stamps`` ``[steps,
+MAX_SLOTS]`` (int64) takes the step's device stamps through the same
+cursor (``utils/tracing.py`` ``mark``: ``step.start`` and ``step.end``
+here, the layers' marks inside the step function), captured with the step
+so that every replay stamps its own row; ``marks.names`` names its
+columns. Each step runs in a recorder span (``fit.warmup``,
+``fit.capture`` then ``fit.step`` for a replay, ``fit.step`` for an eager
+step), the wait for the card's queued steps in ``fit.drain`` and the
+graph's teardown in ``fit.close``; ``kinds`` says how each step ran
+(``"warmup"``, ``"replay"``, ``"eager"``). A replay adds the wrapper
+launch counts the capture saw to ``cuda_build.LAUNCHES``, so ``LAUNCHES``
+still counts the launches that ran (the capture itself runs nothing and
+counts nothing). A dropout generator is registered with the graph, so
+its masks advance on every replay as they do eagerly. :meth:`StepGraph.close`
 frees the graph and its private pool.
 
 The route (:func:`step_route`): ``"graph"`` where every tensor of the
@@ -51,6 +60,8 @@ from typing import Callable, Iterable, Iterator, Optional, Sequence
 import torch
 
 from scaling_rgcn_training_tpu_torch.ops.cuda_build import LAUNCHES
+from scaling_rgcn_training_tpu_torch.utils import tracing
+from scaling_rgcn_training_tpu_torch.utils.tracing import mark, span
 
 EAGER_ENV = "RGCN_EAGER_STEP"
 # eager steps before the capture (at least 1: the first builds the
@@ -138,7 +149,8 @@ class StepGraph:
     (:class:`CudaStepGraph`, or a stand-in with its methods). ``params``:
     the tensors whose grads are set to None before the capture (and after
     the last replay, so the private pool can go). ``series``: each step's
-    outputs, on ``device``. A context manager: leaving it closes."""
+    outputs, on ``device``; ``stamps``: each step's marks (``marks``).
+    A context manager: leaving it closes."""
 
     def __init__(self, step: Callable[[], Sequence[torch.Tensor]], steps: int,
                  outputs: int, device, graph=None,
@@ -151,31 +163,45 @@ class StepGraph:
         self.series = torch.zeros((steps, outputs), dtype=torch.float32,
                                   device=device)
         self._cursor = torch.zeros(1, dtype=torch.int64, device=device)
+        self.stamps = torch.zeros((steps, tracing.MAX_SLOTS),
+                                  dtype=torch.int64, device=device)
+        self.marks = tracing.StepMarks(self.stamps, self._cursor)
+        self.kinds: list = []
         self.done = 0
         # the wrapper launches of one captured step
         self.captured: Optional[dict] = None
 
     def _body(self) -> None:
-        values = torch.stack([v.detach().float().reshape(())
-                              for v in self.step()])
-        self.series.index_copy_(0, self._cursor, values[None])
-        self._cursor += 1
+        with self.marks.step():
+            mark("step.start")
+            values = torch.stack([v.detach().float().reshape(())
+                                  for v in self.step()])
+            self.series.index_copy_(0, self._cursor, values[None])
+            mark("step.end")
+            self._cursor += 1
 
     def run(self) -> None:
         """The next step."""
         if self.done >= self.steps:
             raise RuntimeError(f"all {self.steps} steps have run")
         if self.graph is None:
-            self._body()
-        elif self.done < self.warmup:
-            with self.graph.warmup(check=self.done == self.warmup - 1):
+            with span("fit.step"):
                 self._body()
+            self.kinds.append("eager")
+        elif self.done < self.warmup:
+            with span("fit.warmup"), \
+                    self.graph.warmup(check=self.done == self.warmup - 1):
+                self._body()
+            self.kinds.append("warmup")
         else:
             if self.captured is None:
-                self._capture()
-            self.graph.replay()
+                with span("fit.capture"):
+                    self._capture()
+            with span("fit.step"):
+                self.graph.replay()
             for name, n in self.captured.items():
                 LAUNCHES[name] += n
+            self.kinds.append("replay")
         self.done += 1
 
     def _capture(self) -> None:
@@ -193,13 +219,28 @@ class StepGraph:
         """Steps ``lo .. hi - 1``'s outputs on the host (a host read)."""
         return self.series[lo:hi].tolist()
 
+    def drain(self) -> None:
+        """Wait for the card to finish the steps queued so far (in the
+        recorder's ``fit.drain`` span): their own time, kept out of the
+        readback that follows."""
+        if self.series.is_cuda:
+            with span("fit.drain"):
+                torch.cuda.current_stream(self.series.device).synchronize()
+
+    def stamp_rows(self) -> list:
+        """The steps run so far: their stamps in ``marks.names``' slots, on
+        the host (after :meth:`rows`, which waits for the card, a copy
+        that waits for nothing)."""
+        return self.stamps[:self.done, :len(self.marks.names)].tolist()
+
     def close(self) -> None:
         if self.graph is not None:
-            if self.captured is not None:
-                for p in self.params:
-                    p.grad = None
-            self.graph.close()
-            self.graph = None
+            with span("fit.close"):
+                if self.captured is not None:
+                    for p in self.params:
+                        p.grad = None
+                self.graph.close()
+                self.graph = None
 
     def __enter__(self) -> "StepGraph":
         return self

@@ -71,6 +71,8 @@ from scaling_rgcn_training_tpu_torch.train.transfer import EMBEDDING_TRICKS
 from scaling_rgcn_training_tpu_torch.utils.checkpoint import (
     checkpoint_exists, load_checkpoint, load_transfer_state, save_checkpoint,
     save_transfer_state)
+from scaling_rgcn_training_tpu_torch.utils import tracing
+from scaling_rgcn_training_tpu_torch.utils.tracing import mark, span
 
 _DTYPES = {None: None, "bfloat16": torch.bfloat16}
 
@@ -232,45 +234,71 @@ class Trainer:
         warm-up and the capture). Returns ``(model, val accuracies,
         losses, val weighted F1, val macro F1)``; the validation series
         are empty for summary graphs.
+
+        The fit runs in a ``fit`` span of the recorder
+        (``utils/tracing.py``): ``fit.prepare`` (the optimizer, the dropout
+        generator, a resume, the step function and its graph, the clock
+        offset of the step's device stamps), the step graph's spans,
+        ``fit.callback`` around each ``on_epoch`` (the caller's time, not
+        the program's), ``fit.drain`` (the card finishing the queued
+        steps) and ``fit.readback`` (the series and the stamps to the
+        host; the stamped epochs go to the recorder). With ``verbose``
+        a fit that replayed prints its step spans' medians and its start
+        (``tracing.fit_line``).
         """
-        frozen = set(frozen)
-        trainable = {}
-        for name, p in model.named_parameters():
-            train = name.split(".")[0] not in frozen
-            p.requires_grad_(train)
-            if train:
-                trainable[name] = p
-        opt = make_optimizer(list(trainable.values()), self.lr,
-                             self.weight_d) if trainable else None
-        gen = self._dropout_generator(model)
-        every = self.ckpt_every if ckpt_path and self.ckpt_every > 0 else 0
-        done: Dict[str, List[float]] = {k: [] for k in _SERIES}
-        start = 0
-        if every and checkpoint_exists(ckpt_path):
-            start, done = self._restore_fit(ckpt_path, model, graph,
-                                            trainable, opt, gen)
-        step = self._step_fn(model, graph, loss_fn, activation, sum_graph,
-                             opt, gen)
-        route = self.step_route()
-        if verbose and self.device.type == "cuda":
-            print(f"train step: {describe(route)}")
-        cuda_graph = CudaStepGraph(self.device, [gen] if gen is not None
-                                   else ()) if route == "graph" else None
-        with StepGraph(step, self.epochs - start, 1 if sum_graph else 4,
-                       self.device, cuda_graph,
-                       params=trainable.values()) as loop:
-            saved = 0
-            for epoch in range(start, self.epochs):
-                loop.run()
-                if every and ((epoch + 1 - start) % every == 0
-                              or epoch + 1 == self.epochs):
-                    done = self._save_fit(ckpt_path, epoch + 1, model, graph,
-                                          trainable, opt, gen, done,
-                                          loop.rows(saved, loop.done))
-                    saved = loop.done
-                if on_epoch is not None:
-                    on_epoch(epoch)
-            series = _append_series(done, loop.rows(saved, loop.done))
+        with tracing.fit_span() as fit_id:
+            with span("fit.prepare"):
+                frozen = set(frozen)
+                trainable = {}
+                for name, p in model.named_parameters():
+                    train = name.split(".")[0] not in frozen
+                    p.requires_grad_(train)
+                    if train:
+                        trainable[name] = p
+                opt = make_optimizer(list(trainable.values()), self.lr,
+                                     self.weight_d) if trainable else None
+                gen = self._dropout_generator(model)
+                every = self.ckpt_every if ckpt_path and self.ckpt_every > 0 \
+                    else 0
+                done: Dict[str, List[float]] = {k: [] for k in _SERIES}
+                start = 0
+                if every and checkpoint_exists(ckpt_path):
+                    start, done = self._restore_fit(ckpt_path, model, graph,
+                                                    trainable, opt, gen)
+                step = self._step_fn(model, graph, loss_fn, activation,
+                                     sum_graph, opt, gen)
+                route = self.step_route()
+                if verbose and self.device.type == "cuda":
+                    print(f"train step: {describe(route)}")
+                cuda_graph = CudaStepGraph(
+                    self.device, [gen] if gen is not None else ()) \
+                    if route == "graph" else None
+                loop = StepGraph(step, self.epochs - start,
+                                 1 if sum_graph else 4, self.device,
+                                 cuda_graph, params=trainable.values())
+                offset, uncertainty = tracing.clock_offset(self.device)
+                tracing.note_fit(fit_id, clock_offset_ns=offset,
+                                 clock_uncertainty_ns=uncertainty)
+            with loop:
+                saved = 0
+                for epoch in range(start, self.epochs):
+                    loop.run()
+                    if every and ((epoch + 1 - start) % every == 0
+                                  or epoch + 1 == self.epochs):
+                        done = self._save_fit(ckpt_path, epoch + 1, model,
+                                              graph, trainable, opt, gen,
+                                              done, loop.rows(saved,
+                                                              loop.done))
+                        saved = loop.done
+                    if on_epoch is not None:
+                        with span("fit.callback"):
+                            on_epoch(epoch)
+                loop.drain()
+                with span("fit.readback"):
+                    series = _append_series(done, loop.rows(saved, loop.done))
+                    tracing.record_steps(fit_id, loop.marks.names,
+                                         loop.kinds, loop.stamp_rows(),
+                                         first_epoch=start)
         losses_l = series["loss"]
         accs, f1_ws, f1_ms = (series[k] for k in ("acc", "f1w", "f1m"))
         if verbose:
@@ -279,6 +307,9 @@ class Trainer:
                     print(f"Accuracy on validation set = {accs[epoch]}")
                 if epoch % 10 == 0:
                     print(f"Epoch: {epoch}, Loss: {losses_l[epoch]:.4f}")
+            line = tracing.fit_line(fit_id)
+            if line is not None:
+                print(line)
         return model, accs, losses_l, f1_ws, f1_ms
 
     def _step_fn(self, model: torch.nn.Module, graph: DeviceGraph,
@@ -299,10 +330,13 @@ class Trainer:
                                        graph.x_val, graph.y_val, activation)
             logits = self._logits(model, graph, train=True, gen=gen)
             loss = loss_fn(logits[graph.x_train], graph.y_train)
+            mark("loss")
             if opt is not None:
                 opt.zero_grad(set_to_none=True)
                 loss.backward()
+                mark("backward", settle=True)
                 opt.step()
+                mark("optimizer")
             return (loss, *metrics)
 
         return step

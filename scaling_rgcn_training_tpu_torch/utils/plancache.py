@@ -52,6 +52,8 @@ from typing import Any, Callable, Dict, Iterable, Sequence
 import numpy as np
 import torch
 
+from scaling_rgcn_training_tpu_torch.utils.tracing import span
+
 # bump when a plan dataclass or its build changes
 _VERSION = 1
 
@@ -136,7 +138,8 @@ def get_or_build(cache_dir, kind: str, arrays: Iterable[np.ndarray],
     """The cached plan of ``(kind, arrays, statics)``, or ``build()``'s,
     saved under ``cache_dir``; ``cache_dir`` None or empty: ``build()``
     alone. ``build`` returns the plan on the CPU; ``classes``: the plan
-    dataclasses an entry may hold."""
+    dataclasses an entry may hold. The load or the save runs in the
+    recorder's ``plan.cache`` span (``utils/tracing.py``)."""
     if not cache_dir:
         return build()
     arrays = [np.asarray(a) for a in arrays]
@@ -145,11 +148,13 @@ def get_or_build(cache_dir, kind: str, arrays: Iterable[np.ndarray],
                         f"{kind}-{plan_key(kind, arrays, statics)}.npz")
     if os.path.exists(path):
         try:
-            return load_plan(path, classes)
+            with span("plan.cache"):
+                return load_plan(path, classes)
         except (OSError, EOFError, ValueError, KeyError, TypeError,
                 zipfile.BadZipFile) as e:
             warnings.warn(f"discarding unreadable plan cache entry {path}: "
                           f"{type(e).__name__}: {e}", stacklevel=2)
     plan = build()
-    save_plan(path, plan)
+    with span("plan.cache"):
+        save_plan(path, plan)
     return plan

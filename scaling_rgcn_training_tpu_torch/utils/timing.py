@@ -1,19 +1,17 @@
-"""Wall-clock banner logger + phase timers.
+"""Wall-clock banner logger.
 
 Reproduces the reference's progress tracer (helpers/timing.py:7-29:
 module-import start timestamp, ``log`` banners at pipeline milestones, and
-an atexit end-of-program elapsed print) and adds named phase timers for
-throughput accounting (edges/s — the north-star metric).
+an atexit end-of-program elapsed print). The program's timed spans are
+``utils/tracing.py``'s recorder.
 """
 
 from __future__ import annotations
 
 import atexit
 import time
-from contextlib import contextmanager
 from datetime import timedelta
 from time import localtime, strftime
-from typing import Dict, List
 
 
 def seconds_to_str(elapsed: float | None = None) -> str:
@@ -34,25 +32,6 @@ def log(s: str, elapsed: str | None = None) -> None:
 
 def endlog() -> None:
     log("End Program", seconds_to_str(time.time() - start))
-
-
-# named phase timers -------------------------------------------------------
-
-_phases: Dict[str, List[float]] = {}
-
-
-@contextmanager
-def phase(name: str):
-    """Accumulating wall-clock timer: ``with timing.phase('train_epoch'): ...``"""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        _phases.setdefault(name, []).append(time.perf_counter() - t0)
-
-
-def phase_totals() -> Dict[str, float]:
-    return {k: sum(v) for k, v in _phases.items()}
 
 
 start = time.time()
