@@ -132,7 +132,10 @@ Phases, in order; any failure exits non-zero:
    4 transferred embeddings (d 64; the attention head has 4 heads of 16),
    the embedding frozen, 10 epochs in float32: finite losses, 4
    span_forward and 2 span_backward launches a step, ms/step and peak
-   memory;
+   memory; the attention head's every MHA call on the fused route (the
+   recorder's ``att.fused``; ``att.plain`` 0), ``mha_forward`` 2 and
+   ``mha_backward`` 1 launches a step (so in every attention fit: phase
+   17's too);
 11. checkpoint, resume, plan cache, summary writers and the native
    parser: the bench shape's ``build_rel_edges`` (span plan) and 4-shard
    halo partition built cold into the plan cache and loaded warm (every
@@ -254,7 +257,16 @@ Phases, in order; any failure exits non-zero:
    step against what the layout must move and the profiler's peer copies,
    card 0's peak against the others'), and ``rehearse_am_dist``'s step at
    the AM shape over the cards against 8 virtual shards of one card; with
-   1 card that part prints "skipped (1 card)".
+   1 card that part prints "skipped (1 card)";
+19. the attention head's kernels (``ops/attention_kernels.py``
+   ``mha_forward``, ``mha_backward`` with dx and with x frozen;
+   ``csrc/attention_kernels.cu``) at the attention cell's shape (N
+   1,666,764, 3 summaries of 63, 3 heads) and at phase 10's (N 200,000, 4
+   of 64, 4 heads), dropout 0.2 from the plain route's own draw, against
+   ``mha_self_attention(...)[0]`` and its autograd: output, dx and the
+   four parameter gradients, one launch a call, the same bits twice; at
+   AM's shape both kernels' times beside the plain route's and their
+   bounds (``mha_cost``).
 
 ``--only 14,15`` runs the named phases and the earlier ones they read
 (``NEEDS``; 1 and 2 always), then prints their numbers and the last line,
@@ -276,8 +288,9 @@ per-call times across processes and the launches of each child; #3's,
 before it holds the run's other numbers (phase 13's under ``am_shape``,
 phase 14's under ``bench``, phase 15's under ``bench_scaling``, phase
 16's under ``overlap``, phase 17's under ``step_graph``, phase 18's
-under ``node_shard``; #1's, #2's and #3's ``node_shard_launches``);
-the last line is ``{"ok": true, "device":
+under ``node_shard``, phase 19's under ``attention_kernels``; #1's, #2's
+and #3's ``node_shard_launches``; the attention kernels' entries at AM's
+shape, with phase 10's launches); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -306,7 +319,7 @@ WARMUP = 3
 # cut toward zero on every call gave -4e-8 and moved phase 5's losses)
 MAX_BIAS = 1e-8
 JAX_PKG = "scaling_rgcn_training_tpu/"
-PHASES = tuple(range(1, 19))
+PHASES = tuple(range(1, 20))
 # the earlier phases whose results a phase reads (``--only``)
 NEEDS = {4: (3,), 5: (3,), 6: (3,), 8: (3, 5), 9: (3,), 10: (3,),
          11: (3, 5, 8)}
@@ -719,10 +732,13 @@ def run_fit(graph, compute_dtype, epochs, launches, head="summation",
     ms/step and host ms/step (the time to issue a step, before the
     synchronisation that ends it), peak MiB allocated and reserved, the
     launch counts of each step and, with ``keep``, the parameters after
-    the fit (on the card)."""
+    the fit (on the card). The attention head's every MHA call must take
+    the fused route (``att.fused``, never ``att.plain``), launching
+    ``mha_forward`` twice and ``mha_backward`` once a step."""
     import torch
     from scaling_rgcn_training_tpu_torch.bench_shape import bench_trainer
     from scaling_rgcn_training_tpu_torch.train.losses import bce_loss
+    from scaling_rgcn_training_tpu_torch.utils import tracing
 
     trainer, model = bench_trainer(epochs, DEV, compute_dtype, head,
                                    **trainer_kw)
@@ -739,9 +755,12 @@ def run_fit(graph, compute_dtype, epochs, launches, head="summation",
     per_step.append(dict(launches))
     torch.cuda.reset_peak_memory_stats()
     frozen = () if head == "summation" else ("embedding",)
+    before = tracing.counters()
     _, accs, losses, _, _ = trainer.fit(model, graph, bce_loss, "sigmoid",
                                         sum_graph=False, frozen=frozen,
                                         verbose=False, on_epoch=on_epoch)
+    att = {k: tracing.counters().get(k, 0) - before.get(k, 0)
+           for k in ("att.fused", "att.plain")}
     name = f"{head} {compute_dtype or 'float32'} {trainer_kw}"
     if len(losses) != epochs or not all(np.isfinite(losses)):
         fail(f"trainer {name}: losses {losses}")
@@ -756,6 +775,18 @@ def run_fit(graph, compute_dtype, epochs, launches, head="summation",
           f"{losses[-1]:.7f}, val acc {accs[0]:.4f} -> {accs[-1]:.4f}, peak "
           f"{peak:.0f} MiB (reserved {reserved:.0f})", flush=True)
     steps = [{k: b[k] - a[k] for k in a} for a, b in zip(per_step, per_step[1:])]
+    if head == "attention":
+        # every call on the fused route, its kernels twice and once a step
+        # (the validation and the training forward, the backward)
+        print(f"  trainer {name}: MHA calls {att}", flush=True)
+        if att["att.plain"] or not att["att.fused"]:
+            fail(f"trainer {name}: the head's MHA left the fused route: "
+                 f"{att}")
+        for i, st in enumerate(steps):
+            if (st["mha_forward"], st["mha_backward"]) != (2, 1):
+                fail(f"trainer {name}: step {i} launched mha_forward "
+                     f"{st['mha_forward']} and mha_backward "
+                     f"{st['mha_backward']} times, expected 2 and 1")
     return {"losses": losses, "accs": accs, "step_ms": step,
             "host_ms": host_ms, "peak_mib": peak, "reserved_mib": reserved,
             "steps": steps, "route": trainer.step_route(),
@@ -2847,6 +2878,116 @@ def node_shard_phase(launches, reset) -> dict:
     return out
 
 
+# phase 19: the attention head's fused kernels at the attention cell's
+# shape (rgcn_bench/configs/rgcn_am_attention.json: AM's 1,666,764 nodes, 3
+# summaries of 63, 3 heads) and at phase 10's head (the bench shape's
+# ``NUM_SUMS`` summaries of 64); (L, N, d, H); dropout as the model's
+ATT_SHAPES = {"am": (3, 1_666_764, 63, 3), "bench": (4, 200_000, 64, 4)}
+ATT_DROPOUT = 0.2
+
+
+def mha_cost(L, n, d, H, backward) -> tuple:
+    """(bytes, FLOP) of ``mha_forward``, or of ``mha_backward`` without dx,
+    over ``n`` nodes by the kernels' algebra (``csrc/attention_kernels.cu``):
+    8 d^2 + 4 H L d FLOP a node forward, 20 d^2 + 8 H L d backward; x read,
+    y written (gy read), the dropout draw's first-query entries read."""
+    flop = n * ((20 if backward else 8) * d * d
+                + (8 if backward else 4) * H * L * d)
+    return 4 * (L * n * d + n * d + n * H * L), flop
+
+
+def attention_phase(launches, reset) -> dict:
+    """Phase 19: ``ops/attention_kernels.py`` ``mha_forward`` and
+    ``mha_backward`` (with dx, and with x frozen as the attention cell
+    runs it) at ``ATT_SHAPES`` with the dropout draw on, against the
+    plain-op MHA's row ``mha_self_attention(...)[0]`` and its autograd fed
+    the same draw: the output, dx and the four parameter gradients within
+    ``check_close``'s float32 tolerance, one launch count a call, the same
+    bits on two runs; at AM's shape both kernels' times beside the plain
+    route's (``time_kernel``: the row's forward without grad, and its
+    autograd backward over the parameters) and their bounds (``mha_cost``
+    on the CUDA cores' f32 rate)."""
+    import torch
+    from scaling_rgcn_training_tpu_torch.models import attention as tatt
+    from scaling_rgcn_training_tpu_torch.ops import attention_kernels as tak
+
+    names = ("y", "dx", "d_in_w", "d_in_b", "d_out_w", "d_out_b")
+    out = {}
+    for tag, (L, n, d, H) in ATT_SHAPES.items():
+        g = torch.Generator().manual_seed(0)
+        x = torch.rand((L, n, d), generator=g).to(DEV)
+        att = tatt.init_mha(g, d).to(DEV)
+        gy = torch.randn((n, d), generator=g).to(DEV)
+        params = tuple(att.parameters())
+        if not tak.fused_ok(x, H, *params):
+            fail(f"attention {tag}: the kernels refuse L={L} d={d} H={H}")
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(1)
+        xr = x.clone().requires_grad_(True)
+        ref = tatt.mha_self_attention(att, xr, H, ATT_DROPOUT, gen)[0]
+        refs = (ref.detach(), *torch.autograd.grad(ref, (xr, *params), gy))
+        del ref, xr
+        # the plain route's own draw: the same shape from the same state
+        gen.manual_seed(1)
+        draw = torch.rand((n, H, L, L), generator=gen, device=DEV)
+        reset()
+        runs = []
+        for _ in range(2):
+            y = tak.mha_forward(x, *params, draw, ATT_DROPOUT, H)
+            full = tak.mha_backward(gy, x, *params, draw, ATT_DROPOUT, H, True)
+            frozen = tak.mha_backward(gy, x, *params, draw, ATT_DROPOUT, H,
+                                      False)
+            if frozen[0] is not None:
+                fail(f"attention {tag}: mha_backward wrote dx unasked")
+            runs.append((y, *full, *frozen[1:]))
+        torch.cuda.synchronize()
+        got = (launches["mha_forward"], launches["mha_backward"])
+        if got != (2, 4):
+            fail(f"attention {tag}: launches (mha_forward, mha_backward) "
+                 f"{got}, expected (2, 4)")
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            fail(f"attention {tag}: two runs gave different bits")
+        errs = {nm: check_close(f"attention {tag} {nm}", a, b, False)
+                for nm, a, b in zip(names, runs[0], refs)}
+        errs.update({f"{nm}, x frozen": check_close(
+            f"attention {tag} {nm}, x frozen", a, b, False)
+            for nm, a, b in zip(names[2:], runs[0][6:], refs[2:])})
+        rec = {"L": L, "nodes": n, "d": d, "heads": H,
+               "max_abs_err": max(errs.values()), "errs": errs}
+        del runs, refs
+        if tag == "am":
+            with torch.enable_grad():
+                yp = tatt.mha_self_attention(att, x, H, ATT_DROPOUT, gen)[0]
+
+            def plain_forward():
+                with torch.no_grad():
+                    return tatt.mha_self_attention(att, x, H, ATT_DROPOUT,
+                                                   gen)[0]
+
+            for kname, kernel, plain, backward in (
+                    ("mha_forward", lambda: tak.mha_forward(
+                        x, *params, draw, ATT_DROPOUT, H), plain_forward,
+                     False),
+                    ("mha_backward", lambda: tak.mha_backward(
+                        gy, x, *params, draw, ATT_DROPOUT, H, False),
+                     lambda: torch.autograd.grad(yp, params, gy,
+                                                 retain_graph=True), True)):
+                t = time_kernel(kernel, plain)
+                n_bytes, flop = mha_cost(L, n, d, H, backward)
+                rec[kname] = {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                              "bytes": n_bytes, "flop": flop,
+                              **bound(n_bytes, flop, "float32")}
+                print(f"  attention am {kname}: {t['ms']:.3f} ms, plain "
+                      f"{t['plain_ms']:.3f}, bound "
+                      f"{rec[kname]['bound_ms']:.3f} "
+                      f"({rec[kname]['bound_by']})", flush=True)
+            del yp
+        out[tag] = rec
+        del x, att, gy, draw, params
+        torch.cuda.empty_cache()
+    return out
+
+
 def phases_to_run(argv) -> set:
     """The phases of ``--only N,M,...`` (every phase without it), with the
     phases whose results they read (``NEEDS``); 1 and 2 always run."""
@@ -3214,6 +3355,10 @@ def main(argv=None) -> None:
         node_shard = node_shard_phase(launches, reset)
         print(f"  phase 18: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    if 19 in want:
+        phase("19 the attention head's kernels against the plain-op MHA")
+        att_kernels = attention_phase(launches, reset)
+
     print(f"chip_smoke: phases {sorted(want)} in "
           f"{time.perf_counter() - _T0:.1f} s", flush=True)
     if want != set(PHASES):
@@ -3226,6 +3371,10 @@ def main(argv=None) -> None:
                           **({"step_graph": step_graph} if 17 in want
                              else {}),
                           **({"node_shard": node_shard} if 18 in want
+                             else {}),
+                          **({"attention_kernels": att_kernels}
+                             if 19 in want else {}),
+                          **({"head_launches": head_launches} if 10 in want
                              else {})}),
               flush=True)
         print(json.dumps({"ok": True, "device": {
@@ -3318,6 +3467,23 @@ def main(argv=None) -> None:
         "library_ms": None,
         "kernels": ["bwd_wsplit_kernel", "bwd_tc_kernel",
                     "bwd_tc_reduce_kernel"]})
+    # the attention head's kernels (no Pallas counterpart: the JAX package
+    # leaves its MHA to XLA); launches: phase 10's attention-head fit
+    for kname, kernel_names in (
+            ("mha_forward", ["mha_pack_kernel", "mha_fwd_kernel"]),
+            ("mha_backward", ["mha_pack_kernel", "mha_bwd_kernel",
+                              "mha_reduce_kernel"])):
+        r = att_kernels["am"][kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"{PKG}/csrc/attention_kernels.cu",
+            "replaces": JAX_PKG + "models/attention.py:48",
+            "launches": head_launches["attention head"][kname],
+            "max_abs_err": max(v["max_abs_err"]
+                               for v in att_kernels.values()),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "kernels": kernel_names})
     # the launches of this slice's paths: bench's per timed step (phase
     # 14's float32 line), bench_scaling's over phase 15's drive
     for entry in kernels:
@@ -3362,7 +3528,7 @@ def main(argv=None) -> None:
             for name, rec in multihost.items()},
         "am_shape": am, "bench": bench_res, "bench_scaling": scaling,
         "overlap": overlap, "step_graph": step_graph,
-        "node_shard": node_shard}),
+        "node_shard": node_shard, "attention_kernels": att_kernels}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,18 @@ torch's MHA math (in-projection, scaled dot product per head, dropout on
 the attention weights, out-projection) in plain tensor ops, with torch's
 own parameter layouts (in-projection ``[3d, d]``, out-projection
 ``[d, d]``). The dropout mask is drawn from an explicit
-``torch.Generator``, not the global generator. K and d are small (K <= 6,
-d ~ 64): no kernel of its own, as in the JAX package.
+``torch.Generator``, not the global generator.
+
+The attention model's trunk reads only the first summary's output row:
+:func:`mha_first_query` gives that row. On a card, for float32 inputs with
+at most 8 summaries and heads, ``d <= 128`` and ``d % heads == 0``
+(``ops/attention_kernels.py`` ``fused_ok``), it runs the fused CUDA
+forward and backward of ``ops/attention_kernels.py``
+(``csrc/attention_kernels.cu``), which compute that row alone; anything
+else (the CPU, other dtypes, wider shapes) takes the plain-op route,
+``mha_self_attention(...)[0]``. The recorder's counters ``att.fused`` and
+``att.plain`` (``utils/tracing.py``) count the calls of each route. The
+JAX package has no kernel for its MHA.
 """
 
 from __future__ import annotations
@@ -21,7 +31,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from scaling_rgcn_training_tpu_torch.ops.attention_kernels import (
+    FirstQuery, fused_ok)
 from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import uniform
+from scaling_rgcn_training_tpu_torch.utils import tracing
 
 
 class MHA(nn.Module):
@@ -73,3 +86,26 @@ def mha_self_attention(att: MHA, x: torch.Tensor, num_heads: int,
                                        device=attn.device))
     out = (attn @ v).permute(2, 0, 1, 3).reshape(L, B, d)   # [L, B, d]
     return out @ att.out_proj_w.T + att.out_proj_b
+
+
+def mha_first_query(att: MHA, x: torch.Tensor, num_heads: int,
+                    dropout_rate: float = 0.0,
+                    gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """``mha_self_attention(att, x, num_heads, dropout_rate, gen)[0]``:
+    the first summary's row ``[B, d]``. Where :func:`fused_ok` takes the
+    inputs, the fused kernels compute it (counter ``att.fused``; a strided
+    input is made contiguous first), reading the same ``[B, H, L, L]``
+    dropout draw from ``gen``; else the plain-op route (``att.plain``)."""
+    L, B, d = x.shape
+    params = (att.in_proj_w, att.in_proj_b, att.out_proj_w, att.out_proj_b)
+    if not fused_ok(x, num_heads, *params):
+        tracing.count("att.plain")
+        return mha_self_attention(att, x, num_heads, dropout_rate, gen)[0]
+    tracing.count("att.fused")
+    draw = None
+    if dropout_rate > 0.0 and gen is not None:
+        draw = torch.rand((B, num_heads, L, L), generator=gen,
+                          device=x.device)
+    return FirstQuery.apply(x.contiguous(),
+                            *(p.contiguous() for p in params), draw,
+                            dropout_rate, num_heads)

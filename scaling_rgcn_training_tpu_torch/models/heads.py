@@ -13,7 +13,8 @@ Shared trunk: front-end -> rgcn1 (d -> hidden) -> ReLU -> rgcn2
   ``lin2`` back to ``d`` over the concatenated embeddings ``[N, K * d]``;
 - ``ATTModel`` (``Emb_ATT_Layers``, layers.py:49-87): self-attention with
   K heads over the stacked embeddings ``[K, N, d]``, keeping
-  ``attn_out[0]``.
+  ``attn_out[0]`` (``models/attention.py`` ``mha_first_query``, which
+  computes that row alone on a card).
 
 Linear weights keep torch's ``[out_features, in_features]`` layout, as the
 JAX package does.
@@ -28,7 +29,7 @@ import torch
 from torch import nn
 
 from scaling_rgcn_training_tpu_torch.models.attention import (
-    MHA, init_mha, mha_self_attention)
+    MHA, init_mha, mha_first_query)
 from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import (
     RelEdges, RGCNLayer, init_rgcn_layer, rgcn_conv, uniform)
 from scaling_rgcn_training_tpu_torch.parallel.mesh import (
@@ -115,11 +116,11 @@ class ATTModel(_Trunk):
                 train: bool = False,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """With ``train``, dropout on the attention weights from ``gen``."""
-        attn_out = mha_self_attention(
+        # the first "sequence" element: the fused node features
+        fused = mha_first_query(
             self.att, self.embedding, num_heads=self.embedding.shape[0],
             dropout_rate=self.dropout if train else 0.0, gen=gen)
-        # the first "sequence" element: the fused node features
-        return self.trunk(attn_out[0], edges, compute_dtype, backend, aggr)
+        return self.trunk(fused, edges, compute_dtype, backend, aggr)
 
 
 def _init_trunk(gen, num_slots, emb_dim, hidden, num_classes, num_bases,

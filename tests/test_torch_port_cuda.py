@@ -1383,3 +1383,179 @@ def test_cuda_two_cards_losses_match_one_card(monkeypatch):
     assert abs(peaks["0"] - peaks["1"]) <= 0.25 * peaks["1"]
     assert recs[0]["cross_card_mb_per_step"] == 0
     assert recs[1]["cross_card_mb_per_step"] > 0
+
+
+def _att_case(L, d, H, n=10007, seed=0):
+    """``x [L, n, d]`` and an ``MHA`` on the card (n = 10,007: the last
+    tile of every tile size is partial)."""
+    from scaling_rgcn_training_tpu_torch.models import attention as tatt
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand((L, n, d), generator=g).cuda()
+    att = tatt.MHA(*(torch.randn(s, generator=g).mul(0.3).cuda()
+                     for s in ((3 * d, d), (3 * d,), (d, d), (d,))))
+    gy = torch.randn((n, d), generator=g).cuda()
+    return x, att, gy
+
+
+def _att_route(route, att, x, gy, H, rate, want_dx, seed=11):
+    """One route's output, its gradients (dx first when ``want_dx``) and
+    the generator's next draw."""
+    from scaling_rgcn_training_tpu_torch.models import attention as tatt
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xin = x.detach().requires_grad_(want_dx)
+    if route == "fused":
+        y = tatt.mha_first_query(att, xin, H, rate, gen)
+    else:
+        y = tatt.mha_self_attention(att, xin, H, rate, gen)[0]
+    wrt = ((xin,) if want_dx else ()) + tuple(att.parameters())
+    grads = torch.autograd.grad(y, wrt, gy)
+    return y.detach(), grads, torch.rand(4, generator=gen, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_dx", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("d,H", [(16, 2), (63, 3), (64, 4), (128, 8)])
+@pytest.mark.parametrize("L", [1, 2, 3, 4, 6])
+def test_cuda_mha_first_query_matches_plain(L, d, H, rate, want_dx,
+                                            monkeypatch):
+    """The fused attention kernels (``mha_first_query`` on the card)
+    against the plain-op route ``mha_self_attention(...)[0]`` (full f32
+    cuBLAS products, TF32 off) at N = 10,007: the output, the four
+    parameter gradients and, with a trainable x, dx, within the float32
+    tolerance rtol 1e-4, atol 1e-4 * max|ref| (summation order differs);
+    both routes leave the generator in the same state; one
+    ``mha_forward`` and one ``mha_backward`` launch; ``att.fused`` counts
+    the call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scaling_rgcn_training_tpu_torch.utils import tracing
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    x, att, gy = _att_case(L, d, H)
+    ref = _att_route("plain", att, x, gy, H, rate, want_dx)
+    before, fused = dict(cuda_build.LAUNCHES), tracing.counters().get(
+        "att.fused", 0)
+    got = _att_route("fused", att, x, gy, H, rate, want_dx)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["mha_forward"] == before["mha_forward"] + 1
+    assert cuda_build.LAUNCHES["mha_backward"] == before["mha_backward"] + 1
+    assert tracing.counters()["att.fused"] == fused + 1
+    for a, b in zip((got[0], *got[1]), (ref[0], *ref[1])):
+        torch.testing.assert_close(a, b, **_tol("float32", b))
+    assert torch.equal(got[2], ref[2])
+
+
+@pytest.mark.cuda
+def test_cuda_mha_first_query_graph_and_bits():
+    """At AM's widths (3 summaries, 3 heads of 21) with dropout: two
+    eager calls from one seed give the same bits (no atomics), and the
+    forward and backward captured as one CUDA graph (the generator
+    registered) replay the eager calls' bits, step by step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scaling_rgcn_training_tpu_torch.models import attention as tatt
+
+    x, att, gy = _att_case(3, 63, 3)
+    params = tuple(att.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def step():
+        y = tatt.mha_first_query(att, x, 3, 0.2, gen)
+        return (y.detach(), *torch.autograd.grad(y, params, gy))
+
+    def eager():
+        gen.manual_seed(5)
+        return [[t.clone() for t in step()] for _ in range(2)]
+
+    first, second = eager(), eager()
+    assert all(torch.equal(a, b) for s1, s2 in zip(first, second)
+               for a, b in zip(s1, s2))
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out = step()
+    gen.manual_seed(5)
+    for want in first:
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,d,H,dtype", [(9, 16, 2, "float32"),
+                                         (3, 130, 2, "float32"),
+                                         (3, 63, 3, "float64")])
+def test_cuda_mha_first_query_outside_bounds_is_plain(L, d, H, dtype):
+    """A shape or type outside the kernels' bounds (L > 8, d > 128,
+    float64) takes the plain-op route on the card: ``att.plain`` counts
+    it, no attention kernel launches, and the row is
+    ``mha_self_attention(...)[0]``'s bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scaling_rgcn_training_tpu_torch.models import attention as tatt
+    from scaling_rgcn_training_tpu_torch.utils import tracing
+
+    x, att, _ = _att_case(L, d, H, n=300)
+    dt = getattr(torch, dtype)
+    x, att = x.to(dt), att.to(dt)
+    before, plain = dict(cuda_build.LAUNCHES), tracing.counters().get(
+        "att.plain", 0)
+    got = tatt.mha_first_query(att, x, H, 0.2,
+                               torch.Generator(device="cuda").manual_seed(1))
+    want = tatt.mha_self_attention(
+        att, x, H, 0.2, torch.Generator(device="cuda").manual_seed(1))[0]
+    assert tracing.counters()["att.plain"] == plain + 1
+    assert cuda_build.LAUNCHES == before
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_mha_every_shape_inside_the_bounds_has_a_plan():
+    """Every shape ``fused_ok`` takes (L <= 8, H <= 8, d <= 128, d % H ==
+    0) has a tile that fits in shared memory for the forward and for the
+    backward with and without dx, with at least one block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scaling_rgcn_training_tpu_torch.ops import attention_kernels as tak
+
+    lib = tak._lib()
+    for L in range(1, tak.MAX_SUMS + 1):
+        for H in range(1, tak.MAX_SUMS + 1):
+            for d in range(H, tak.MAX_WIDTH + 1, H):
+                x = torch.empty((L, 1000, d), device="cuda")
+                for which in (-1, 0, 1):
+                    T, _, smem, blocks, _ = tak._plan(lib, x, H, which)
+                    assert T >= 4 and 0 < smem <= 232448 and blocks >= 1
+
+
+@pytest.mark.cuda
+def test_cuda_mha_first_query_strided_input_is_fused():
+    """A strided float32 input inside the bounds (x a transposed view,
+    ``[B, L, d]`` storage) takes the fused route, not the plain one: the
+    same bits as from its contiguous copy, output and gradients, and
+    ``att.plain`` does not move."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scaling_rgcn_training_tpu_torch.models import attention as tatt
+    from scaling_rgcn_training_tpu_torch.utils import tracing
+
+    x, att, gy = _att_case(3, 63, 3)
+    strided = x.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not strided.is_contiguous()
+    params = tuple(att.parameters())
+    plain = tracing.counters().get("att.plain", 0)
+    outs = []
+    for xin in (x, strided):
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        y = tatt.mha_first_query(att, xin, 3, 0.2, gen)
+        outs.append((y.detach(), *torch.autograd.grad(y, params, gy)))
+    assert tracing.counters().get("att.plain", 0) == plain
+    assert all(torch.equal(a, b) for a, b in zip(*outs))

@@ -8,13 +8,18 @@ the CPU, the port with the plain span versions) from the same parameters.
 attention head is compared with dropout off on both sides (a monkeypatch
 of the JAX heads module's ``mha_self_attention``; no JAX file changes);
 the port's dropout is checked by its mean and its determinism under one
-seed. Tolerances: attention and logits float32 rtol 1e-5 with atol 1e-6
+seed. ``mha_first_query`` (the attention model's route) is checked for
+its route counters and its generator's state, and the fused kernels'
+algebra, written here in plain tensor ops, against autograd in float64. Tolerances: attention and
+logits float32 rtol 1e-5 with atol 1e-6
 (summation order); gradients rtol 1e-4 with atol 1e-6 * max|ref|; loss
 series rtol 1e-4 and final parameters as in ``test_torch_port_train.py``.
 """
 
+import math
 import os
 from types import SimpleNamespace
+from typing import Optional
 
 import numpy as np
 import pytest
@@ -39,6 +44,7 @@ from scaling_rgcn_training_tpu_torch.train import losses as tlosses
 from scaling_rgcn_training_tpu_torch.train import transfer as ttransfer
 from scaling_rgcn_training_tpu_torch.train.trainer import (
     Trainer as TTrainer, count_trainable_parameters as t_count)
+from scaling_rgcn_training_tpu_torch.utils import tracing
 
 K, EMB, HL = 3, 12, 8
 
@@ -107,6 +113,150 @@ def test_mha_matches_jax(seq, batch, d, heads):
         tatt.MHA(*map(torch.tensor, leaves)), torch.tensor(x), heads)
     assert got.shape == (seq, batch, d)
     np.testing.assert_allclose(got.detach().numpy(), ref, rtol=1e-5, atol=1e-6)
+
+
+# (L, B, d, H): L = 1, d not a multiple of 32, AM's 3 heads of 21, d = 128
+FIRST_QUERY_SHAPES = [(3, 50, 63, 3), (1, 17, 16, 2), (4, 33, 20, 4),
+                      (2, 9, 128, 8), (6, 12, 10, 5)]
+
+
+def _mha_case(L, B, d, H, dtype=torch.float32):
+    rng = np.random.default_rng(L * 1000 + d)
+    x = torch.tensor(rng.standard_normal((L, B, d)), dtype=dtype)
+    att = tatt.MHA(*(torch.tensor(rng.standard_normal(s) * 0.3, dtype=dtype)
+                     for s in ((3 * d, d), (3 * d,), (d, d), (d,))))
+    return x, att
+
+
+@pytest.mark.parametrize("L,B,d,H", FIRST_QUERY_SHAPES)
+def test_mha_first_query_is_the_first_row(L, B, d, H):
+    """On the CPU ``mha_first_query`` takes the plain route: ``att.plain``
+    counts each call and ``att.fused`` none. Its output and four parameter
+    gradients are ``mha_self_attention(...)[0]``'s, and with dropout it
+    leaves its generator where an identically seeded one fed to
+    ``mha_self_attention`` is left (the next draws are equal). On the CPU
+    the row is that very call, so the fused route's equality is held on
+    the card (``test_torch_port_cuda.py``) and its algebra below."""
+    x, att = _mha_case(L, B, d, H)
+    gy = torch.tensor(np.random.default_rng(d).standard_normal((B, d)),
+                      dtype=torch.float32)
+    params = tuple(att.parameters())
+    for rate in (0.0, 0.2):
+        gens = [torch.Generator().manual_seed(7) for _ in range(2)]
+        before = tracing.counters()
+        y = tatt.mha_first_query(att, x, H, rate, gens[0])
+        after = tracing.counters()
+        assert after.get("att.plain", 0) == before.get("att.plain", 0) + 1
+        assert after.get("att.fused", 0) == before.get("att.fused", 0)
+        ref = tatt.mha_self_attention(att, x, H, rate, gens[1])[0]
+        assert torch.equal(y, ref)
+        for a, b in zip(torch.autograd.grad(y, params, gy),
+                        torch.autograd.grad(ref, params, gy)):
+            assert torch.equal(a, b)
+        assert torch.equal(torch.rand(5, generator=gens[0]),
+                           torch.rand(5, generator=gens[1]))
+
+
+def _forward_parts(x, in_w, in_b, draw, p, num_heads):
+    """The fused forward's intermediates, computed as the kernels do."""
+    L, B, d = x.shape
+    H, dh = num_heads, d // num_heads
+    wq, wk, wv = in_w.split(d)
+    bq, bk, bv = in_b.split(d)
+    qh = (x[0] @ wq.T + bq).reshape(B, H, dh)
+    qt = torch.einsum("bhe,hei->bhi", qh, wk.reshape(H, dh, d))
+    c = (qh * bk.reshape(H, dh)).sum(-1)
+    s = (torch.einsum("bhi,lbi->bhl", qt, x) + c[..., None]) / math.sqrt(dh)
+    a = torch.softmax(s, dim=-1)
+    keep = None if draw is None else draw[:, :, 0, :] >= p
+    ad = a if keep is None else torch.where(keep, a / (1.0 - p),
+                                            torch.zeros_like(a))
+    xbar = torch.einsum("bhl,lbi->bhi", ad, x)
+    S = ad.sum(-1)
+    o = torch.einsum("bhi,hei->bhe", xbar, wv.reshape(H, dh, d)) \
+        + S[..., None] * bv.reshape(H, dh)
+    return dict(qh=qh, qt=qt, a=a, keep=keep, ad=ad, xbar=xbar, S=S, o=o)
+
+
+def _first_query_plain(x: torch.Tensor, in_w: torch.Tensor,
+                       in_b: torch.Tensor, out_w: torch.Tensor,
+                       out_b: torch.Tensor, draw: Optional[torch.Tensor],
+                       dropout_rate: float, num_heads: int) -> torch.Tensor:
+    """``ops/attention_kernels.py`` ``FirstQuery``'s forward by the
+    kernels' algebra in plain tensor ops: ``q`` of summary 0, ``qt_h = Wk_h^T q_h``, scores ``(qt_h . x_j +
+    q_h . bk_h) / sqrt(dh)``, ``xbar_h = sum_j a'_hj x_j``, ``o_h = Wv_h
+    xbar_h + S_h bv_h``, ``y = Wo o + bo``."""
+    B, d = x.shape[1:]
+    o = _forward_parts(x, in_w, in_b, draw, dropout_rate, num_heads)["o"]
+    return o.reshape(B, d) @ out_w.T + out_b
+
+
+def _first_query_backward_plain(gy: torch.Tensor, x: torch.Tensor,
+                                in_w: torch.Tensor, in_b: torch.Tensor,
+                                out_w: torch.Tensor, out_b: torch.Tensor,
+                                draw: Optional[torch.Tensor],
+                                dropout_rate: float, num_heads: int):
+    """``mha_backward``'s formulas in plain tensor ops: ``(dx, d_in_w,
+    d_in_b, d_out_w, d_out_b)`` for ``gy [B, d]``, from the chain
+    recomputed as :func:`_first_query_plain`."""
+    L, B, d = x.shape
+    H, dh = num_heads, d // num_heads
+    p = dropout_rate
+    wq, wk, wv = in_w.split(d)
+    bk, bv = in_b.split(d)[1:]
+    f = _forward_parts(x, in_w, in_b, draw, p, num_heads)
+    qh, qt, a, keep, ad, xbar, S = (f[k] for k in ("qh", "qt", "a", "keep",
+                                                   "ad", "xbar", "S"))
+    d_out_w = gy.T @ f["o"].reshape(B, d)
+    d_out_b = gy.sum(0)
+    go = (gy @ out_w).reshape(B, H, dh)
+    dwv = torch.einsum("bhe,bhi->hei", go, xbar).reshape(d, d)
+    dbv = (go * S[..., None]).sum(0).reshape(d)
+    gxbar = torch.einsum("bhe,hei->bhi", go, wv.reshape(H, dh, d))
+    gad = torch.einsum("bhi,lbi->bhl", gxbar, x) \
+        + (go * bv.reshape(H, dh)).sum(-1)[..., None]
+    ga = gad if keep is None else torch.where(keep, gad / (1.0 - p),
+                                              torch.zeros_like(gad))
+    gs = a * (ga - (a * ga).sum(-1, keepdim=True)) / math.sqrt(dh)
+    gc = gs.sum(-1)
+    gqt = torch.einsum("bhl,lbi->bhi", gs, x)
+    dwk = torch.einsum("bhe,bhi->hei", qh, gqt).reshape(d, d)
+    dbk = (qh * gc[..., None]).sum(0).reshape(d)
+    gq = (torch.einsum("bhi,hei->bhe", gqt, wk.reshape(H, dh, d))
+          + gc[..., None] * bk.reshape(H, dh)).reshape(B, d)
+    dwq = gq.T @ x[0]
+    dbq = gq.sum(0)
+    dx = torch.einsum("bhl,bhi->lbi", gs, qt) \
+        + torch.einsum("bhl,bhi->lbi", ad, gxbar)
+    dx[0] += gq @ wq
+    return (dx, torch.cat([dwq, dwk, dwv]), torch.cat([dbq, dbk, dbv]),
+            d_out_w, d_out_b)
+
+
+@pytest.mark.parametrize("L,B,d,H", FIRST_QUERY_SHAPES)
+def test_first_query_kernel_algebra(L, B, d, H):
+    """The fused kernels' algebra (``_first_query_plain``: the rearranged
+    products; ``_first_query_backward_plain``: the hand-written backward)
+    against ``mha_self_attention(...)[0]`` and its autograd gradients in
+    float64, with and without dropout from one draw: 1e-12 of the largest
+    value (rounding in another order)."""
+    x, att = _mha_case(L, B, d, H, torch.float64)
+    x.requires_grad_(True)
+    params = tuple(att.parameters())
+    gy = torch.tensor(np.random.default_rng(d).standard_normal((B, d)))
+    for rate in (0.0, 0.2):
+        gen = torch.Generator().manual_seed(3)
+        ref = tatt.mha_self_attention(att, x, H, rate, gen)[0]
+        draw = torch.rand((B, H, L, L), generator=torch.Generator(
+            ).manual_seed(3)) if rate else None
+        got = _first_query_plain(x, *params, draw, rate, H)
+        want = torch.autograd.grad(ref, (x, *params), gy)
+        grads = _first_query_backward_plain(
+            gy, x.detach(), *(p.detach() for p in params), draw, rate, H)
+        for a, b in zip((got, *grads), (ref, *want)):
+            a, b = a.detach(), b.detach()
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=1e-12 * float(b.abs().max()))
 
 
 @pytest.mark.parametrize("head", ["mlp", "attention"])
