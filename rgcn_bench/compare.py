@@ -114,7 +114,7 @@ def numbers(config, prog: Readings, ref: Readings,
     on); ``val_classes``: the validation rows' classes. ``detail``, if
     given, receives each leaf's gradient and change gaps."""
     splits = head_module(config).SPLITS
-    device = params0["rgcn1.weight"].device
+    device = next(iter(params0.values())).device
     g_prog = {k: _norm(v, device) for k, v in _leaves(prog.grad1,
                                                        splits).items()}
     g_ref = {k: _norm(v, device) for k, v in _leaves(ref.grad1,
@@ -144,7 +144,7 @@ def both(config, start: Tuple[Readings, Readings],
          detail: Optional[dict] = None) -> Dict[str, float]:
     """The eight numbers: the start's ``(program, reference)`` readings
     from ``params0``, the replay's from ``state``."""
-    device = params0["rgcn1.weight"].device
+    device = next(iter(params0.values())).device
     before = dict(params0, **{k: v.to(device)
                               for k, v in state.params.items()})
     parts = {}

@@ -2,14 +2,16 @@
 cannot move it: the card's published peaks, the bytes and operations of
 the conv's span kernels (copies of ``span_kernels.forward_cost`` and
 ``backward_cost`` as the port counts them, from shapes alone), the model's
-FLOPs an epoch and Adam's bytes. Each head's own FLOPs and parameters are
-counted in its reference file (``reference/head_<head>.py`` ``flops``,
-``param_elements``).
+FLOPs an epoch and Adam's bytes. The trunk's conv calls, FLOPs and
+parameters are counted in its reference file
+(``reference/trunk_<trunk>.py`` ``conv_calls``, ``flops``,
+``param_elements``), each head's FLOPs and parameters in its own
+(``reference/head_<head>.py`` ``flops``, ``param_elements``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 
@@ -69,44 +71,31 @@ def span_backward_cost(s: Dict[str, int], d_in: int, d_out: int,
         (n_bytes, 3 * ops, "tf32")
 
 
-def conv_calls(config: Dict[str, Any], s: Dict[str, int]
-               ) -> List[Tuple[int, int, str]]:
-    """The span kernels' calls of one epoch: both layers forward twice
-    (the validation forward and the loss's) and backward once."""
-    dtype = config["compute_dtype"]
-    widths = [(config["emb_dim"], config["hidden"]),
-              (config["hidden"], config["num_classes"])]
-    fwd = [span_forward_cost(s, i, o, dtype) for i, o in widths]
-    bwd = [span_backward_cost(s, i, o, dtype) for i, o in widths]
-    return fwd + fwd + bwd
-
-
 def conv_bound_s(config: Dict[str, Any], s: Dict[str, int]) -> float:
-    """Least seconds an epoch's conv calls can take on the card."""
-    return sum(_bound(*call) for call in conv_calls(config, s))
+    """Least seconds an epoch's conv calls (the trunk's ``conv_calls``)
+    can take on the card."""
+    calls = rgcn.trunk_module(config).conv_calls(config, s)
+    return sum(_bound(*call) for call in calls)
 
 
 def model_flops(config: Dict[str, Any], s: Dict[str, int]) -> int:
     """Model FLOPs of one epoch: the validation forward, the loss's
-    forward and the backward. A conv layer's forward is its per-edge
-    products and its root products; its backward their dx and dW."""
-    n, e = s["nodes"], s["edges"]
-    layer = lambda i, o: 2 * (e + n) * i * o
-    trunk = layer(config["emb_dim"], config["hidden"]) + \
-        layer(config["hidden"], config["num_classes"])
-    head_fwd, head_bwd = rgcn.head_module(config).flops(config, n)
-    return 2 * (trunk + head_fwd) + 2 * trunk + head_bwd
+    forward and the backward, of the trunk and the head (each module's
+    ``flops``)."""
+    trunk_fwd, trunk_bwd = rgcn.trunk_module(config).flops(config, s)
+    head_fwd, head_bwd = rgcn.head_module(config).flops(config, s["nodes"])
+    return 2 * (trunk_fwd + head_fwd) + trunk_bwd + head_bwd
 
 
 def trainable_elements(config: Dict[str, Any], s: Dict[str, int]) -> int:
-    """Parameters Adam updates: the trunk, and the head's parameters (its
-    ``param_elements``, by top-level name) that are not frozen."""
-    slots, d, h, c = s["slots"], config["emb_dim"], config["hidden"], \
-        config["num_classes"]
-    total = slots * d * h + d * h + h + slots * h * c + h * c + c
+    """Parameters Adam updates: the trunk's and the head's (each module's
+    ``param_elements``, the head's by top-level name) that are not
+    frozen."""
     frozen = set(config.get("frozen", ()))
+    trunk = rgcn.trunk_module(config).param_elements(config, s)
     head = rgcn.head_module(config).param_elements(config, s["nodes"])
-    return total + sum(k for name, k in head.items() if name not in frozen)
+    return sum(k for name, k in (*trunk.items(), *head.items())
+               if name not in frozen)
 
 
 def adam_bound_s(config: Dict[str, Any], s: Dict[str, int]) -> float:

@@ -34,7 +34,8 @@ def init_params(config: Dict[str, Any], gen: torch.Generator,
         "att.in_proj_b": torch.zeros(3 * d, device=device),
         "att.out_proj_w": rgcn.uniform((d, d), 1 / math.sqrt(d), gen, device),
         "att.out_proj_b": torch.zeros(d, device=device)}
-    params.update(rgcn.init_trunk(config, gen, device))
+    trunk = rgcn.trunk_module(config)
+    params.update(trunk.init_params(config, gen, device))
     return params
 
 

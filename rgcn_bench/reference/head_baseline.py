@@ -17,7 +17,8 @@ def init_params(config: Dict[str, Any], gen: torch.Generator,
                 device) -> Dict[str, torch.Tensor]:
     n, d = config["num_entities"], config["emb_dim"]
     params = {"embedding": torch.randn((n, d), generator=gen, device=device)}
-    params.update(rgcn.init_trunk(config, gen, device))
+    trunk = rgcn.trunk_module(config)
+    params.update(trunk.init_params(config, gen, device))
     return params
 
 

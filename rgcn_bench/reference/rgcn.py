@@ -1,5 +1,7 @@
-"""Plain R-GCN training steps: PyG ``RGCNConv`` with mean aggregation,
-written per relation with ``index_select`` and ``index_add``; the
+"""Plain R-GCN training steps: the configuration's head
+(``head_<head>.py``, the front that feeds the trunk) and trunk
+(``trunk_<trunk>.py``, the conv layers, written per relation with
+``index_select`` and ``index_add``) over the graph's edges; the
 cross-entropy of the configuration's dataset; the validation metrics
 (subset accuracy, weighted and macro F1 of one-hot argmax predictions,
 sklearn's ``zero_division=0``); Adam with coupled L2, written out.
@@ -26,7 +28,6 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -95,41 +96,6 @@ def build_edges(subj: np.ndarray, rel: np.ndarray, obj: np.ndarray,
     return Edges(src, dst, norm, ranges)
 
 
-def conv(x: torch.Tensor, weight: torch.Tensor, root: torch.Tensor,
-         bias: torch.Tensor, edges: Edges, precision: str) -> torch.Tensor:
-    """``x_i root + bias + sum_r mean_{j in N_r(i)} x_j weight[r]``."""
-    msgs = [product(x.index_select(0, edges.src[lo:hi]), weight[slot],
-                    precision) * edges.norm[lo:hi, None].to(x.dtype)
-            for slot, lo, hi in edges.slots]
-    out = product(x, root, precision) + bias
-    return out.index_add(0, edges.dst, torch.cat(msgs))
-
-
-def trunk(x: torch.Tensor, params: Dict[str, torch.Tensor], edges: Edges,
-          precision: str) -> torch.Tensor:
-    layer = lambda h, k: conv(h, params[f"{k}.weight"], params[f"{k}.root"],
-                              params[f"{k}.bias"], edges, precision)
-    return layer(torch.relu(layer(x, "rgcn1")), "rgcn2")
-
-
-def init_trunk(config: Dict[str, Any], gen: torch.Generator,
-               device) -> Dict[str, torch.Tensor]:
-    """The two layers as the reference initialises them: relation weights
-    U(+-sqrt(6 / (in * out))), root U(+-sqrt(6 / (in + out))), zero bias;
-    ``2R + 1`` relation slots."""
-    slots = 2 * config["num_relations"] + 1
-    out = {}
-    widths = {"rgcn1": (config["emb_dim"], config["hidden"]),
-              "rgcn2": (config["hidden"], config["num_classes"])}
-    for name, (i, o) in widths.items():
-        out[f"{name}.weight"] = uniform((slots, i, o), math.sqrt(6 / (i * o)),
-                                        gen, device)
-        out[f"{name}.root"] = uniform((i, o), math.sqrt(6 / (i + o)), gen,
-                                      device)
-        out[f"{name}.bias"] = torch.zeros(o, device=device)
-    return out
-
-
 def uniform(shape, bound: float, gen: torch.Generator, device) -> torch.Tensor:
     """U(-bound, bound) float32, one draw on ``device``."""
     return (torch.rand(shape, generator=gen, device=device) * 2 - 1) * bound
@@ -187,6 +153,18 @@ def head_module(config: Dict[str, Any]):
     return importlib.import_module(f"rgcn_bench.reference.head_{config['head']}")
 
 
+def trunk_name(config: Dict[str, Any]) -> str:
+    """The configuration's ``"trunk"``; ``dense`` where it names none."""
+    return config.get("trunk", "dense")
+
+
+def trunk_module(config: Dict[str, Any]):
+    """``reference/trunk_<trunk>.py``: the trunk's forward, initial
+    parameters and cost counts (the interface: ``trunk_dense.py``)."""
+    return importlib.import_module(
+        f"rgcn_bench.reference.trunk_{trunk_name(config)}")
+
+
 def fit(config: Dict[str, Any], edges: Edges, labels: Dict[str, np.ndarray],
         params0: Dict[str, torch.Tensor], steps: int,
         dropout_masks: Optional[Callable[[Sequence[int]], torch.Tensor]] = None,
@@ -199,8 +177,8 @@ def fit(config: Dict[str, Any], edges: Edges, labels: Dict[str, np.ndarray],
     one call a step), the gradients by autograd and Adam written out."""
     if precision not in PRECISIONS or fault not in FAULTS:
         raise ValueError(f"precision {precision!r}, fault {fault!r}")
-    head = head_module(config)
-    device = params0["rgcn1.weight"].device
+    head, trunk = head_module(config), trunk_module(config)
+    device = next(iter(params0.values())).device
     frozen = set(config.get("frozen", ()))
     dtype = torch.float64 if precision == "float64" else torch.float32
     start = dict(params0, **(state.params if state is not None else {}))
@@ -223,7 +201,7 @@ def fit(config: Dict[str, Any], edges: Edges, labels: Dict[str, np.ndarray],
                             for t in (state.exp_avg, state.exp_avg_sq))
                    for k in trainable}
     done = state.step if state is not None else 0
-    forward = lambda train: trunk(
+    forward = lambda train: trunk.forward(
         head.front(params, config, precision,
                    dropout_masks if train else None), params, edges,
         precision)

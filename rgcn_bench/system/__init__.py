@@ -2,7 +2,8 @@
 model, built from a run's inputs as the CLI's fine-tune builds them
 (``main.py`` -> ``Trainer.train_original`` -> ``Trainer.fit``), and the
 readings of a fit's first steps for the comparison. Each head's model is
-built in ``head_<head>.py``."""
+built in ``head_<head>.py`` around the conv layers that the
+configuration's trunk builds in ``trunk_<trunk>.py``."""
 
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 from torch.optim.optimizer import register_optimizer_step_post_hook
 
 from rgcn_bench import inputs as bench_inputs
-from rgcn_bench.reference.rgcn import Readings, State
+from rgcn_bench.reference.rgcn import Readings, State, trunk_name
 
 
 @dataclasses.dataclass
@@ -74,14 +75,19 @@ def build(config: Dict[str, Any], inp: bench_inputs.Inputs,
     _sync(device)
     plan_build_s = time.perf_counter() - t0
     dtype = config["compute_dtype"]
-    trainer = Trainer(None, config["hidden"], config["epochs"],
-                      config["emb_dim"], config["lr"], config["weight_decay"],
-                      seed=inp.trainer_seed, device=device,
+    # the model is built here, so the trainer's widths (read only where
+    # the trainer builds a model itself) stay unset
+    trainer = Trainer(None, None, config["epochs"], None, config["lr"],
+                      config["weight_decay"], seed=inp.trainer_seed,
+                      device=device,
                       compute_dtype=None if dtype == "float32" else dtype)
-    head = importlib.import_module(f"rgcn_bench.system.head_{config['head']}")
+    part = lambda kind, name: importlib.import_module(
+        f"rgcn_bench.system.{kind}_{name}")
+    layers = part("trunk", trunk_name(config)).layers(params)
+    model = part("head", config["head"]).model(params, layers)
     loss_fn, activation = get_loss(config["dataset"], sum_model=False)
-    return Program(trainer, dev_graph, head.model(params), loss_fn,
-                   activation, list(config.get("frozen", ())), plan_build_s)
+    return Program(trainer, dev_graph, model, loss_fn, activation,
+                   list(config.get("frozen", ())), plan_build_s)
 
 
 def first_steps(program: Program, config: Dict[str, Any], epochs: int

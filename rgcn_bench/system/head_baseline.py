@@ -1,22 +1,15 @@
 """The port's baseline model (``models/heads.py`` ``EmbModel``) over the
-run's initial parameters."""
+run's initial parameters and the trunk's layers."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
 
-def trunk_layer(params: Dict[str, torch.Tensor], name: str):
-    from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import RGCNLayer
-
-    return RGCNLayer(params[f"{name}.weight"], params[f"{name}.root"],
-                     params[f"{name}.bias"])
-
-
-def model(params: Dict[str, torch.Tensor]) -> torch.nn.Module:
+def model(params: Dict[str, torch.Tensor],
+          layers: List[torch.nn.Module]) -> torch.nn.Module:
     from scaling_rgcn_training_tpu_torch.models.heads import EmbModel
 
-    return EmbModel(params["embedding"], trunk_layer(params, "rgcn1"),
-                    trunk_layer(params, "rgcn2"))
+    return EmbModel(params["embedding"], *layers)

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from rgcn_bench import cost, inputs, spec
+from rgcn_bench.reference import trunk_dense
 from rgcn_bench.tests.tiny import CELLS, tiny_cell
 from scaling_rgcn_training_tpu_torch.ops import span_kernels
 from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import build_rel_edges
@@ -74,7 +75,7 @@ def test_epoch_counts():
     cell = spec.load_cell("am_baseline_uniform")
     s = {"nodes": 1_666_764, "edges": 11_976_642, "slots": 267,
          "chunks": 11_800}
-    calls = cost.conv_calls(cell.config, s)
+    calls = trunk_dense.conv_calls(cell.config, s)
     assert len(calls) == 6
     flops = cost.model_flops(cell.config, s)
     # per-edge products: 2 forwards and a backward (dx, dW) of both layers

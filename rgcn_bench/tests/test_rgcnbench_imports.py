@@ -9,7 +9,7 @@ from rgcn_bench import run, spec
 _REFERENCE = """
 import sys
 import rgcn_bench.reference.rgcn, rgcn_bench.reference.head_baseline
-import rgcn_bench.reference.head_attention
+import rgcn_bench.reference.head_attention, rgcn_bench.reference.trunk_dense
 top = {m.split(".")[0] for m in sys.modules}
 print(sorted(top & {"scaling_rgcn_training_tpu_torch",
                     "scaling_rgcn_training_tpu", "jax", "jaxlib", "optax",
