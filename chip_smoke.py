@@ -268,6 +268,18 @@ Phases, in order; any failure exits non-zero:
    AM's shape both kernels' times beside the plain route's and their
    bounds (``mha_cost``).
 
+20. the featureless basis layer's kernels (``ops/basis_kernels.py``
+   ``basis_forward``, ``basis_backward``; ``csrc/basis_kernels.cu``) at
+   the basis cell's shape (N 1,666,764, 267 slots, 11,976,642 uniform
+   edges, 40 bases of 10) against the plain route's autograd on the card:
+   output and the four leaves' gradients, one launch a call, the same
+   bits twice; both passes' times beside the plain route's and their
+   bounds (``basis_cost``, the benchmark's ``basis_calls``). Then a
+   ``FeaturelessModel`` fit through ``Trainer.fit`` at that shape (the
+   step graph's warm-ups, capture and replays): every layer-1 call on the
+   kernels (``basis.fused``, never ``basis.plain``), and each step's
+   launches of both, which the kernels line reports.
+
 ``--only 14,15`` runs the named phases and the earlier ones they read
 (``NEEDS``; 1 and 2 always), then prints their numbers and the last line,
 with no kernels line. With no argument every phase runs. The seconds of
@@ -288,7 +300,8 @@ per-call times across processes and the launches of each child; #3's,
 before it holds the run's other numbers (phase 13's under ``am_shape``,
 phase 14's under ``bench``, phase 15's under ``bench_scaling``, phase
 16's under ``overlap``, phase 17's under ``step_graph``, phase 18's
-under ``node_shard``, phase 19's under ``attention_kernels``; #1's, #2's
+under ``node_shard``, phase 19's under ``attention_kernels``, phase 20's
+under ``basis_kernels``; #1's, #2's
 and #3's ``node_shard_launches``; the attention kernels' entries at AM's
 shape, with phase 10's launches); the last line is ``{"ok": true, "device":
 {...}}``.
@@ -319,7 +332,7 @@ WARMUP = 3
 # cut toward zero on every call gave -4e-8 and moved phase 5's losses)
 MAX_BIAS = 1e-8
 JAX_PKG = "scaling_rgcn_training_tpu/"
-PHASES = tuple(range(1, 20))
+PHASES = tuple(range(1, 21))
 # the earlier phases whose results a phase reads (``--only``)
 NEEDS = {4: (3,), 5: (3,), 6: (3,), 8: (3, 5), 9: (3,), 10: (3,),
          11: (3, 5, 8)}
@@ -2988,6 +3001,180 @@ def attention_phase(launches, reset) -> dict:
     return out
 
 
+# phase 20: the basis layer at the basis cell's shape
+# (rgcn_bench/configs/rgcn_am_paper_basis.json): nodes, slots, edges, bases,
+# width
+BASIS_SHAPE = (1_666_764, 267, 11_976_642, 40, 10)
+
+
+def basis_cost(n, slots, e, bases, h, backward) -> tuple:
+    """(bytes, FLOP) any implementation of a pass must move in float32:
+    the bases read once (and their gradient written, backward), ``comp``
+    (and its gradient), 12 B an edge, the ``[n, h]`` output written (the
+    gradient read, backward); ``2 bases h`` FLOP an edge forward, twice
+    that backward."""
+    k = 2 if backward else 1
+    return (4 * (k * n * bases * h + k * slots * bases + n * h) + 12 * e,
+            2 * k * e * bases * h)
+
+
+def basis_phase(launches, reset) -> dict:
+    """Phase 20: ``ops/basis_kernels.py`` at ``BASIS_SHAPE``: output and
+    the four leaves' gradients against ``basis_conv_plain``'s autograd
+    within ``check_close``'s float32 tolerance, one launch a call, the same
+    bits on two runs; both passes' times beside the plain route's
+    (``time_kernel``) and their bounds (``basis_cost``)."""
+    import torch
+    from scaling_rgcn_training_tpu_torch.ops import basis_kernels as bk
+    from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import build_rel_edges
+
+    n, slots, e, bases, h = BASIS_SHAPE
+    src, dst, typ = random_graph(np.random.default_rng(20), n, e, slots)
+    t0 = time.perf_counter()
+    edges = build_rel_edges(src, dst, typ, n, slots, device=DEV)
+    perm = edges.basis_perm
+    print(f"  basis plan {time.perf_counter() - t0:.1f} s", flush=True)
+    g = torch.Generator(device=DEV).manual_seed(20)
+    leaves = [torch.rand(shape, generator=g, device=DEV) - 0.5 for shape in
+              ((n, bases, h), (slots, bases), (n, h), (h,))]
+    gy = torch.randn((n, h), generator=g, device=DEV)
+    why = bk.refusal(*leaves, edges.span)
+    if why is not None:
+        fail(f"basis: the kernels refuse the cell's shape: {why}")
+    params = [t.clone().requires_grad_() for t in leaves]
+    ref = bk.basis_conv_plain(*params, edges)
+    refs = (ref.detach(), *torch.autograd.grad(ref, params, gy))
+    del ref, params
+    reset()
+    runs = []
+    for _ in range(2):
+        y = bk.basis_forward(*leaves, edges.span, perm)
+        dv, dcomp = bk.basis_backward(gy, leaves[0], leaves[1], edges.span)
+        runs.append((y, dv, dcomp))
+    torch.cuda.synchronize()
+    got = (launches["basis_forward"], launches["basis_backward"])
+    if got != (2, 2):
+        fail(f"basis: launches (basis_forward, basis_backward) {got}, "
+             "expected (2, 2)")
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        fail("basis: two runs gave different bits")
+    errs = {nm: check_close(f"basis {nm}", a, b, False) for nm, a, b in
+            zip(("out", "d_bases", "d_comp"), runs[0], refs)}
+    del runs, refs
+    rec = {"nodes": n, "slots": slots, "edges": e, "bases": bases,
+           "width": h, "max_abs_err": max(errs.values()), "errs": errs}
+    params = [t.clone().requires_grad_() for t in leaves]
+    with torch.enable_grad():
+        yp = bk.basis_conv_plain(*params, edges)
+
+    def plain_forward():
+        with torch.no_grad():
+            return bk.basis_conv_plain(*leaves, edges)
+
+    for kname, kernel, plain, backward in (
+            ("basis_forward", lambda: bk.basis_forward(
+                *leaves, edges.span, perm), plain_forward, False),
+            ("basis_backward", lambda: bk.basis_backward(
+                gy, leaves[0], leaves[1], edges.span),
+             lambda: torch.autograd.grad(yp, params, gy, retain_graph=True),
+             True)):
+        t = time_kernel(kernel, plain, reps=10)
+        n_bytes, flop = basis_cost(n, slots, e, bases, h, backward)
+        rec[kname] = {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                      "bytes": n_bytes, "flop": flop,
+                      **bound(n_bytes, flop, "float32")}
+        print(f"  basis {kname}: {t['ms']:.3f} ms, plain "
+              f"{t['plain_ms']:.3f}, bound {rec[kname]['bound_ms']:.3f} "
+              f"({rec[kname]['bound_by']})", flush=True)
+    del yp, params, leaves
+    torch.cuda.empty_cache()
+    rec["fit"] = basis_fit(edges, launches, reset)
+    return rec
+
+
+# phase 20's fit: epochs (2 eager warm-ups, the capture, replays) and the
+# basis cell's labels, classes, learning rate and L2
+BASIS_FIT = {"epochs": 8, "train": 802, "val": 198, "classes": 11,
+             "lr": 0.01, "weight_decay": 5e-4}
+
+
+def basis_fit(edges, launches, reset) -> dict:
+    """A ``FeaturelessModel`` (``models/heads.py``
+    ``init_featureless_model``) fit through ``Trainer.fit`` on ``edges``
+    at ``BASIS_SHAPE`` with ``BASIS_FIT``'s labels and optimizer, the
+    cross-entropy loss. Every layer-1 call must take the kernels
+    (``basis.fused``, never ``basis.plain``); returns the launches of
+    ``basis_forward`` and ``basis_backward`` of each step (each step's
+    validation and training forwards and one backward), the median
+    ms/step from the first replay and the reserved peak."""
+    import torch
+    from scaling_rgcn_training_tpu_torch.graphs.device import DeviceGraph
+    from scaling_rgcn_training_tpu_torch.models.heads import (
+        init_featureless_model)
+    from scaling_rgcn_training_tpu_torch.train.losses import ce_loss
+    from scaling_rgcn_training_tpu_torch.train.trainer import Trainer
+    from scaling_rgcn_training_tpu_torch.utils import tracing
+
+    n, slots, _, bases, h = BASIS_SHAPE
+    cfg = BASIS_FIT
+    rng = np.random.default_rng(21)
+    labelled = rng.choice(n, cfg["train"] + cfg["val"], replace=False)
+    y = np.eye(cfg["classes"], dtype=np.float32)[
+        rng.integers(0, cfg["classes"], labelled.size)]
+    idx = lambda a: torch.as_tensor(a, dtype=torch.int64, device=DEV)
+    lab = lambda a: torch.as_tensor(a, device=DEV)
+    cut = cfg["train"]
+    graph = DeviceGraph(edges=edges, x_train=idx(labelled[:cut]),
+                        y_train=lab(y[:cut]), x_val=idx(labelled[cut:]),
+                        y_val=lab(y[cut:]))
+    model = init_featureless_model(torch.Generator().manual_seed(21), slots,
+                                   h, cfg["classes"], n, num_bases=bases,
+                                   device=DEV)
+    trainer = Trainer(None, None, cfg["epochs"], None, cfg["lr"],
+                      cfg["weight_decay"], seed=0, device=DEV)
+    stamps, per_step = [], []
+
+    def on_epoch(epoch):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        per_step.append(dict(launches))
+
+    reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps.append(time.perf_counter())
+    per_step.append(dict(launches))
+    before = tracing.counters()
+    _, accs, losses, _, _ = trainer.fit(model, graph, ce_loss, "softmax",
+                                        sum_graph=False, verbose=False,
+                                        on_epoch=on_epoch)
+    calls = {k: tracing.counters().get(k, 0) - before.get(k, 0)
+             for k in ("basis.fused", "basis.plain")}
+    if calls["basis.plain"] or not calls["basis.fused"]:
+        fail(f"basis fit: layer 1 left the kernels: {calls}")
+    if len(losses) != cfg["epochs"] or not all(np.isfinite(losses)):
+        fail(f"basis fit: losses {losses}")
+    kinds = ("basis_forward", "basis_backward")
+    steps = [{k: b[k] - a[k] for k in kinds}
+             for a, b in zip(per_step, per_step[1:])]
+    if any(st != steps[0] for st in steps) or not all(steps[0].values()):
+        fail(f"basis fit: the steps launched {steps}")
+    route = trainer.step_route()
+    if route != "graph":
+        fail(f"basis fit: the step took the {route} route, not the graph")
+    step_ms = statistics.median(np.diff(stamps[WARMUP:]) * 1e3)
+    reserved = torch.cuda.max_memory_reserved() / 2**20
+    print(f"  basis fit ({route}): {step_ms:.3f} ms/step, "
+          f"loss {losses[0]:.6f} -> {losses[-1]:.6f}, calls {calls}, "
+          f"launches a step {steps[0]}, reserved peak {reserved:.0f} MiB",
+          flush=True)
+    del model, trainer, graph
+    torch.cuda.empty_cache()
+    return {"route": route, "calls": calls,
+            "per_step": steps[0], "step_ms": step_ms,
+            "reserved_mib": reserved, "losses": losses}
+
+
 def phases_to_run(argv) -> set:
     """The phases of ``--only N,M,...`` (every phase without it), with the
     phases whose results they read (``NEEDS``); 1 and 2 always run."""
@@ -3359,6 +3546,10 @@ def main(argv=None) -> None:
         phase("19 the attention head's kernels against the plain-op MHA")
         att_kernels = attention_phase(launches, reset)
 
+    if 20 in want:
+        phase("20 the basis layer's kernels against the plain route")
+        basis = basis_phase(launches, reset)
+
     print(f"chip_smoke: phases {sorted(want)} in "
           f"{time.perf_counter() - _T0:.1f} s", flush=True)
     if want != set(PHASES):
@@ -3374,6 +3565,8 @@ def main(argv=None) -> None:
                              else {}),
                           **({"attention_kernels": att_kernels}
                              if 19 in want else {}),
+                          **({"basis_kernels": basis} if 20 in want
+                             else {}),
                           **({"head_launches": head_launches} if 10 in want
                              else {})}),
               flush=True)
@@ -3484,6 +3677,23 @@ def main(argv=None) -> None:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "kernels": kernel_names})
+    # the featureless basis layer's kernels (no Pallas counterpart: the
+    # JAX package materialises the relation weights)
+    for kname, kernel_names in (
+            ("basis_forward", ["basis_msg_kernel", "basis_sum_kernel"]),
+            ("basis_backward", ["basis_bwd_kernel",
+                                "basis_dcomp_chunk_kernel",
+                                "basis_dcomp_reduce_kernel"])):
+        r = basis[kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"{PKG}/csrc/basis_kernels.cu",
+            "replaces": JAX_PKG + "ops/rgcn_conv.py materialize_weight",
+            "launches": basis["fit"]["per_step"][kname],
+            "max_abs_err": basis["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "kernels": kernel_names})
     # the launches of this slice's paths: bench's per timed step (phase
     # 14's float32 line), bench_scaling's over phase 15's drive
     for entry in kernels:
@@ -3528,7 +3738,8 @@ def main(argv=None) -> None:
             for name, rec in multihost.items()},
         "am_shape": am, "bench": bench_res, "bench_scaling": scaling,
         "overlap": overlap, "step_graph": step_graph,
-        "node_shard": node_shard, "attention_kernels": att_kernels}),
+        "node_shard": node_shard, "attention_kernels": att_kernels,
+        "basis_kernels": basis}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

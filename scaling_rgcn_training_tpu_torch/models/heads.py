@@ -16,6 +16,12 @@ Shared trunk: front-end -> rgcn1 (d -> hidden) -> ReLU -> rgcn2
   ``attn_out[0]`` (``models/attention.py`` ``mha_first_query``, which
   computes that row alone on a card).
 
+``FeaturelessModel`` has no front-end and no embedding: the R-GCN paper's
+entity classifier (Schlichtkrull et al. 2018 §5.1; PyG ``RGCNConv`` with
+``x=None``), whose rgcn1 reads the node id through basis weights
+(``ops/rgcn_conv.py`` ``BasisLayer``, bases ``[N, B, hidden]``) and whose
+rgcn2 is a basis-decomposed ``RGCNLayer``.
+
 Linear weights keep torch's ``[out_features, in_features]`` layout, as the
 JAX package does.
 """
@@ -31,7 +37,7 @@ from torch import nn
 from scaling_rgcn_training_tpu_torch.models.attention import (
     MHA, init_mha, mha_first_query)
 from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import (
-    RelEdges, RGCNLayer, init_rgcn_layer, rgcn_conv, uniform)
+    BasisLayer, RelEdges, RGCNLayer, init_rgcn_layer, rgcn_conv, uniform)
 from scaling_rgcn_training_tpu_torch.parallel.mesh import (
     Mesh, NodeRows, node_sharding)
 from scaling_rgcn_training_tpu_torch.utils.tracing import grad_mark, mark
@@ -121,6 +127,57 @@ class ATTModel(_Trunk):
             self.att, self.embedding, num_heads=self.embedding.shape[0],
             dropout_rate=self.dropout if train else 0.0, gen=gen)
         return self.trunk(fused, edges, compute_dtype, backend, aggr)
+
+
+class FeaturelessModel(nn.Module):
+    """rgcn1, a featureless :class:`BasisLayer` over the node id (bases
+    ``[N, B, hidden]``, root ``[N, hidden]``) -> ReLU -> rgcn2, an
+    :class:`RGCNLayer` with ``comp`` (bases ``[B, hidden, C]``). Inside a
+    train step it is marked (``utils/tracing.py``): ``trunk.in`` before
+    rgcn1, ``basis.out`` after it, ``trunk.out`` after rgcn2; in the
+    backward ``basis.grad`` when it reaches rgcn1's output and
+    ``trunk.grad`` when rgcn1's backward ends (``ops/rgcn_conv.py``)."""
+
+    def __init__(self, rgcn1: BasisLayer, rgcn2: RGCNLayer):
+        super().__init__()
+        self.rgcn1 = rgcn1
+        self.rgcn2 = rgcn2
+
+    def forward(self, edges: RelEdges,
+                compute_dtype: Optional[torch.dtype] = None,
+                backend: Optional[str] = None, aggr: str = "mean",
+                train: bool = False,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Logits ``[N, C]``."""
+        mark("trunk.in")
+        x = rgcn_conv(None, edges, self.rgcn1, backend=backend,
+                      compute_dtype=compute_dtype, aggr=aggr)
+        mark("basis.out")
+        x = grad_mark(x, "basis.grad")
+        x = rgcn_conv(torch.relu(x), edges, self.rgcn2, backend=backend,
+                      compute_dtype=compute_dtype, aggr=aggr)
+        mark("trunk.out")
+        return x
+
+
+def init_featureless_model(gen: torch.Generator, num_slots: int, hidden: int,
+                           num_classes: int, num_nodes: int,
+                           num_bases: int = 40,
+                           device="cpu") -> FeaturelessModel:
+    """Random model from ``gen`` as PyG ``RGCNConv.reset_parameters`` draws
+    it, layer by layer: bases, comp and root glorot (U(+-sqrt(6 / (fan_in
+    + fan_out))), the bases' fans ``in`` and ``out``), bias zeros; rgcn1's
+    bases ``[N, num_bases, hidden]`` and root ``[N, hidden]``, rgcn2's
+    ``[num_bases, hidden, C]`` and ``[hidden, C]``."""
+    glorot = lambda shape, fans: uniform(gen, shape, float(np.sqrt(
+        6.0 / fans)))
+    comp = lambda: glorot((num_slots, num_bases), num_slots + num_bases)
+    n, h, c = num_nodes, hidden, num_classes
+    rgcn1 = BasisLayer(glorot((n, num_bases, h), n + h), comp(),
+                       glorot((n, h), n + h), torch.zeros(h))
+    weight, comp2 = glorot((num_bases, h, c), h + c), comp()
+    rgcn2 = RGCNLayer(weight, glorot((h, c), h + c), torch.zeros(c), comp2)
+    return FeaturelessModel(rgcn1, rgcn2).to(device)
 
 
 def _init_trunk(gen, num_slots, emb_dim, hidden, num_classes, num_bases,

@@ -37,7 +37,7 @@ from scaling_rgcn_training_tpu_torch.utils import tracing
 
 SOURCES = ("span_fwd_tc", "span_bwd_tc", "span_kernels", "segment_kernels",
            "grouped_kernels", "halo_kernels", "bwd_variants",
-           "attention_kernels", "step_marks")
+           "attention_kernels", "basis_kernels", "step_marks")
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -53,7 +53,8 @@ LAUNCHES: Dict[str, int] = {
     "halo_exchange": 0, "fused_halo_aggregate": 0,
     "fused_halo_aggregate_rows": 0,
     "span_backward_variant": 0, "span_backward_variant_simt": 0,
-    "mha_forward": 0, "mha_backward": 0}
+    "mha_forward": 0, "mha_backward": 0, "basis_forward": 0,
+    "basis_backward": 0}
 
 # ptxas report (registers, shared memory, spills) of each source built by
 # this process

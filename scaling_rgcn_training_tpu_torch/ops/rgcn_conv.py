@@ -28,6 +28,10 @@ backend; the backend picks the grouped matmul. ``mode="auto"`` picks
 ``fused`` where the edges carry the span plan and the span kernels take the
 widths, and otherwise the JAX package's traffic rule. ``aggr="attention"`` runs ``ops/sddmm.py``.
 
+A layer with no input (``x=None``: a featureless first layer, which reads
+the node id; a :class:`BasisLayer` over ``[N, B, out]`` bases) runs
+``ops/basis_kernels.py``, which never materialises ``[R, N, out]``.
+
 Weights keep the JAX layout ``weight [R, in, out]``, ``root [in, out]``,
 ``bias [out]``, so the two packages compare like with like.
 """
@@ -43,6 +47,8 @@ import torch
 from torch import nn
 
 from scaling_rgcn_training_tpu_torch.ops import span_kernels
+from scaling_rgcn_training_tpu_torch.ops.basis_kernels import (
+    basis_conv, dst_to_src_positions)
 from scaling_rgcn_training_tpu_torch.ops.grouped_kernels import gmm_drhs
 from scaling_rgcn_training_tpu_torch.ops.grouped_matmul import grouped_matmul
 from scaling_rgcn_training_tpu_torch.ops.sddmm import attention_aggregate
@@ -78,7 +84,9 @@ class RelEdges:
     ``rel`` and the permutations ``dst_perm``/``src_perm`` (relation order
     -> dst- or src-sorted order) only serve the non-fused dataflows: they
     are built on the edges' device at first use, so the fused dataflow
-    never holds them.
+    never holds them. ``basis_perm`` (each dst-sorted edge's position in
+    the span plan's src-sorted order) likewise serves the featureless basis
+    layer's kernels alone.
     """
 
     num_nodes: int
@@ -111,6 +119,11 @@ class RelEdges:
     @functools.cached_property
     def src_perm(self) -> torch.Tensor:
         return torch.argsort(self.src, stable=True).to(torch.int32)
+
+    @functools.cached_property
+    def basis_perm(self) -> torch.Tensor:
+        with tracing.span("plan.basis"):
+            return dst_to_src_positions(self.span)
 
 
 def plan_edges(src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
@@ -204,6 +217,25 @@ class RGCNLayer(nn.Module):
         self.root = nn.Parameter(root)
         self.bias = nn.Parameter(bias)
         self.comp = None if comp is None else nn.Parameter(comp)
+
+
+class BasisLayer(nn.Module):
+    """A featureless first layer, which reads the node id (PyG
+    ``RGCNConv`` with ``x=None`` and ``num_bases``), under PyG's leaf names:
+    ``bases [N, B, out]`` (PyG's ``weight[b, i]`` is ``bases[i, b]``; a
+    node's ``B x out`` block is contiguous, the basis kernels' layout),
+    ``comp [R, B]``, ``root [N, out]``, ``bias [out]``. Relation ``r``'s
+    weight is ``sum_b comp[r, b] bases[:, b]``, never materialised
+    (``rgcn_conv`` with ``x=None``). A basis layer with an input is an
+    :class:`RGCNLayer` with ``comp``."""
+
+    def __init__(self, bases: torch.Tensor, comp: torch.Tensor,
+                 root: torch.Tensor, bias: torch.Tensor):
+        super().__init__()
+        self.bases = nn.Parameter(bases)
+        self.comp = nn.Parameter(comp)
+        self.root = nn.Parameter(root)
+        self.bias = nn.Parameter(bias)
 
 
 def materialize_weight(layer: RGCNLayer) -> torch.Tensor:
@@ -361,7 +393,7 @@ def auto_mode(edges: RelEdges, d_in: int, d_out: int) -> str:
                               edges.num_edges, d_in, d_out)
 
 
-def rgcn_conv(x: torch.Tensor, edges: RelEdges, layer: RGCNLayer,
+def rgcn_conv(x: Optional[torch.Tensor], edges: RelEdges, layer: RGCNLayer,
               backend: Optional[str] = None, mode: str = "auto",
               compute_dtype: Optional[torch.dtype] = None,
               aggr: str = "mean") -> torch.Tensor:
@@ -384,8 +416,24 @@ def rgcn_conv(x: torch.Tensor, edges: RelEdges, layer: RGCNLayer,
     never need to know whether they are distributed; ``x`` and the result
     stay one tensor (the halo conv's node-sharded rows are split from it
     and gathered back onto its device).
+
+    ``x=None``: a featureless layer over the node id (``layer`` a
+    :class:`BasisLayer` with ``[N, B, out]`` bases; mean aggregation on one
+    device), ``ops/basis_kernels.py`` ``basis_conv``, in the bases'
+    float32 whatever ``compute_dtype``. Its backward's end is marked
+    ``trunk.grad`` on the way to ``comp`` (``utils/tracing.py``
+    ``grad_mark``): the layer has no input to mark.
     """
     kind = type(edges).__name__
+    if x is None:
+        if not isinstance(layer, BasisLayer) or aggr != "mean" or \
+                not isinstance(edges, RelEdges):
+            raise ValueError("x=None takes a BasisLayer, aggr='mean' and "
+                             f"single-device edges; got {type(layer).__name__}"
+                             f", {kind}, aggr {aggr!r}")
+        return basis_conv(edges, layer.bases,
+                          tracing.grad_mark(layer.comp, "trunk.grad"),
+                          layer.root, layer.bias)
     if kind in ("ShardedRelEdges", "HaloShardedEdges"):
         from scaling_rgcn_training_tpu_torch.parallel.mesh import current_mesh
 

@@ -42,8 +42,12 @@ methods as module functions), always on:
   (``ops/cuda_build.py``); ``fit``, ``fit.prepare``, ``fit.callback`` and
   ``fit.readback`` (``train/trainer.py``); ``fit.warmup``,
   ``fit.capture``, ``fit.step``, ``fit.drain`` (the card's wait for the
-  queued steps) and ``fit.close`` (``train/step_graph.py``). Counters:
-  ``kernel_builds``, ``plan.max_row_edges``.
+  queued steps) and ``fit.close`` (``train/step_graph.py``);
+  ``plan.basis`` (``ops/rgcn_conv.py``, the basis kernels' edge order, at
+  their first call). Counters: ``kernel_builds``, ``plan.max_row_edges``,
+  and one a call of each route: ``att.fused``, ``att.plain``
+  (``models/attention.py``), ``basis.fused``, ``basis.plain``
+  (``ops/basis_kernels.py``).
 - ``mark(name)``: a device stamp inside a running step of a
   ``StepGraph`` (``train/step_graph.py``), a no-op outside one. On a card
   it launches ``step_mark_kernel`` (``csrc/step_marks.cu``, one thread) on
@@ -58,12 +62,19 @@ methods as module functions), always on:
   its interval merges into the next one. The step's marks:
   ``step.start``, ``trunk.in``, ``trunk.out`` (the validation forward),
   ``trunk.in``, ``trunk.out`` (the training forward), ``loss``,
-  ``trunk.grad``, ``backward``, ``optimizer``, ``step.end``.
+  ``trunk.grad``, ``backward``, ``optimizer``, ``step.end``. A
+  featureless model (``models/heads.py`` ``FeaturelessModel``) marks
+  ``basis.out`` after its basis layer in both forwards and ``basis.grad``
+  before ``trunk.grad``, which then stamps the end of that layer's
+  backward (it has no input to mark).
 - At a fit's end the trainer reads the stamps back with the step outputs
   and records each epoch's layers (:func:`step_layers`): conv
-  (``trunk.in`` to ``trunk.out`` and ``loss`` to ``trunk.grad``),
-  optimizer (``backward`` to ``optimizer``) and heads (the rest), which
-  add up exactly to the epoch's ``step.start`` to ``step.end``.
+  (``trunk.in`` to ``trunk.out`` and ``loss`` to ``trunk.grad``, through
+  ``basis.out`` and ``basis.grad`` where they lie between), optimizer
+  (``backward`` to ``optimizer``) and heads (the rest), which add up
+  exactly to the epoch's ``step.start`` to ``step.end``; and, of the conv,
+  the basis layer (``trunk.in`` to ``basis.out``, ``basis.grad`` to
+  ``trunk.grad``) where the step has it.
 - The clock: a fit takes one offset between ``%globaltimer`` and the host
   clock (:func:`clock_offset`: one eager mark between two host reads
   around a synchronise) and records it with its uncertainty, half the
@@ -137,7 +148,13 @@ LOOSE_KEPT = 4096
 MAX_SLOTS = 16
 # the intervals between two reached marks that are the conv's and the
 # optimizer's; every other interval of a step is the heads'
-CONV_INTERVALS = frozenset({("trunk.in", "trunk.out"), ("loss", "trunk.grad")})
+CONV_INTERVALS = frozenset({
+    ("trunk.in", "trunk.out"), ("loss", "trunk.grad"),
+    ("trunk.in", "basis.out"), ("basis.out", "trunk.out"),
+    ("loss", "basis.grad"), ("basis.grad", "trunk.grad")})
+# the conv's intervals that are a featureless model's basis layer
+BASIS_INTERVALS = frozenset({("trunk.in", "basis.out"),
+                             ("basis.grad", "trunk.grad")})
 ADAM_INTERVALS = frozenset({("backward", "optimizer")})
 # a fit's start: the host's spans besides its replays, the card's wait for
 # them (``fit.drain``) and its caller's ``on_epoch`` (see fit_start_ns)
@@ -292,7 +309,9 @@ def step_layers(names: Sequence[str], stamps: Sequence[int]) -> Dict[str, int]:
     ``step.start`` and ``step.end``), and ``conv_ns``, ``head_ns`` and
     ``adam_ns``: each interval between two consecutive reached marks by
     ``CONV_INTERVALS`` and ``ADAM_INTERVALS``, else the heads'. The three
-    add up to ``end_ns - start_ns`` exactly."""
+    add up to ``end_ns - start_ns`` exactly. Where the step reached a
+    ``BASIS_INTERVALS`` pair, ``basis_ns``: those intervals, a part of
+    ``conv_ns``."""
     reached = [(n, int(t)) for n, t in zip(names, stamps) if t]
     out = {"start_ns": reached[0][1] if reached else 0,
            "end_ns": reached[-1][1] if reached else 0,
@@ -301,21 +320,26 @@ def step_layers(names: Sequence[str], stamps: Sequence[int]) -> Dict[str, int]:
         layer = "conv_ns" if (a, b) in CONV_INTERVALS else \
             "adam_ns" if (a, b) in ADAM_INTERVALS else "head_ns"
         out[layer] += hi - lo
+        if (a, b) in BASIS_INTERVALS:
+            out["basis_ns"] = out.get("basis_ns", 0) + hi - lo
     return out
 
 
 def replay_layers(fit: Optional[int] = None) -> Dict[str, List[int]]:
     """Over the replayed epochs (of ``fit``, or of every fit kept): each
-    one's ``conv``, ``head`` and ``adam`` ns, and ``between``: from a
+    one's ``conv``, ``head`` and ``adam`` ns, ``basis`` (the replays with
+    a basis layer: its ns, a part of ``conv``), and ``between``: from a
     replay's ``step.end`` to the ``step.start`` of the fit's next epoch,
     where that is a replay too."""
     out: Dict[str, List[int]] = {"conv": [], "head": [], "adam": [],
-                                 "between": []}
+                                 "basis": [], "between": []}
     records = epochs() if fit is None else epochs(fit)
     for r in records:
         if r["kind"] == "replay":
             for layer in ("conv", "head", "adam"):
                 out[layer].append(r[f"{layer}_ns"])
+            if "basis_ns" in r:
+                out["basis"].append(r["basis_ns"])
     for a, b in zip(records, records[1:]):
         if a["kind"] == b["kind"] == "replay" and a["fit"] == b["fit"] \
                 and b["epoch"] == a["epoch"] + 1:

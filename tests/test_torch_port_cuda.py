@@ -1559,3 +1559,89 @@ def test_cuda_mha_first_query_strided_input_is_fused():
         outs.append((y.detach(), *torch.autograd.grad(y, params, gy)))
     assert tracing.counters().get("att.plain", 0) == plain
     assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def _basis_case(B, H, n=700, e=6000, slots=29, seed=0):
+    """A graph whose rows have 0, 1 and many edges (node 0 sends and takes
+    a tenth of them, nodes past ``n - 50`` none, node ``n - 51`` exactly
+    one each way) and a featureless basis layer's float32 leaves (bases
+    ``[n, B, H]``)."""
+    from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import build_rel_edges
+
+    rng = np.random.default_rng(seed)
+    live = n - 51
+    src = rng.integers(1, live, e).astype(np.int32)
+    dst = rng.integers(1, live, e).astype(np.int32)
+    hub = rng.random(e) < 0.1
+    src[hub], dst[rng.random(e) < 0.1] = 0, 0
+    src[:1], dst[1:2] = live, live
+    typ = rng.integers(0, slots, e).astype(np.int32)
+    typ[typ % 7 == 3] = 5           # some relations without edges
+    edges = build_rel_edges(src, dst, typ, n, slots, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    leaf = lambda *shape: torch.rand(shape, generator=g, device="cuda") - 0.5
+    return edges, (leaf(n, B, H), leaf(slots, B), leaf(n, H), leaf(H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H", [(40, 10), (3, 6), (33, 1), (64, 16),
+                                 (17, 11)])
+def test_cuda_basis_kernels_match_plain(B, H):
+    """``ops/basis_kernels.py``: the layer's output and the gradients of
+    its four leaves from the kernels against the plain route's autograd
+    on the card, on rows of 0, 1 and many edges; one launch a call each
+    way; the same bits on two runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scaling_rgcn_training_tpu_torch.ops import basis_kernels as bk
+
+    edges, leaves = _basis_case(B, H)
+    assert bk.refusal(*leaves, edges.span) is None
+    gy = torch.randn(leaves[2].shape, device="cuda")
+    params = [t.clone().requires_grad_() for t in leaves]
+    want = bk.basis_conv_plain(*params, edges)
+    refs = (want.detach(), *torch.autograd.grad(want, params, gy))
+    runs = []
+    before = dict(cuda_build.LAUNCHES)
+    for _ in range(2):
+        params = [t.clone().requires_grad_() for t in leaves]
+        got = bk.basis_conv(edges, *params)
+        runs.append((got.detach(), *torch.autograd.grad(got, params, gy)))
+    assert cuda_build.LAUNCHES["basis_forward"] == \
+        before["basis_forward"] + 2
+    assert cuda_build.LAUNCHES["basis_backward"] == \
+        before["basis_backward"] + 2
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    for a, b in zip(runs[0], refs):
+        tol = 1e-4 * float(b.abs().max())
+        assert torch.allclose(a, b, rtol=1e-4, atol=tol)
+    # the node with no edges: root + bias, and no gradient on its bases
+    assert torch.equal(runs[0][0][-1], leaves[2][-1] + leaves[3])
+    assert not runs[0][1][-1].any()
+
+
+@pytest.mark.cuda
+def test_cuda_basis_conv_refuses_what_the_kernels_cannot_take():
+    """On a card ``basis_conv`` never takes the plain route: too many
+    bases, too wide an output, a float64 leaf or edges without the span
+    plan raise a ValueError that names the limit, and count no call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scaling_rgcn_training_tpu_torch.ops import basis_kernels as bk
+    from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import build_rel_edges
+    from scaling_rgcn_training_tpu_torch.utils import tracing
+
+    edges, leaves = _basis_case(4, 4)
+    no_span = build_rel_edges(
+        *(t.cpu().numpy() for t in (edges.src, edges.dst, edges.rel)),
+        edges.num_nodes, edges.num_slots, device="cuda", span=False)
+    float64 = (leaves[0].double(), *leaves[1:])
+    tracing.reset()
+    for (e, layer), words in ((_basis_case(65, 4), "65 bases"),
+                              (_basis_case(4, 17), "width 17"),
+                              ((edges, float64), "float64"),
+                              ((no_span, leaves), "no span plan")):
+        with pytest.raises(ValueError, match=words):
+            bk.basis_conv(e, *layer)
+    assert not any(k.startswith("basis.") for k in tracing.counters())
+    tracing.reset()

@@ -10,12 +10,15 @@ of the JAX heads module's ``mha_self_attention``; no JAX file changes);
 the port's dropout is checked by its mean and its determinism under one
 seed. ``mha_first_query`` (the attention model's route) is checked for
 its route counters and its generator's state, and the fused kernels'
-algebra, written here in plain tensor ops, against autograd in float64. Tolerances: attention and
+algebra, written here in plain tensor ops, against autograd in float64.
+The featureless basis model (``FeaturelessModel``) against the JAX
+package's basis ``rgcn_conv`` over the one-hot input. Tolerances: attention and
 logits float32 rtol 1e-5 with atol 1e-6
 (summation order); gradients rtol 1e-4 with atol 1e-6 * max|ref|; loss
 series rtol 1e-4 and final parameters as in ``test_torch_port_train.py``.
 """
 
+import importlib
 import math
 import os
 from types import SimpleNamespace
@@ -418,3 +421,68 @@ def test_trainer_dropout_is_seeded():
     _, after = fit(0, "mlp")
     assert after == int(torch.randint(0, 2**30, (1,),
                                       generator=torch.Generator().manual_seed(0)))
+
+
+def test_featureless_model_matches_jax():
+    """``FeaturelessModel`` (its basis layer on the CPU's plain route)
+    against the JAX package's basis ``rgcn_conv`` over ``x = eye(N)``,
+    which computes the R-GCN paper's featureless layer 1, ``root[i] + bias
+    + sum_r mean_j sum_b comp[r, b] V[b, j]``, then its ordinary basis
+    layer 2. JAX's ``init_rgcn_layer`` draws the bases (``[B, N, h]``,
+    carried across as the port's ``[N, B, h]``; ``[B, h, C]`` as they are)
+    and ``comp``; the biases are drawn non-zero. Logits, the cross-entropy
+    loss on the training rows and every leaf's gradient, float32 on both
+    sides, at the module's tolerances."""
+    from scaling_rgcn_training_tpu_torch.ops.rgcn_conv import (
+        BasisLayer, RGCNLayer)
+
+    # the JAX ops package exports the function rgcn_conv under the
+    # module's name
+    jconv = importlib.import_module("scaling_rgcn_training_tpu.ops.rgcn_conv")
+    g = _graph(5)
+    n, slots, c, bases, hid = (g.num_nodes, g.num_relation_slots,
+                               g.num_classes, 5, 6)
+    rng = np.random.default_rng(5)
+    layers = [jconv.init_rgcn_layer(jax.random.key(i), slots, d_in, d_out,
+                                    num_bases=bases)._replace(
+        bias=jnp.asarray(rng.standard_normal(d_out).astype(np.float32)))
+              for i, (d_in, d_out) in enumerate(((n, hid), (hid, c)))]
+    jedges = j_build(g).edges
+    eye = jnp.eye(n, dtype=jnp.float32)
+    rows, y = g.x_train, g.y_train
+
+    def jloss(l1, l2):
+        h = jax.nn.relu(jconv.rgcn_conv(eye, jedges, l1, backend="gather"))
+        logits = jconv.rgcn_conv(h, jedges, l2, backend="gather")
+        return jlosses.ce_loss(logits[rows], jnp.asarray(y)), logits
+
+    (ref_loss, ref_logits), (g1, g2) = jax.value_and_grad(
+        jloss, (0, 1), has_aux=True)(*layers)
+
+    t = lambda a: torch.tensor(np.asarray(a))
+    l1, l2 = layers
+    model = theads.FeaturelessModel(
+        BasisLayer(t(l1.weight).transpose(0, 1).contiguous(), t(l1.comp),
+                   t(l1.root), t(l1.bias)),
+        RGCNLayer(t(l2.weight), t(l2.root), t(l2.bias), t(l2.comp)))
+    tracing.reset()
+    logits = model(t_build(g, "cpu").edges)
+    assert tracing.counters().get("basis.plain") == 1
+    tracing.reset()
+    loss = tlosses.ce_loss(logits[torch.as_tensor(rows, dtype=torch.long)],
+                           torch.tensor(y))
+    loss.backward()
+    np.testing.assert_allclose(logits.detach().numpy(),
+                               np.asarray(ref_logits), rtol=1e-5, atol=1e-6)
+    assert float(loss.detach()) == pytest.approx(float(ref_loss), rel=1e-5)
+    want = {"rgcn1.bases": np.asarray(g1.weight).transpose(1, 0, 2),
+            **{f"rgcn1.{k}": np.asarray(getattr(g1, k))
+               for k in ("comp", "root", "bias")},
+            **{f"rgcn2.{k}": np.asarray(getattr(g2, k))
+               for k in ("weight", "comp", "root", "bias")}}
+    got = {k: p.grad.numpy() for k, p in model.named_parameters()}
+    assert set(got) == set(want)
+    for k, ref in want.items():
+        assert np.abs(ref).max() > 0, k
+        np.testing.assert_allclose(got[k], ref, rtol=1e-4,
+                                   atol=1e-6 * np.abs(ref).max(), err_msg=k)
